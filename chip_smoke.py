@@ -1,0 +1,590 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/H100 port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. ``env``      — card, torch/CUDA versions, and the build of every kernel
+                  from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a).
+2. ``kernels``  — K1..K4 against their plain versions on the card at the
+                  main path's shapes (K1/K2 bitwise, K3 within tolerance, K4
+                  bitwise against K3 per slice).
+3. ``default``  — the main path at full size with default options:
+                  ``bordered_block_diagonal(20_000, block=16, border=64,
+                  seed=3)`` with ``LUOptions(concurrency=512)``: analyze
+                  (no device argument: the card), factorize, refactorize,
+                  solve with (n,) and (n, 4) right-hand sides.
+4. ``kernel_path`` — the same matrix with ``backend="kernel",
+                  numeric_backend="kernel"``: structure bitwise equal to
+                  phase 3, factors within 1e-4, every kernel seen by
+                  ``torch.profiler`` (over analyze and the first
+                  factorize) and by the launch counters.
+5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
+                  refactorize and a (n, 4) solve (default options), once
+                  more under ``torch.profiler``: wall time, device busy
+                  time, idle share and the top kernels.
+6. ``reference`` — a small matrix against dense numpy (L @ U = A, solve)
+                  and against the port run on the CPU (bitwise structure).
+
+Then a ``kernel_shapes`` line (the main path's shapes the kernels are timed
+at), one ``kernels`` line (each kernel's time beside its bound), the card's
+name and power limit, and the final ``{"ok": true, ...}``.
+The launch counters are reset just before each of phases 3 and 4 and read
+just after it, so each path reports its own launches (phase 3: K2 only;
+phase 4: K1..K4, the counts in the ``kernels`` line), split by stage in
+``launches_by_stage``; the comparison and
+timing launches of phase 2, phases 5 and 6 and the per-kernel timings are
+not counted.
+"""
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+_T0 = time.perf_counter()        # each phase line carries its time since start
+N_LARGE, BLOCK, BORDER, SEED, CONCURRENCY = 20_000, 16, 64, 3, 512
+# H100 SXM published peaks (NVIDIA's data sheet, dense, at 700 W): HBM
+# bandwidth, and the non-tensor-core float32 rate, applied to the int32
+# min/compare ops of K1/K2 too (an optimistic rate, so the bound stays a
+# lower bound)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+SOURCES = {
+    "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
+                     "src/repro/kernels/gsofa_relax.py:60"),
+    "column_fingerprints": (
+        "src/repro_torch/kernels/csrc/column_fingerprints.cu",
+        "src/repro/kernels/supernode_fp.py:87"),
+    "panel_update": ("src/repro_torch/kernels/csrc/panel_update.cu",
+                     "src/repro/kernels/panel_update.py:53"),
+    "panel_update_batched": ("src/repro_torch/kernels/csrc/panel_update.cu",
+                             "src/repro/kernels/panel_update.py:86"),
+}
+
+
+def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(torch, fn, *, inner: int = 1, reps: int = 5,
+            warmup: int = 1) -> float:
+    """Median device milliseconds of one ``fn()`` call, from CUDA events
+    around ``inner`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def csr_of(a, values):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((values, a.indices.astype("int64"), a.indptr),
+                         shape=(a.n, a.n))
+
+
+def host_residual(a, values, x, b) -> float:
+    """max over columns of ||b - A x|| / ||b||, in numpy on the host."""
+    import numpy as np
+
+    x = x.cpu().numpy()
+    r = b - csr_of(a, values) @ x
+    return float(np.max(np.linalg.norm(r, axis=0)
+                        / np.linalg.norm(b, axis=0)))
+
+
+def kernel_checks(torch, ops, plain, adj_real):
+    """Phase 2: every kernel against its plain version on the card."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    inf = plain.INF
+    out = {}
+
+    # K1 at S=512, U=V=4096 (random adjacency) and at the main path's
+    # shape (the bbd-20k dense adjacency, U=V=20096)
+    for tag, adj in (("4096", torch.as_tensor(
+            (rng.random((4096, 4096)) < 0.01).astype(np.uint8), device=dev)),
+            ("bbd", adj_real)):
+        u = adj.shape[0]
+        prop = rng.integers(-1, u + 2, size=(512, u)).astype(np.int32)
+        prop[rng.random(prop.shape) < 0.3] = inf
+        prop = torch.as_tensor(prop, device=dev)
+        got = ops.minmax_relax(prop, adj)
+        want = plain.minmax_relax_plain(prop, adj)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K1 ({tag}) differs from plain")
+        out[f"K1_{tag}_bitwise"] = True
+
+    # K2 at S=512, V=20000, hashes spanning the whole int32 range
+    s, v = 512, N_LARGE
+    rel = torch.as_tensor(rng.integers(-1, v + 2, size=(s, v)).astype(
+        np.int32), device=dev)
+    src = torch.as_tensor(rng.integers(0, v, size=s).astype(np.int32),
+                          device=dev)
+    m1, m2 = (torch.as_tensor(rng.integers(0, 2 ** 32, size=s,
+                                           dtype=np.uint64).astype(
+        np.uint32).view(np.int32), device=dev) for _ in range(2))
+    valid = torch.as_tensor((rng.random(s) < 0.9).astype(np.int32),
+                            device=dev)
+    got = ops.column_fingerprints(rel, src, m1, m2, valid)
+    want = plain.column_fingerprints_plain(rel, src, m1, m2, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K2 differs from plain")
+    out["K2_bitwise"] = True
+
+    # K3 at a ragged and a 128-multiple shape; K4 bitwise vs K3 per slice
+    for m, k, n in ((200, 96, 70), (256, 128, 128)):
+        acc, lp, up = (torch.as_tensor(rng.standard_normal(sh).astype(
+            np.float32), device=dev) for sh in ((m, n), (m, k), (k, n)))
+        err, tol = k3_error(torch, ops, plain, acc, lp, up)
+        check(err <= tol, f"K3 {m}x{k}x{n}: err {err} > tol {tol}")
+        out[f"K3_{m}x{k}x{n}_err"] = err
+        out[f"K3_{m}x{k}x{n}_tol"] = tol
+        check(k4_bitwise(torch, ops, rng, 5, m, k, n), "K4 != K3 per slice")
+    out["K4_bitwise_vs_K3"] = True
+    return out
+
+
+def k3_error(torch, ops, plain, acc, lp, up):
+    """(max |K3 - plain|, atol = 2e-6 * K * max|L| * max|U|)."""
+    got = ops.panel_update(acc, lp, up)
+    want = plain.panel_update_plain(acc, lp, up)
+    torch.cuda.synchronize()
+    tol = 2e-6 * lp.shape[1] * float(lp.abs().max()) * float(up.abs().max())
+    return float((got - want).abs().max()), tol
+
+
+def k4_bitwise(torch, ops, rng, b, m, k, n) -> bool:
+    import numpy as np
+
+    dev = torch.device("cuda")
+    acc, lp, up = (torch.as_tensor(rng.standard_normal(sh).astype(
+        np.float32), device=dev) for sh in ((b, m, n), (b, m, k), (b, k, n)))
+    got = ops.panel_update_batched(acc, lp, up)
+    return all(torch.equal(got[i], ops.panel_update(acc[i], lp[i], up[i]))
+               for i in range(b))
+
+
+def gemm_shapes(plan):
+    """(level, panel, M, K, N) of every trailing GEMM of the plan's sweep."""
+    st, sched = plan.store_template, plan.schedule
+    out = []
+    for li, level in enumerate(sched.levels):
+        for j in level:
+            maps = plan.gather_maps[j]
+            if maps is None:
+                continue
+            s, e = sched.supernodes[j]
+            out.append((li, int(j), len(st.rows[j]) - int(st.diag[j]),
+                        len(maps.anc_rows), int(e - s)))
+    return out
+
+
+def run_path(torch, repro_torch, a, values, opts, *, device=None,
+             profile_head=False):
+    """analyze -> factorize -> refactorize -> solve (n,) and (n, 4).  With
+    ``profile_head`` the analyze and the first factorize, which launch every
+    kernel of the path, run under torch.profiler; the kernels it saw come
+    back as ``res["profiler"]``."""
+    import numpy as np
+    from repro_torch.kernels import ops
+
+    snaps = [ops.launch_counts()]      # read only: each stage's launches
+
+    def head():
+        t0 = time.perf_counter()
+        plan = (repro_torch.analyze(a, opts) if device is None
+                else repro_torch.analyze(a, opts, device=device))
+        torch.cuda.synchronize()
+        t_an = time.perf_counter() - t0
+        snaps.append(ops.launch_counts())
+        t0 = time.perf_counter()
+        factor = plan.factorize(values)
+        torch.cuda.synchronize()
+        snaps.append(ops.launch_counts())
+        return plan, factor, t_an, time.perf_counter() - t0
+
+    seen = None
+    if profile_head:
+        seen, (plan, factor, t_an, t_f) = profile_kernels(torch, head)
+    else:
+        plan, factor, t_an, t_f = head()
+    ptr = factor.store.flat.data_ptr()
+    t0 = time.perf_counter()
+    factor = factor.refactorize(values)
+    torch.cuda.synchronize()
+    t_rf = time.perf_counter() - t0
+    snaps.append(ops.launch_counts())
+    check(factor.store.flat.data_ptr() == ptr,
+          "refactorize did not reuse the device buffers")
+    rng = np.random.default_rng(42)
+    b1 = rng.standard_normal(a.n)
+    b4 = rng.standard_normal((a.n, 4))
+    t0 = time.perf_counter()
+    s1 = factor.solve(b1)
+    s4 = factor.solve(b4)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    snaps.append(ops.launch_counts())
+    for s, b in ((s1, b1), (s4, b4)):
+        check(tuple(s.x.shape) == b.shape and bool(torch.isfinite(s.x).all()),
+              "solve returned a wrong shape or non-finite values")
+        check(all(x >= y for x, y in zip(s.residuals, s.residuals[1:])),
+              f"refinement history increased: {s.residuals}")
+    res = {
+        "analyze_s": t_an, "factorize_s": t_f, "refactorize_s": t_rf,
+        "solve_s": t_s, "lu_nnz": plan.lu_nnz,
+        "n_supernodes": plan.n_supernodes, "n_levels": plan.n_levels,
+        "supersteps": plan.sym.supersteps,
+        "residual_n": s1.residual, "residual_n4": s4.residual,
+        "host_residual_n": host_residual(a, values, s1.x[:, None],
+                                         b1[:, None]),
+        "host_residual_n4": host_residual(a, values, s4.x, b4),
+        "launches_by_stage": {
+            stage: {k: after[k] - before[k] for k in after}
+            for stage, before, after in zip(
+                ("analyze", "factorize", "refactorize", "solve"),
+                snaps, snaps[1:])},
+    }
+    if seen is not None:
+        res["profiler"] = seen
+    return plan, factor, res
+
+
+def reference_check(torch, repro_torch, sparse, generic_values_csr):
+    """Phase 5: a small system against dense numpy and the CPU port."""
+    import numpy as np
+
+    a = sparse.bordered_block_diagonal(600, block=16, border=16, seed=1)
+    values = generic_values_csr(a)
+    dense = csr_of(a, values).toarray()
+    out = {}
+    plans = {}
+    for dev in ("cuda", "cpu"):
+        opts = repro_torch.LUOptions(concurrency=128, backend="kernel",
+                                     numeric_backend="numpy")
+        plan = repro_torch.analyze(a, opts, device=dev)
+        factor = plan.factorize(values)
+        plans[dev] = (plan, factor)
+    (pg, fg), (pc, fc) = plans["cuda"], plans["cpu"]
+    check(np.array_equal(pg.sym.l_counts, pc.sym.l_counts)
+          and np.array_equal(pg.sym.u_counts, pc.sym.u_counts)
+          and np.array_equal(pg.sym.supernodes, pc.sym.supernodes)
+          and np.array_equal(pg.pattern.rowind, pc.pattern.rowind),
+          "card and CPU symbolic results differ")
+    lu = fg.l @ fg.u
+    out["lu_rel_err"] = float(np.abs(lu - dense).max() / np.abs(dense).max())
+    check(out["lu_rel_err"] <= 1e-12, f"L@U != A: {out['lu_rel_err']}")
+    out["card_vs_cpu_factor_rel"] = float(
+        (fg.store.flat.cpu() - fc.store.flat).abs().max()
+        / fc.store.flat.abs().max())
+    check(out["card_vs_cpu_factor_rel"] <= 1e-12, "card vs CPU factors")
+    b = np.random.default_rng(3).standard_normal(a.n)
+    x = fg.solve(b).x.cpu().numpy()
+    xr = np.linalg.solve(dense, b)
+    out["solve_rel_err"] = float(np.abs(x - xr).max() / np.abs(xr).max())
+    check(out["solve_rel_err"] <= 1e-10, f"solve vs numpy {out}")
+    return out
+
+
+def profile_kernels(torch, fn):
+    """Run ``fn`` under torch.profiler; return ({kernel name: (calls,
+    device ms)}, fn's result)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for ev in prof.key_averages():
+        for name in ("minmax_relax_kernel", "column_fingerprints_kernel",
+                     "panel_update_kernel<false>",
+                     "panel_update_kernel<true>"):
+            if name in ev.key:
+                dev_us = (ev.device_time_total
+                          if hasattr(ev, "device_time_total")
+                          else ev.cuda_time_total)
+                calls, ms = seen.get(name, (0, 0.0))
+                seen[name] = (calls + ev.count, ms + dev_us / 1e3)
+    return seen, result
+
+
+def busy_ms(prof) -> float:
+    """Device milliseconds of every kernel, copy and fill in a profile (one
+    stream, so they never overlap)."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)) / 1e3
+
+
+def top_kernels(prof, k: int = 5):
+    """The ``k`` device events with the most time: [name, calls, ms]."""
+    from torch.autograd import DeviceType
+
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
+    evs.sort(key=lambda ev: ev.device_time_total, reverse=True)
+    return [[ev.key[:80], ev.count, ev.device_time_total / 1e3]
+            for ev in evs[:k]]
+
+
+def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
+    """Stages of the main path once more, each under torch.profiler: its
+    wall time (profiler on), the device's busy time, the idle share and the
+    kernels that took the most device time.  ``analyze`` always; with
+    ``sweep`` also ``refactorize`` (the panel sweep of every factorization)
+    and a (n, 4) solve.  Profiling costs time per launch, and the sweep
+    launches some 10^5 kernels, so the callers pick the stages."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    b4 = np.random.default_rng(7).standard_normal((a.n, 4))
+    out = {}
+
+    def stage(name, fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = busy_ms(prof)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / wall,
+                     "top": top_kernels(prof)}
+        return result
+
+    plan = stage("analyze", lambda: repro_torch.analyze(a, opts))
+    if sweep:
+        factor = plan.factorize(values)
+        stage("refactorize", lambda: factor.refactorize(values))
+        stage("solve_n4", lambda: factor.solve(b4))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch next to {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    import repro_torch
+    from repro_torch import sparse
+    from repro_torch.core.gsofa import prepare_graph
+    from repro_torch.kernels import _build, ops, plain
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    built = _build.build()
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "built": sorted(built), "build_s": time.perf_counter() - t0})
+
+    a = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
+                                       seed=SEED)
+    adj = prepare_graph(a, dense_block=128, device="cuda").adj_dense
+    emit({"phase": "kernels", **kernel_checks(torch, ops, plain, adj)})
+
+    values = generic_values_csr(a)
+    ops.reset_launches()
+    opts = repro_torch.LUOptions(concurrency=CONCURRENCY)
+    plan, factor, res = run_path(torch, repro_torch, a, values, opts)
+    counts_default = ops.launch_counts()
+    check(res["residual_n"] <= 1e-10 and res["residual_n4"] <= 1e-10
+          and res["host_residual_n"] <= 1e-10
+          and res["host_residual_n4"] <= 1e-10, f"default residual {res}")
+    check(counts_default["column_fingerprints"] > 0,
+          "K2 was not launched by the default analyze")
+    emit({"phase": "default", "n": a.n, "nnz": a.nnz,
+          "device": plan.device, "launches": counts_default, **res})
+
+    kopts = opts.replace(backend="kernel", numeric_backend="kernel")
+    ops.reset_launches()
+    plan_k, factor_k, res_k = run_path(torch, repro_torch, a, values, kopts,
+                                       profile_head=True)
+    launches = ops.launch_counts()          # phase 4 alone: the kernel path
+    seen = res_k.pop("profiler")
+    check(np.array_equal(plan_k.sym.l_counts, plan.sym.l_counts)
+          and np.array_equal(plan_k.sym.u_counts, plan.sym.u_counts)
+          and np.array_equal(plan_k.sym.supernodes, plan.sym.supernodes)
+          and np.array_equal(plan_k.pattern.indptr, plan.pattern.indptr)
+          and np.array_equal(plan_k.pattern.rowind, plan.pattern.rowind),
+          "kernel-path structure differs from the default path")
+    f64 = factor.store.flat
+    factor_rel = float((factor_k.store.flat - f64).abs().max()
+                       / f64.abs().max())
+    check(factor_rel <= 1e-4, f"kernel-path factors off by {factor_rel}")
+    check(res_k["residual_n"] <= 1e-10 and res_k["residual_n4"] <= 1e-10,
+          f"kernel-path residual {res_k}")
+    for name in SOURCES:
+        check(launches[name] > 0,
+              f"{name} was not launched on the kernel path")
+    for name in ("minmax_relax_kernel", "column_fingerprints_kernel",
+                 "panel_update_kernel<false>", "panel_update_kernel<true>"):
+        check(name in seen, f"torch.profiler did not see {name}: {seen}")
+    # segment batching within the port: stacked GEMMs vs per-panel ones.
+    # Bitwise on the kernel backend (K4 slices are K3); float64 torch.matmul
+    # sums a stack in another order than one panel, so that one is reported
+    unbatched = dataclasses.replace(
+        plan, options=opts.replace(segment_batch=False)).factorize(values)
+    seg_equal = bool(torch.equal(unbatched.store.flat, factor.store.flat))
+    unbatched_k = dataclasses.replace(
+        plan_k, options=kopts.replace(segment_batch=False)).factorize(values)
+    check(torch.equal(unbatched_k.store.flat, factor_k.store.flat),
+          "kernel backend: segment_batch=True differs from False")
+    emit({"phase": "kernel_path", "launches": launches,
+          "profiler": {k: {"calls": c, "device_ms": ms}
+                       for k, (c, ms) in seen.items()},
+          "factor_rel_vs_default": factor_rel,
+          "segment_batch_bitwise_kernel": True,
+          "segment_batch_bitwise_float64": seg_equal, **res_k})
+
+    emit({"phase": "breakdown_default",
+          **breakdown(torch, repro_torch, a, values, opts, sweep=True)})
+    emit({"phase": "breakdown_kernel",
+          **breakdown(torch, repro_torch, a, values, kopts, sweep=False)})
+
+    emit({"phase": "reference",
+          **reference_check(torch, repro_torch, sparse, generic_values_csr)})
+
+    # per-kernel times at the main path's shapes
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    kern = []
+
+    def row(name, err, ms, plain_ms, nbytes, nops, library_ms):
+        b_ms, b_by = bound(nbytes, nops)
+        src, replaces = SOURCES[name]
+        kern.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+
+    s, u = CONCURRENCY, adj.shape[0]
+    prop = torch.as_tensor(rng.integers(0, u, size=(s, u)).astype(np.int32),
+                           device=dev)
+    got = ops.minmax_relax(prop, adj)
+    err = float((got - plain.minmax_relax_plain(prop, adj)).abs().max())
+    nnz_adj = int((adj != 0).sum())
+    row("minmax_relax", err,
+        cuda_ms(torch, lambda: ops.minmax_relax(prop, adj)),
+        cuda_ms(torch, lambda: plain.minmax_relax_plain(prop, adj), reps=1,
+                warmup=0),
+        s * u * 4 + adj.numel() + s * u * 4, s * nnz_adj, None)
+
+    v = N_LARGE
+    rel = torch.as_tensor(rng.integers(-1, v + 2, size=(s, v)).astype(
+        np.int32), device=dev)
+    lanes = [torch.as_tensor(x, device=dev) for x in (
+        np.arange(s, dtype=np.int32) * 37,
+        rng.integers(-2 ** 31, 2 ** 31, size=s).astype(np.int32),
+        rng.integers(-2 ** 31, 2 ** 31, size=s).astype(np.int32),
+        np.ones(s, dtype=np.int32))]
+    err = float((ops.column_fingerprints(rel, *lanes)
+                 - plain.column_fingerprints_plain(rel, *lanes)).abs().max())
+    row("column_fingerprints", err,
+        cuda_ms(torch, lambda: ops.column_fingerprints(rel, *lanes),
+                inner=10),
+        cuda_ms(torch, lambda: plain.column_fingerprints_plain(rel, *lanes)),
+        s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v, None)
+
+    shapes = gemm_shapes(plan)
+    k3_shape = Counter((mm, kk, nn) for _, _, mm, kk, nn in shapes
+                       ).most_common(1)[0][0]
+    m, k, n = k3_shape
+    acc, lp, up = (torch.as_tensor(rng.standard_normal(sh).astype(
+        np.float32), device=dev) for sh in ((m, n), (m, k), (k, n)))
+    err, tol = k3_error(torch, ops, plain, acc, lp, up)
+    check(err <= tol, f"K3 at the common bbd shape: {err} > {tol}")
+    row("panel_update", err,
+        cuda_ms(torch, lambda: ops.panel_update(acc, lp, up), inner=100),
+        cuda_ms(torch, lambda: plain.panel_update_plain(acc, lp, up),
+                inner=100),
+        4 * (2 * m * n + m * k + k * n), 2 * m * n * k,
+        cuda_ms(torch, lambda: torch.addmm(acc, lp, up, alpha=-1),
+                inner=100))
+
+    groups = Counter((li, mm, kk, nn) for li, _, mm, kk, nn in shapes)
+    (_, m, k, n), bsz = max(groups.items(), key=lambda kv: kv[1])
+    check(bsz > 1, "no stacked GEMM group in the bbd-20k sweep")
+    accb, lpb, upb = (torch.as_tensor(rng.standard_normal(sh).astype(
+        np.float32), device=dev) for sh in ((bsz, m, n), (bsz, m, k),
+                                            (bsz, k, n)))
+    got = ops.panel_update_batched(accb, lpb, upb)
+    err = float((got - plain.panel_update_batched_plain(accb, lpb, upb)
+                 ).abs().max())
+    check(k4_bitwise(torch, ops, rng, bsz, m, k, n), "K4 != K3 per slice")
+    row("panel_update_batched", err,
+        cuda_ms(torch, lambda: ops.panel_update_batched(accb, lpb, upb),
+                inner=100),
+        cuda_ms(torch, lambda: plain.panel_update_batched_plain(
+            accb, lpb, upb), inner=100),
+        4 * bsz * (2 * m * n + m * k + k * n), 2 * bsz * m * n * k,
+        cuda_ms(torch, lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
+                inner=100))
+    emit({"phase": "kernel_shapes", "minmax_relax": [s, u, u],
+          "column_fingerprints": [s, v], "panel_update": list(k3_shape),
+          "panel_update_batched": [bsz, m, k, n], "adj_nnz": nnz_adj})
+    emit({"kernels": kern})
+
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          "the JAX package was imported")
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

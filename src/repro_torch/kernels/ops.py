@@ -1,0 +1,190 @@
+"""Dispatch layer of the port's kernels: one wrapper per kernel, and the
+port's one device policy (``resolve_device``: ``None`` is the card, and a
+missing card raises instead of running on the CPU).
+
+The rule is the tensor's device and nothing else.  For tensors on the CPU a
+wrapper runs the kernel's plain version (``kernels/plain.py``); for CUDA
+tensors it launches the hand-written kernel (``kernels/csrc/``) on the
+current stream, or raises — a failed build or launch never falls back.
+Each wrapper validates device, dtype, shape and contiguity, allocates its
+output, and counts its launches in ``<wrapper>.launches`` (incremented only
+where the kernel is launched), so a run can show which kernels its path went
+through.
+
+========================  ============================================  ==
+wrapper                   replaces (src/repro/kernels/)
+========================  ============================================  ==
+``minmax_relax``          gsofa_relax.py::minmax_relax_pallas           K1
+``column_fingerprints``   supernode_fp.py::supernode_fp_pallas          K2
+``panel_update``          panel_update.py::panel_update_pallas          K3
+``panel_update_batched``  panel_update.py::panel_update_batched_pallas  K4
+========================  ============================================  ==
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import plain
+
+INF = plain.INF
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the card.  Raises when CUDA is asked for and absent: the
+    port never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU explicitly")
+    return dev
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU inputs, False for CUDA inputs on one device; raises for
+    mixed or other devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel inputs must share one device, got "
+                         f"{sorted(str(d) for d in devices)}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"kernels run on 'cpu' (plain version) or 'cuda', "
+                         f"got {dev}")
+    return False
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def _launch(kernel: str, *args) -> None:
+    err = _build.launcher(kernel)(*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
+                           f"{err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """K1: (S, V) int32 ``min_u (adj[u, v] != 0 ? prop[s, u] : INF)`` for
+    int32 ``prop`` (S, U) and uint8 ``adj`` (U, V)."""
+    if _on_cpu(prop, adj):
+        return plain.minmax_relax_plain(prop, adj)
+    _check("prop", prop, torch.int32, 2)
+    _check("adj", adj, torch.uint8, 2)
+    s, u = prop.shape
+    if adj.shape[0] != u:
+        raise ValueError(f"prop {tuple(prop.shape)} and adj "
+                         f"{tuple(adj.shape)} disagree on U")
+    v = adj.shape[1]
+    out = torch.empty((s, v), dtype=torch.int32, device=prop.device)
+    if s and v:
+        _launch("minmax_relax", prop.data_ptr(), adj.data_ptr(),
+                out.data_ptr(), s, u, v, _stream(prop))
+        minmax_relax.launches += 1
+    return out
+
+
+def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
+                        m1: torch.Tensor, m2: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """K2: (3, V) int32 per-column fingerprints (count, wrapping sum of
+    ``m1``, xor of ``m2``) over rows with ``rel < v``, ``src > v`` and
+    ``valid != 0``; ``rel`` (S, V), the others (S,), all int32."""
+    if _on_cpu(rel, src, m1, m2, valid):
+        return plain.column_fingerprints_plain(rel, src, m1, m2, valid)
+    _check("rel", rel, torch.int32, 2)
+    s, v = rel.shape
+    for name, t in (("src", src), ("m1", m1), ("m2", m2), ("valid", valid)):
+        _check(name, t, torch.int32, 1)
+        if t.shape[0] != s:
+            raise ValueError(f"{name} has {t.shape[0]} rows, rel has {s}")
+    out = torch.zeros((3, v), dtype=torch.int32, device=rel.device)
+    if s and v:
+        _launch("column_fingerprints", rel.data_ptr(), src.data_ptr(),
+                m1.data_ptr(), m2.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), s, v, _stream(rel))
+        column_fingerprints.launches += 1
+    return out
+
+
+def _panel_args(acc, l_panel, u_panel, ndim: int):
+    for name, t in (("acc", acc), ("l_panel", l_panel),
+                    ("u_panel", u_panel)):
+        _check(name, t, torch.float32, ndim)
+    *lead, m, n = acc.shape
+    k = l_panel.shape[-1]
+    if (tuple(l_panel.shape) != (*lead, m, k)
+            or tuple(u_panel.shape) != (*lead, k, n)):
+        raise ValueError(f"panel shapes disagree: acc {tuple(acc.shape)}, "
+                         f"l_panel {tuple(l_panel.shape)}, u_panel "
+                         f"{tuple(u_panel.shape)}")
+    return m, n, k
+
+
+def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
+                 u_panel: torch.Tensor) -> torch.Tensor:
+    """K3: (M, N) float32 ``acc - l_panel @ u_panel`` in true fp32; an
+    empty M, N or K returns ``acc``."""
+    if _on_cpu(acc, l_panel, u_panel):
+        if 0 in acc.shape or l_panel.shape[-1] == 0:
+            return acc
+        return plain.panel_update_plain(acc, l_panel, u_panel)
+    m, n, k = _panel_args(acc, l_panel, u_panel, 2)
+    if m == 0 or n == 0 or k == 0:
+        return acc
+    out = torch.empty_like(acc)
+    _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
+            u_panel.data_ptr(), out.data_ptr(), 1, m, n, k, 0, _stream(acc))
+    panel_update.launches += 1
+    return out
+
+
+def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
+                         u_panel: torch.Tensor) -> torch.Tensor:
+    """K4: (B, M, N) stacked K3 updates in one launch; each slice is
+    bitwise equal to K3 on that slice (same kernel body, same K order)."""
+    if _on_cpu(acc, l_panel, u_panel):
+        if 0 in acc.shape or l_panel.shape[-1] == 0:
+            return acc
+        return plain.panel_update_batched_plain(acc, l_panel, u_panel)
+    m, n, k = _panel_args(acc, l_panel, u_panel, 3)
+    b = acc.shape[0]
+    if b == 0 or m == 0 or n == 0 or k == 0:
+        return acc
+    if b > 65535:
+        raise ValueError(f"panel_update_batched takes at most 65535 slices "
+                         f"(grid z), got {b}")
+    out = torch.empty_like(acc)
+    _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
+            u_panel.data_ptr(), out.data_ptr(), b, m, n, k, 1, _stream(acc))
+    panel_update_batched.launches += 1
+    return out
+
+
+KERNELS = (minmax_relax, column_fingerprints, panel_update,
+           panel_update_batched)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launches()

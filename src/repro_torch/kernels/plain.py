@@ -1,0 +1,97 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+The counterpart of ``repro/kernels/ref.py``: each function computes what its
+kernel in ``kernels/csrc/`` computes, with ordinary tensor operations.  The
+dispatch layer (``kernels/ops.py``) runs them for tensors that lie on the
+CPU — which is how the CPU tests drive the whole path — and ``chip_smoke.py``
+holds every kernel against them on the card.  They repeat the kernels'
+arithmetic and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+INF = 2 ** 31 - 1          # int32 max: identity of the masked min
+
+
+def minmax_relax_plain(prop: torch.Tensor, adj: torch.Tensor, *,
+                       max_elems: int = 1 << 26) -> torch.Tensor:
+    """``out[s, v] = min_u (adj[u, v] != 0 ? prop[s, u] : INF)`` for int32
+    ``prop`` (S, U) and 0/1 ``adj`` (U, V).  The u axis is walked in chunks
+    so the (S, chunk, V) broadcast stays under ``max_elems`` elements."""
+    s, u = prop.shape
+    v = adj.shape[1]
+    out = torch.full((s, v), INF, dtype=torch.int32, device=prop.device)
+    if s == 0 or v == 0:
+        return out
+    step = max(1, max_elems // (s * v))
+    for u0 in range(0, u, step):
+        edge = adj[u0:u0 + step] != 0                        # (c, V)
+        masked = torch.where(edge[None], prop[:, u0:u0 + step, None], INF)
+        out = torch.minimum(out, masked.amin(dim=1))
+    return out
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32 (two's complement), as an int32 sum
+    wraps.  ``torch.sum`` of int32 returns int64, so the wrap is explicit."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """xor over axis 0 — torch has no xor reduction, so fold pairwise."""
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+        x = x[0::2] ^ x[1::2]
+    return x[0]
+
+
+def column_fingerprints_plain(rel: torch.Tensor, src: torch.Tensor,
+                              m1: torch.Tensor, m2: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """(3, V) int32 per-column fingerprints of an (S, V) relative-label
+    chunk: over rows with ``rel < v``, ``src > v`` and ``valid != 0``, the
+    count, the sum of ``m1`` mod 2^32 and the xor of ``m2``."""
+    v_ids = torch.arange(rel.shape[1], dtype=torch.int32, device=rel.device)
+    mask = ((rel < v_ids[None, :]) & (src[:, None] > v_ids[None, :])
+            & (valid[:, None] != 0))
+    cnt = mask.sum(dim=0, dtype=torch.int64)
+    hsum = torch.where(mask, m1[:, None].to(torch.int64), 0).sum(dim=0)
+    hxor = _xor_reduce(torch.where(mask, m2[:, None], 0))
+    return torch.stack([_wrap_int32(cnt), _wrap_int32(hsum), hxor])
+
+
+@contextlib.contextmanager
+def _fp32_highest():
+    """True float32 matmul for the block: no TF32 on the card."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def panel_update_plain(acc: torch.Tensor, l_panel: torch.Tensor,
+                       u_panel: torch.Tensor) -> torch.Tensor:
+    """(M, N) float32 ``acc - l_panel @ u_panel``."""
+    with _fp32_highest():
+        return acc - l_panel @ u_panel
+
+
+def panel_update_batched_plain(acc: torch.Tensor, l_panel: torch.Tensor,
+                               u_panel: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) float32 stacked ``acc - l_panel @ u_panel``, slice by slice
+    through ``panel_update_plain`` so every slice is bitwise the per-panel
+    result — K4's contract (``torch.bmm`` is not: its summation order
+    depends on the batch size)."""
+    if acc.shape[0] == 0:
+        return acc
+    return torch.stack([panel_update_plain(a, l, u)
+                        for a, l, u in zip(acc, l_panel, u_panel)])

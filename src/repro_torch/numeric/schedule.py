@@ -1,0 +1,208 @@
+"""Panel-level scheduling for supernodal numeric LU (DESIGN.md §4).
+
+The symbolic step hands over a supernode partition — contiguous ``[start,
+end)`` column ranges with identical below-diagonal structure — and the
+numeric step must factor those panels in an order that respects column
+dependencies.  Panel J depends on panel K < J iff the filled pattern has a
+structural nonzero in the U block ``U(K, J)`` (rows of K, columns of J):
+exactly then does K's L panel update J.  That is the supernodal elimination
+DAG (the condensation of the column etree onto supernodes).
+
+``build_schedule`` derives, from the predicted pattern (dense bool (n, n)
+or the sparse ``storage.CSCPattern`` — the sparse form is what the
+O(nnz(L+U)) packed path feeds it, nothing here materializes (n, n)):
+
+* ``ancestors[j]`` — the update list of panel j (ascending supernode ids);
+  left-looking consumes it in order: solve ``U(K, J)`` against L(K, K),
+  scatter into the rows of *later* ancestors, and defer the trailing rows to
+  one accumulated GEMM (supernodal.py);
+* ``level``/``levels`` — longest-path dependency levels: panels within a
+  level share no ancestor relation and can be factored independently (batch
+  unit for stacked GEMM dispatch);
+* ``partition`` — the ``pack_panels`` bin assignment (LPT or contiguous) the
+  scheduler uses to group independent panels within a level; the numeric
+  result is invariant to the packing policy (tests assert bitwise equality),
+  only the batching/placement changes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.numeric.storage import CSCPattern, RowGather
+from repro_torch.supernodes.balance import PanelPartition, pack_panels
+
+
+@dataclasses.dataclass
+class PanelSchedule:
+    """Dependency-levelled execution plan over the supernode partition."""
+
+    supernodes: np.ndarray        # (k, 2) [start, end) column ranges
+    ancestors: List[np.ndarray]   # per panel: ascending ids of update panels
+    level: np.ndarray             # (k,) dependency level of each panel
+    levels: List[np.ndarray]      # panel ids per level, in execution order
+    partition: PanelPartition     # pack_panels bins (batching/placement)
+    col_counts: np.ndarray        # (n,) below-diagonal column counts of L
+
+    @property
+    def n_panels(self) -> int:
+        return len(self.supernodes)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    def stats(self) -> dict:
+        widths = self.supernodes[:, 1] - self.supernodes[:, 0]
+        n_updates = sum(len(a) for a in self.ancestors)
+        return {
+            "n_panels": self.n_panels,
+            "n_levels": self.n_levels,
+            "mean_level_width": (self.n_panels / max(1, self.n_levels)),
+            "max_panel_cols": int(widths.max()) if len(widths) else 0,
+            "n_updates": n_updates,
+            "balance_ratio": self.partition.balance_ratio,
+        }
+
+
+@dataclasses.dataclass
+class PanelMaps:
+    """Value-independent row-index maps of one panel's ancestor updates.
+
+    Everything ``supernodal._factor_panel`` would otherwise re-derive with
+    ``searchsorted`` on every factorization: the concatenated ancestor
+    diagonal rows, each ancestor's (idx, hit) gather map for its L strip at
+    those rows and at the panel's >= s rows, and the scatter map of the
+    solved U rows back into the panel block.  Built once per analysis
+    (``build_gather_maps``), replayed on every ``LUPlan.factorize`` —
+    bitwise-identical math, none of the map reconstruction.
+    """
+
+    anc_rows: np.ndarray                 # concatenated ancestor diag rows
+    offs: np.ndarray                     # (len(anc)+1,) strip offsets
+    strip_maps: List[tuple]              # per ancestor: (idx, hit) at anc_rows[r0:]
+    below_maps: List[tuple]              # per ancestor: (idx, hit) at rows >= s
+    idx_j: np.ndarray                    # scatter of solved U(anc, J) into block j
+    hit_j: np.ndarray
+
+    def to(self, device) -> "DevicePanelMaps":
+        """The same maps as device index tensors (``storage.RowGather``)."""
+        miss = np.flatnonzero(~self.hit_j)
+        return DevicePanelMaps(
+            offs=self.offs, n_rows=len(self.anc_rows),
+            strips=[RowGather.build(i, h, device) for i, h in self.strip_maps],
+            belows=[RowGather.build(i, h, device) for i, h in self.below_maps],
+            target=RowGather.build(self.idx_j, self.hit_j, device),
+            miss=(torch.as_tensor(miss, dtype=torch.int64, device=device)
+                  if len(miss) else None))
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePanelMaps:
+    """Device form of ``PanelMaps``, built once per (plan, device): the
+    ancestor strip and below-row gathers, the gather/scatter of the solved
+    U rows in the target block (``target``), and the U rows the target
+    block lacks (``miss``, None when every row is present)."""
+
+    offs: np.ndarray
+    n_rows: int
+    strips: List[RowGather]
+    belows: List[RowGather]
+    target: RowGather
+    miss: Optional[torch.Tensor]
+
+
+def device_maps(maps: List[Optional[PanelMaps]], device
+                ) -> List[Optional[DevicePanelMaps]]:
+    return [m.to(device) if m is not None else None for m in maps]
+
+
+def build_panel_maps(store, schedule: PanelSchedule,
+                     j: int) -> Optional[PanelMaps]:
+    """Maps for one panel (``None`` when it has no ancestors)."""
+    anc = schedule.ancestors[j]
+    if not len(anc):
+        return None
+    widths = schedule.supernodes[anc, 1] - schedule.supernodes[anc, 0]
+    offs = np.concatenate([[0], np.cumsum(widths)])
+    anc_rows = np.concatenate([np.arange(ks, ke)
+                               for ks, ke in schedule.supernodes[anc]])
+    below = store.rows[j][int(store.diag[j]):]
+    strip_maps = [store.local_rows(int(k), anc_rows[offs[idx]:])
+                  for idx, k in enumerate(anc)]
+    below_maps = [store.local_rows(int(k), below) for k in anc]
+    idx_j, hit_j = store.local_rows(j, anc_rows)
+    return PanelMaps(anc_rows=anc_rows, offs=offs, strip_maps=strip_maps,
+                     below_maps=below_maps, idx_j=idx_j, hit_j=hit_j)
+
+
+def build_gather_maps(store, schedule: PanelSchedule) -> List[Optional[PanelMaps]]:
+    """Precompute every panel's ancestor gather/scatter maps from the packed
+    row structure — the value-independent half of ``supernodal
+    ._factor_panel``, built once per analysis and replayed per factorize."""
+    return [build_panel_maps(store, schedule, j)
+            for j in range(schedule.n_panels)]
+
+
+def _validate_supernodes(supernodes: np.ndarray, n: int) -> np.ndarray:
+    supernodes = np.asarray(supernodes, dtype=np.int64)
+    if supernodes.ndim != 2 or supernodes.shape[1] != 2:
+        raise ValueError(f"supernodes must be (k, 2) ranges, got "
+                         f"{supernodes.shape}")
+    if len(supernodes):
+        if supernodes[0, 0] != 0 or supernodes[-1, 1] != n:
+            raise ValueError("supernode ranges must cover [0, n)")
+        if not (supernodes[1:, 0] == supernodes[:-1, 1]).all():
+            raise ValueError("supernode ranges must be contiguous")
+        if not (supernodes[:, 1] > supernodes[:, 0]).all():
+            raise ValueError("supernode ranges must be non-empty")
+    elif n:
+        raise ValueError(f"no supernodes for an order-{n} matrix")
+    return supernodes
+
+
+def build_schedule(pattern, supernodes: np.ndarray, *,
+                   n_bins: int = 8, policy: str = "lpt") -> PanelSchedule:
+    """Schedule from the predicted L+U pattern and supernode ranges.
+
+    ``pattern``: dense (n, n) bool (diagonal included — what
+    ``core.gsofa.dense_pattern`` returns) or a ``storage.CSCPattern``; the
+    sparse form keeps scheduling O(nnz(L+U)) for the packed storage path.
+    ``n_bins``: pack_panels bin count for within-level grouping (clamped to
+    the panel count so small problems don't over-provision).
+    """
+    if not isinstance(pattern, CSCPattern):
+        pattern = CSCPattern.from_dense(pattern)
+    n = pattern.n
+    supernodes = _validate_supernodes(supernodes, n)
+    k = len(supernodes)
+
+    sup_of_col = np.repeat(np.arange(k, dtype=np.int64),
+                           supernodes[:, 1] - supernodes[:, 0])
+    col_counts = pattern.below_diag_counts()
+
+    ancestors: List[np.ndarray] = []
+    level = np.zeros(k, dtype=np.int64)
+    for j, (s, e) in enumerate(supernodes):
+        seg = pattern.rowind[pattern.indptr[s]:pattern.indptr[e]]
+        anc = np.unique(sup_of_col[seg[seg < s]])
+        ancestors.append(anc)
+        level[j] = level[anc].max() + 1 if len(anc) else 0
+
+    partition = pack_panels(supernodes, col_counts,
+                            max(1, min(n_bins, k)) if k else max(0, n_bins),
+                            policy=policy)
+
+    levels: List[np.ndarray] = []
+    for lv in range(int(level.max()) + 1 if k else 0):
+        members = np.flatnonzero(level == lv)
+        # group by pack_panels bin (batch/placement unit), stable within bin
+        order = np.lexsort((members, partition.assignment[members]))
+        levels.append(members[order])
+
+    return PanelSchedule(supernodes=supernodes, ancestors=ancestors,
+                         level=level, levels=levels, partition=partition,
+                         col_counts=col_counts)

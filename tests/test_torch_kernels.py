@@ -1,0 +1,122 @@
+"""repro_torch kernels: the plain versions against the Pallas kernels (JAX
+interpret mode) and their jnp oracles, and the dispatch rules of
+``repro_torch.kernels.ops``.  The CUDA kernels themselves run only on a
+card: ``test_torch_cuda.py`` holds them against the plain versions there."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, plain
+from test_torch_cuda import (
+    I32MAX, _fp_inputs, _pu_inputs, _pu_tol, _relax_inputs,
+)
+
+# tiny shapes, several pytest workers: one intra-op thread each keeps
+# torch's pool from oversubscribing the CPU
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("s,u,v", [
+    (1, 8, 16), (4, 50, 70), (9, 131, 257), (2, 1, 1), (16, 256, 130),
+])
+def test_minmax_relax_plain_matches_pallas(s, u, v):
+    prop, adj = _relax_inputs(s, u, v, seed=s * 1000 + u + v)
+    want = np.asarray(jops.minmax_relax(jnp.asarray(prop), jnp.asarray(adj)))
+    np.testing.assert_array_equal(
+        want, np.asarray(jref.minmax_relax_ref(jnp.asarray(prop),
+                                               jnp.asarray(adj))))
+    got = ops.minmax_relax(torch.as_tensor(prop), torch.as_tensor(adj))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_minmax_relax_sentinels_near_int32_top():
+    """Label-arena offsets sit just under int32 max: the masked-out INF must
+    never undercut them, and nothing may promote to int64."""
+    prop, adj = _relax_inputs(8, 96, 120, seed=7, high=I32MAX - 5)
+    want = np.asarray(jref.minmax_relax_ref(jnp.asarray(prop),
+                                            jnp.asarray(adj)))
+    got = plain.minmax_relax_plain(torch.as_tensor(prop), torch.as_tensor(adj),
+                                   max_elems=4096)      # many u chunks
+    np.testing.assert_array_equal(got.numpy(), want)
+    empty = plain.minmax_relax_plain(torch.as_tensor(prop),
+                                     torch.zeros((96, 40), dtype=torch.uint8))
+    assert int(empty.min()) == I32MAX
+
+
+@pytest.mark.parametrize("s,v", [(1, 1), (5, 100), (13, 300), (33, 700),
+                                 (64, 129)])
+def test_column_fingerprints_plain_matches_pallas(s, v):
+    args = _fp_inputs(s, v, seed=s * 101 + v)
+    want = np.asarray(jops.column_fingerprints(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(
+        want, np.asarray(jref.supernode_fp_ref(*map(jnp.asarray, args))))
+    got = ops.column_fingerprints(*map(torch.as_tensor, args))
+    assert got.dtype == torch.int32 and got.shape == (3, v)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_column_fingerprints_hash_sum_wraps_int32():
+    """m1 hashes near 2^31 overflow the column sum: it must wrap mod 2^32
+    exactly like the reference's int32 sum (torch.sum of int32 is int64)."""
+    s, v = 40, 64
+    rel = np.full((s, v), -1, dtype=np.int32)       # every label "filled"
+    src = np.full(s, v, dtype=np.int32)             # every row below
+    m1 = np.full(s, 2**31 - 7, dtype=np.int64).astype(np.int32)
+    m2 = np.arange(s, dtype=np.int32) * 0x01010101
+    valid = np.ones(s, dtype=np.int32)
+    args = (rel, src, m1, m2, valid)
+    want = np.asarray(jref.supernode_fp_ref(*map(jnp.asarray, args)))
+    got = plain.column_fingerprints_plain(*map(torch.as_tensor, args))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(want[1, 0]) != s * (2**31 - 7)       # it did wrap
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (200, 96, 70), (37, 5, 130),
+                                   (128, 256, 128), (1, 1, 1)])
+def test_panel_update_plain_matches_pallas(m, k, n):
+    acc, lp, up = _pu_inputs((m, n), (m, k), (k, n), seed=m * 31 + k + n)
+    want = np.asarray(jops.panel_update(acc, lp, up))
+    ref = np.asarray(jref.panel_update_ref(*map(jnp.asarray, (acc, lp, up))))
+    got = ops.panel_update(*map(torch.as_tensor, (acc, lp, up)))
+    assert got.dtype == torch.float32
+    tol = _pu_tol(lp, up)
+    assert np.abs(got.numpy() - want).max() <= tol
+    assert np.abs(got.numpy() - ref).max() <= tol
+
+
+@pytest.mark.parametrize("b,m,k,n", [(3, 16, 8, 4), (5, 33, 70, 9)])
+def test_panel_update_batched_plain_matches_pallas(b, m, k, n):
+    acc, lp, up = _pu_inputs((b, m, n), (b, m, k), (b, k, n), seed=b + m)
+    want = np.asarray(jops.panel_update_batched(acc, lp, up))
+    got = ops.panel_update_batched(*map(torch.as_tensor, (acc, lp, up)))
+    assert np.abs(got.numpy() - want).max() <= _pu_tol(lp, up)
+    single = ops.panel_update(*map(torch.as_tensor, (acc[1], lp[1], up[1])))
+    np.testing.assert_array_equal(got[1].numpy(), single.numpy())
+
+
+@pytest.mark.parametrize("m,k,n", [(0, 4, 5), (6, 0, 5), (6, 4, 0)])
+def test_panel_update_empty_returns_acc(m, k, n):
+    acc, lp, up = _pu_inputs((m, n), (m, k), (k, n), seed=1)
+    want = np.asarray(jops.panel_update(acc, lp, up))
+    got = ops.panel_update(*map(torch.as_tensor, (acc, lp, up)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), acc)
+    accb, lpb, upb = (x[None] for x in (acc, lp, up))
+    gotb = ops.panel_update_batched(*map(torch.as_tensor, (accb, lpb, upb)))
+    np.testing.assert_array_equal(gotb.numpy(), accb)
+
+
+def test_dispatch_rules_on_the_cpu():
+    """CPU tensors take the plain version and count no launch; other devices
+    raise instead of falling back."""
+    ops.reset_launches()
+    prop, adj = _relax_inputs(4, 32, 32, seed=2)
+    ops.minmax_relax(torch.as_tensor(prop), torch.as_tensor(adj))
+    assert set(ops.launch_counts().values()) == {0}
+    with pytest.raises(ValueError, match="cuda"):
+        ops.minmax_relax(torch.as_tensor(prop, device="meta"),
+                         torch.as_tensor(adj, device="meta"))
