@@ -7,35 +7,50 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``env``      — card, torch/CUDA versions, and the build of every kernel
                   from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a).
-2. ``kernels``  — K1..K4 against their plain versions on the card at the
-                  main path's shapes (K1/K2 bitwise, K3 within tolerance, K4
-                  bitwise against K3 per slice).
+2. ``kernels``  — K1..K5 against their plain versions on the card at the
+                  main paths' shapes (K1/K2 bitwise, K3 within tolerance, K4
+                  bitwise against K3 per slice, in float32 and float64; K5
+                  at the serve path's prefill and decode shapes and at
+                  D = 128, within 2e-5, and in bfloat16), with K5's time
+                  at the prefill and decode shapes.
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
                   (no device argument: the card), factorize, refactorize,
-                  solve with (n,) and (n, 4) right-hand sides.
+                  solve with (n,) and (n, 4) right-hand sides.  The float64
+                  sweep runs the float64 instances of K3/K4.
 4. ``kernel_path`` — the same matrix with ``backend="kernel",
                   numeric_backend="kernel"``: structure bitwise equal to
                   phase 3, factors within 1e-4, every kernel seen by
                   ``torch.profiler`` (over analyze and the first
-                  factorize) and by the launch counters.
+                  factorize) and by the launch counters; segment batching
+                  bitwise on both numeric backends.
 5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
                   refactorize and a (n, 4) solve (default options), once
                   more under ``torch.profiler``: wall time, device busy
                   time, idle share and the top kernels.
 6. ``reference`` — a small matrix against dense numpy (L @ U = A, solve)
                   and against the port run on the CPU (bitwise structure).
+7. ``serve``    — the LM serving path (``repro_torch.launch.serve``):
+                  smollm-135m at full width, random parameters from seed 0,
+                  8 requests of 512 prompt tokens and 32 greedy tokens on
+                  the card, K5 in every layer's prefill and decode
+                  attention; then one request (128 + 8 tokens) on the card
+                  and on the CPU (plain attention) with the same
+                  parameters: equal tokens, last logits within 1e-3.
+8. ``breakdown_serve`` — the serve path's prefill and one decode step
+                  under ``torch.profiler``: idle share and top kernels.
 
-Then a ``kernel_shapes`` line (the main path's shapes the kernels are timed
-at), one ``kernels`` line (each kernel's time beside its bound), the card's
+Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
+at, and K5's numbers at the decode shape), one ``kernels`` line (each
+kernel's time beside its bound; K3/K4 once per element type), the card's
 name and power limit, and the final ``{"ok": true, ...}``.
-The launch counters are reset just before each of phases 3 and 4 and read
-just after it, so each path reports its own launches (phase 3: K2 only;
-phase 4: K1..K4, the counts in the ``kernels`` line), split by stage in
-``launches_by_stage``; the comparison and
-timing launches of phase 2, phases 5 and 6 and the per-kernel timings are
-not counted.
+The launch counters are reset just before each of phases 3, 4 and 7 and
+read just after it, so each path reports its own launches (phase 3: K2
+and the float64 K3/K4; phase 4: K1..K4 in float32; phase 7: K5), split by
+stage in ``launches_by_stage``; the ``kernels`` line takes each row's
+launches from the path that runs it.  The comparison and timing launches
+of phase 2, phases 5, 6 and 8 and the per-kernel timings are not counted.
 """
 import dataclasses
 import json
@@ -55,6 +70,10 @@ N_LARGE, BLOCK, BORDER, SEED, CONCURRENCY = 20_000, 16, 64, 3, 512
 # lower bound)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34
+# TFLOP/s), for the float64 instances of K3/K4
+PEAK_F64_OPS_S = 34e12
+SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
 SOURCES = {
     "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
                      "src/repro/kernels/gsofa_relax.py:60"),
@@ -65,7 +84,15 @@ SOURCES = {
                      "src/repro/kernels/panel_update.py:53"),
     "panel_update_batched": ("src/repro_torch/kernels/csrc/panel_update.cu",
                              "src/repro/kernels/panel_update.py:86"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:77"),
 }
+# the kernel path's kernels (K1..K4, float32) and their profiler names
+PROFILED_PATH = ("minmax_relax", "column_fingerprints", "panel_update",
+                 "panel_update_batched")
+PROFILED = ("minmax_relax_kernel", "column_fingerprints_kernel",
+            "panel_update_kernel<float, false>",
+            "panel_update_kernel<float, true>")
 
 
 def emit(obj) -> None:
@@ -103,8 +130,8 @@ def cuda_ms(torch, fn, *, inner: int = 1, reps: int = 5,
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -177,24 +204,84 @@ def kernel_checks(torch, ops, plain, adj_real):
         out[f"K3_{m}x{k}x{n}_tol"] = tol
         check(k4_bitwise(torch, ops, rng, 5, m, k, n), "K4 != K3 per slice")
     out["K4_bitwise_vs_K3"] = True
+
+    # the float64 instances (the default sweep's): K4 bitwise K3 per slice,
+    # K3 within float64 roundoff of the plain product
+    for m, k, n in ((200, 96, 70), (8, 1, 1)):
+        acc, lp, up = (torch.as_tensor(rng.standard_normal(sh), device=dev)
+                       for sh in ((m, n), (m, k), (k, n)))
+        err, tol = k3_error(torch, ops, plain, acc, lp, up)
+        check(err <= tol, f"float64 K3 {m}x{k}x{n}: err {err} > tol {tol}")
+        out[f"K3_f64_{m}x{k}x{n}_err"] = err
+        check(k4_bitwise(torch, ops, rng, 5, m, k, n, dtype=torch.float64),
+              "float64 K4 != K3 per slice")
+    out["K4_f64_bitwise_vs_K3"] = True
+
+    # K5 at the serve path's shapes and at D = 128, and in bfloat16
+    for tag, shape in K5_SHAPES.items():
+        q, k, v = attn_inputs(torch, rng, *shape)
+        got = ops.flash_attention(q, k, v)
+        want = plain.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and err <= K5_TOL,
+              f"K5 {tag} {shape}: err {err} > {K5_TOL}")
+        out[f"K5_{tag}_err"] = err
+    q, k, v = (x.to(torch.bfloat16) for x in attn_inputs(
+        torch, rng, *K5_SHAPES["prefill"]))
+    got = ops.flash_attention(q, k, v)
+    err = float((got.float() - plain.flash_attention_plain(q, k, v).float()
+                 ).abs().max())
+    check(got.dtype == torch.bfloat16 and err <= 3e-2,
+          f"K5 bfloat16: err {err} > 3e-2")
+    out["K5_bf16_prefill_err"] = err
+    out["K5_tol"] = K5_TOL
     return out
 
 
-def k3_error(torch, ops, plain, acc, lp, up):
-    """(max |K3 - plain|, atol = 2e-6 * K * max|L| * max|U|)."""
-    got = ops.panel_update(acc, lp, up)
-    want = plain.panel_update_plain(acc, lp, up)
-    torch.cuda.synchronize()
-    tol = 2e-6 * lp.shape[1] * float(lp.abs().max()) * float(up.abs().max())
-    return float((got - want).abs().max()), tol
+# K5's shapes (B, H, S, T, D): the serve path's prefill and decode
+# (smollm-135m: 8 requests, hp = 16 heads, hd = 64, 512 + 32 tokens; the
+# last decode step attends over 543 + 1 cache slots), and a D = 128 prefill
+# (qwen3's head size).  Tolerance: float32 sums over up to T keys, in
+# another order than the plain version's cuBLAS products.
+K5_SHAPES = {"prefill": (8, 16, 512, 512, 64), "decode": (8, 16, 1, 544, 64),
+             "d128": (2, 16, 256, 256, 128)}
+K5_TOL = 2e-5
 
 
-def k4_bitwise(torch, ops, rng, b, m, k, n) -> bool:
+def attn_inputs(torch, rng, b, h, s, t, d):
     import numpy as np
 
     dev = torch.device("cuda")
-    acc, lp, up = (torch.as_tensor(rng.standard_normal(sh).astype(
-        np.float32), device=dev) for sh in ((b, m, n), (b, m, k), (b, k, n)))
+    return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                                 device=dev)
+                 for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+def attn_work(b, h, s, t, d):
+    """(bytes, useful float ops) of causal float32 attention: q, k, v read
+    once and the output written once; QK^T and PV over the visible
+    (query, key) pairs only."""
+    pairs = s * (t - s) + s * (s + 1) // 2
+    return 4 * (2 * b * h * s * d + 2 * b * h * t * d), 4 * d * pairs * b * h
+
+
+def k3_error(torch, ops, plain, acc, lp, up):
+    """(max |K3 - plain|, atol = eps * K * max|L| * max|U|), eps = 2e-6
+    in float32 and 1e-14 in float64."""
+    got = ops.panel_update(acc, lp, up)
+    want = plain.panel_update_plain(acc, lp, up)
+    torch.cuda.synchronize()
+    eps = 1e-14 if acc.dtype == torch.float64 else 2e-6
+    tol = eps * lp.shape[1] * float(lp.abs().max()) * float(up.abs().max())
+    return float((got - want).abs().max()), tol
+
+
+def k4_bitwise(torch, ops, rng, b, m, k, n, dtype=None) -> bool:
+    dev = torch.device("cuda")
+    acc, lp, up = (torch.as_tensor(rng.standard_normal(sh), device=dev,
+                                   dtype=dtype or torch.float32)
+                   for sh in ((b, m, n), (b, m, k), (b, k, n)))
     got = ops.panel_update_batched(acc, lp, up)
     return all(torch.equal(got[i], ops.panel_update(acc[i], lp[i], up[i]))
                for i in range(b))
@@ -332,9 +419,7 @@ def profile_kernels(torch, fn):
         torch.cuda.synchronize()
     seen = {}
     for ev in prof.key_averages():
-        for name in ("minmax_relax_kernel", "column_fingerprints_kernel",
-                     "panel_update_kernel<false>",
-                     "panel_update_kernel<true>"):
+        for name in PROFILED:
             if name in ev.key:
                 dev_us = (ev.device_time_total
                           if hasattr(ev, "device_time_total")
@@ -352,6 +437,15 @@ def busy_ms(prof) -> float:
     return sum(ev.device_time_total for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
                and not getattr(ev, "is_user_annotation", False)) / 1e3
+
+
+def device_calls(prof) -> int:
+    """Device kernels, copies and fills in a profile."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False))
 
 
 def top_kernels(prof, k: int = 5):
@@ -399,6 +493,125 @@ def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
     return out
 
 
+def greedy(torch, tf, fp32_highest, cfg, params, prompt, gen_len):
+    """Prefill ``prompt`` and decode ``gen_len`` greedy tokens on the
+    parameters' device; returns (tokens (B, gen_len), the last step's
+    float32 logits), both on the host."""
+    with torch.inference_mode(), fp32_highest():
+        h, caches = tf.forward(params, cfg, prompt, mode="prefill",
+                               cache_len=prompt.shape[1] + gen_len)
+        logits = tf.logits_last(params, cfg, h)
+        toks = [logits.argmax(-1)]
+        for _ in range(gen_len - 1):
+            h, caches = tf.forward(params, cfg, toks[-1][:, None],
+                                   mode="decode", caches=caches)
+            logits = tf.logits_last(params, cfg, h)
+            toks.append(logits.argmax(-1))
+    return torch.stack(toks, dim=1).cpu(), logits.cpu()
+
+
+def serve_phase(torch, ops):
+    """Phase 7: the serve path at full width on the card, then one request
+    on the card and on the CPU with the same parameters."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(SERVE_ARCH)
+    held = torch.cuda.memory_allocated()     # the earlier phases' tensors
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # warm-up (cuBLAS handles, the kernel library's first load): not counted
+    serve.serve(cfg, requests=1, prompt_len=64, gen_len=2, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                      gen_len=SERVE_GEN, params=params)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    check(toks.shape == (SERVE_REQUESTS, SERVE_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"serve tokens {toks.shape}")
+    want = cfg.n_layers * SERVE_GEN        # prefill + (gen - 1) decode steps
+    check(launches["flash_attention"] == want,
+          f"K5 launched {launches['flash_attention']} times, not {want}")
+
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 128)))
+    card_toks, card_logits = greedy(torch, tf, fp32_highest, cfg, params,
+                                    prompt.cuda(), 8)
+    host = tf.to_device(params, "cpu")
+    t0 = time.perf_counter()
+    host_toks, host_logits = greedy(torch, tf, fp32_highest, cfg, host,
+                                    prompt, 8)
+    t_host = time.perf_counter() - t0
+    logits_rel = float((card_logits - host_logits).abs().max()
+                       / host_logits.abs().max())
+    check(torch.equal(card_toks, host_toks),
+          f"card tokens {card_toks.tolist()} != CPU {host_toks.tolist()}")
+    check(logits_rel <= 1e-3, f"card vs CPU last logits: {logits_rel}")
+    b, p, g = SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN
+    return params, {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.hp, cfg.n_kv_heads], "hd": cfg.hd,
+        "vocab": cfg.vocab, "n_params": tf.n_params(params),
+        "requests": b, "prompt_len": p, "gen_len": g,
+        "init_params_s": t_init,
+        "prefill_ms": res["prefill_s"] * 1e3,
+        "prefill_tok_s": b * p / res["prefill_s"],
+        "decode_ms": res["decode_s"] * 1e3,
+        # the decode loop makes gen - 1 tokens per request (the first comes
+        # from the prefill)
+        "decode_tok_s": b * (g - 1) / res["decode_s"],
+        "decode_ms_per_step": res["decode_s"] * 1e3 / (g - 1),
+        "max_memory_allocated": peak,
+        # the serve run's own peak: parameters, caches and activations
+        "serve_peak_bytes": peak - held, "launches": launches,
+        "sample_tokens": toks[0].tolist(),
+        "check_tokens": card_toks[0].tolist(),
+        "check_tokens_equal": True, "check_logits_rel": logits_rel,
+        "check_cpu_s": t_host}
+
+
+def breakdown_serve(torch, params):
+    """Phase 8: the serve path's prefill and one decode step (after one
+    warm decode step) under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(SERVE_ARCH)
+    prefill = make_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_GEN)
+    decode = make_decode_step(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)), device="cuda")
+    out = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = busy_ms(prof)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / wall,
+                     "device_calls": device_calls(prof),
+                     "top": top_kernels(prof)}
+        return result
+
+    tok, caches = stage("prefill", lambda: prefill(params, {"tokens": tokens}))
+    tok, caches = decode(params, caches, tok[:, None])
+    stage("decode_step", lambda: decode(params, caches, tok[:, None]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -442,8 +655,10 @@ def main() -> int:
     check(res["residual_n"] <= 1e-10 and res["residual_n4"] <= 1e-10
           and res["host_residual_n"] <= 1e-10
           and res["host_residual_n4"] <= 1e-10, f"default residual {res}")
-    check(counts_default["column_fingerprints"] > 0,
-          "K2 was not launched by the default analyze")
+    for name in ("column_fingerprints", "panel_update",
+                 "panel_update_batched"):
+        check(counts_default[name] > 0,
+              f"{name} was not launched on the default path")
     emit({"phase": "default", "n": a.n, "nnz": a.nnz,
           "device": plan.device, "launches": counts_default, **res})
 
@@ -465,18 +680,17 @@ def main() -> int:
     check(factor_rel <= 1e-4, f"kernel-path factors off by {factor_rel}")
     check(res_k["residual_n"] <= 1e-10 and res_k["residual_n4"] <= 1e-10,
           f"kernel-path residual {res_k}")
-    for name in SOURCES:
+    for name in PROFILED_PATH:
         check(launches[name] > 0,
               f"{name} was not launched on the kernel path")
-    for name in ("minmax_relax_kernel", "column_fingerprints_kernel",
-                 "panel_update_kernel<false>", "panel_update_kernel<true>"):
+    for name in PROFILED:
         check(name in seen, f"torch.profiler did not see {name}: {seen}")
-    # segment batching within the port: stacked GEMMs vs per-panel ones.
-    # Bitwise on the kernel backend (K4 slices are K3); float64 torch.matmul
-    # sums a stack in another order than one panel, so that one is reported
+    # segment batching within the port: stacked GEMMs vs per-panel ones,
+    # bitwise on both backends (K4 slices are K3, float32 and float64)
     unbatched = dataclasses.replace(
         plan, options=opts.replace(segment_batch=False)).factorize(values)
     seg_equal = bool(torch.equal(unbatched.store.flat, factor.store.flat))
+    check(seg_equal, "float64: segment_batch=True differs from False")
     unbatched_k = dataclasses.replace(
         plan_k, options=kopts.replace(segment_batch=False)).factorize(values)
     check(torch.equal(unbatched_k.store.flat, factor_k.store.flat),
@@ -496,16 +710,22 @@ def main() -> int:
     emit({"phase": "reference",
           **reference_check(torch, repro_torch, sparse, generic_values_csr)})
 
-    # per-kernel times at the main path's shapes
+    params, serve_res = serve_phase(torch, ops)
+    emit({"phase": "serve", **serve_res})
+    emit({"phase": "breakdown_serve", **breakdown_serve(torch, params)})
+    del params
+
+    # per-kernel times at the main paths' shapes
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     kern = []
 
-    def row(name, err, ms, plain_ms, nbytes, nops, library_ms):
-        b_ms, b_by = bound(nbytes, nops)
-        src, replaces = SOURCES[name]
+    def row(name, n_launches, err, ms, plain_ms, nbytes, nops, library_ms,
+            *, kernel=None, peak_ops=PEAK_OPS_S):
+        b_ms, b_by = bound(nbytes, nops, peak_ops)
+        src, replaces = SOURCES[kernel or name]
         kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n_launches,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms})
@@ -516,7 +736,7 @@ def main() -> int:
     got = ops.minmax_relax(prop, adj)
     err = float((got - plain.minmax_relax_plain(prop, adj)).abs().max())
     nnz_adj = int((adj != 0).sum())
-    row("minmax_relax", err,
+    row("minmax_relax", launches["minmax_relax"], err,
         cuda_ms(torch, lambda: ops.minmax_relax(prop, adj)),
         cuda_ms(torch, lambda: plain.minmax_relax_plain(prop, adj), reps=1,
                 warmup=0),
@@ -532,49 +752,91 @@ def main() -> int:
         np.ones(s, dtype=np.int32))]
     err = float((ops.column_fingerprints(rel, *lanes)
                  - plain.column_fingerprints_plain(rel, *lanes)).abs().max())
-    row("column_fingerprints", err,
+    row("column_fingerprints", launches["column_fingerprints"], err,
         cuda_ms(torch, lambda: ops.column_fingerprints(rel, *lanes),
                 inner=10),
         cuda_ms(torch, lambda: plain.column_fingerprints_plain(rel, *lanes)),
         s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v, None)
 
+    # K3/K4 at the commonest GEMM shape and the largest stack of the bbd-20k
+    # sweep: float32 (the kernel path's launches) and float64 (the default
+    # path's)
     shapes = gemm_shapes(plan)
     k3_shape = Counter((mm, kk, nn) for _, _, mm, kk, nn in shapes
                        ).most_common(1)[0][0]
-    m, k, n = k3_shape
-    acc, lp, up = (torch.as_tensor(rng.standard_normal(sh).astype(
-        np.float32), device=dev) for sh in ((m, n), (m, k), (k, n)))
-    err, tol = k3_error(torch, ops, plain, acc, lp, up)
-    check(err <= tol, f"K3 at the common bbd shape: {err} > {tol}")
-    row("panel_update", err,
-        cuda_ms(torch, lambda: ops.panel_update(acc, lp, up), inner=100),
-        cuda_ms(torch, lambda: plain.panel_update_plain(acc, lp, up),
-                inner=100),
-        4 * (2 * m * n + m * k + k * n), 2 * m * n * k,
-        cuda_ms(torch, lambda: torch.addmm(acc, lp, up, alpha=-1),
-                inner=100))
-
     groups = Counter((li, mm, kk, nn) for li, _, mm, kk, nn in shapes)
-    (_, m, k, n), bsz = max(groups.items(), key=lambda kv: kv[1])
+    (_, bm, bk, bn), bsz = max(groups.items(), key=lambda kv: kv[1])
     check(bsz > 1, "no stacked GEMM group in the bbd-20k sweep")
-    accb, lpb, upb = (torch.as_tensor(rng.standard_normal(sh).astype(
-        np.float32), device=dev) for sh in ((bsz, m, n), (bsz, m, k),
-                                            (bsz, k, n)))
-    got = ops.panel_update_batched(accb, lpb, upb)
-    err = float((got - plain.panel_update_batched_plain(accb, lpb, upb)
-                 ).abs().max())
-    check(k4_bitwise(torch, ops, rng, bsz, m, k, n), "K4 != K3 per slice")
-    row("panel_update_batched", err,
-        cuda_ms(torch, lambda: ops.panel_update_batched(accb, lpb, upb),
-                inner=100),
-        cuda_ms(torch, lambda: plain.panel_update_batched_plain(
-            accb, lpb, upb), inner=100),
-        4 * bsz * (2 * m * n + m * k + k * n), 2 * bsz * m * n * k,
-        cuda_ms(torch, lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
-                inner=100))
+    for dtype, suffix, counts, peak in (
+            (torch.float32, "", launches, PEAK_OPS_S),
+            (torch.float64, " (float64)", counts_default, PEAK_F64_OPS_S)):
+        esize = 8 if dtype == torch.float64 else 4
+        m, k, n = k3_shape
+        acc, lp, up = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype,
+                                       device=dev)
+                       for sh in ((m, n), (m, k), (k, n)))
+        err, tol = k3_error(torch, ops, plain, acc, lp, up)
+        check(err <= tol, f"K3{suffix} at the common bbd shape: {err} > {tol}")
+        row("panel_update" + suffix, counts["panel_update"], err,
+            cuda_ms(torch, lambda: ops.panel_update(acc, lp, up), inner=100),
+            cuda_ms(torch, lambda: plain.panel_update_plain(acc, lp, up),
+                    inner=100),
+            esize * (2 * m * n + m * k + k * n), 2 * m * n * k,
+            cuda_ms(torch, lambda: torch.addmm(acc, lp, up, alpha=-1),
+                    inner=100),
+            kernel="panel_update", peak_ops=peak)
+
+        m, k, n = bm, bk, bn
+        accb, lpb, upb = (torch.as_tensor(rng.standard_normal(sh),
+                                          dtype=dtype, device=dev)
+                          for sh in ((bsz, m, n), (bsz, m, k), (bsz, k, n)))
+        got = ops.panel_update_batched(accb, lpb, upb)
+        err = float((got - plain.panel_update_batched_plain(accb, lpb, upb)
+                     ).abs().max())
+        check(k4_bitwise(torch, ops, rng, bsz, m, k, n, dtype=dtype),
+              f"K4{suffix} != K3 per slice")
+        row("panel_update_batched" + suffix, counts["panel_update_batched"],
+            err,
+            cuda_ms(torch, lambda: ops.panel_update_batched(accb, lpb, upb),
+                    inner=100),
+            cuda_ms(torch, lambda: plain.panel_update_batched_plain(
+                accb, lpb, upb), inner=100),
+            esize * bsz * (2 * m * n + m * k + k * n), 2 * bsz * m * n * k,
+            cuda_ms(torch, lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
+                    inner=100),
+            kernel="panel_update_batched", peak_ops=peak)
+
+    # K5 at the serve path's prefill shape (its row) and decode shape;
+    # scaled_dot_product_attention is the library yardstick only
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k5 = {}
+    for tag in ("prefill", "decode"):
+        shape = K5_SHAPES[tag]
+        qkv = attn_inputs(torch, rng, *shape)
+        err = float((ops.flash_attention(*qkv)
+                     - plain.flash_attention_plain(*qkv)).abs().max())
+        causal = shape[2] > 1       # S = 1 sees every key
+        nbytes, nops = attn_work(*shape)
+        k5[tag] = (err,
+                   cuda_ms(torch, lambda: ops.flash_attention(*qkv),
+                           inner=20),
+                   cuda_ms(torch, lambda: plain.flash_attention_plain(*qkv),
+                           inner=5),
+                   nbytes, nops,
+                   cuda_ms(torch, lambda: sdpa(*qkv, is_causal=causal),
+                           inner=20))
+    row("flash_attention", serve_res["launches"]["flash_attention"],
+        *k5["prefill"])
+    d_err, d_ms, d_plain, d_bytes, d_ops, d_lib = k5["decode"]
+    d_bound, d_by = bound(d_bytes, d_ops)
     emit({"phase": "kernel_shapes", "minmax_relax": [s, u, u],
           "column_fingerprints": [s, v], "panel_update": list(k3_shape),
-          "panel_update_batched": [bsz, m, k, n], "adj_nnz": nnz_adj})
+          "panel_update_batched": [bsz, bm, bk, bn], "adj_nnz": nnz_adj,
+          "flash_attention": list(K5_SHAPES["prefill"]),
+          "flash_attention_decode": {
+              "shape": list(K5_SHAPES["decode"]), "max_abs_err": d_err,
+              "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
+              "bound_by": d_by, "library_ms": d_lib}})
     emit({"kernels": kern})
 
     check("jax" not in sys.modules and "repro" not in sys.modules,

@@ -29,14 +29,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source stem -> (exported launch function, its argument types)
 SIGNATURES = {
     "minmax_relax": ("minmax_relax_launch", (_P, _P, _P, _I, _I, _I, _P)),
     "column_fingerprints": ("column_fingerprints_launch",
                             (_P, _P, _P, _P, _P, _P, _I, _I, _P)),
     "panel_update": ("panel_update_launch",
-                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_attention": ("flash_attention_launch",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -18,6 +18,7 @@ wrapper                   replaces (src/repro/kernels/)
 ``column_fingerprints``   supernode_fp.py::supernode_fp_pallas          K2
 ``panel_update``          panel_update.py::panel_update_pallas          K3
 ``panel_update_batched``  panel_update.py::panel_update_batched_pallas  K4
+``flash_attention``       flash_attention.py::flash_attention_pallas    K5
 ========================  ============================================  ==
 """
 from __future__ import annotations
@@ -121,9 +122,12 @@ def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
 
 
 def _panel_args(acc, l_panel, u_panel, ndim: int):
+    if acc.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"panel updates take float32 or float64, got "
+                         f"{acc.dtype}")
     for name, t in (("acc", acc), ("l_panel", l_panel),
                     ("u_panel", u_panel)):
-        _check(name, t, torch.float32, ndim)
+        _check(name, t, acc.dtype, ndim)
     *lead, m, n = acc.shape
     k = l_panel.shape[-1]
     if (tuple(l_panel.shape) != (*lead, m, k)
@@ -136,8 +140,9 @@ def _panel_args(acc, l_panel, u_panel, ndim: int):
 
 def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
                  u_panel: torch.Tensor) -> torch.Tensor:
-    """K3: (M, N) float32 ``acc - l_panel @ u_panel`` in true fp32; an
-    empty M, N or K returns ``acc``."""
+    """K3: (M, N) ``acc - l_panel @ u_panel`` in true float32, or in
+    float64 when all three are float64; an empty M, N or K returns
+    ``acc``."""
     if _on_cpu(acc, l_panel, u_panel):
         if 0 in acc.shape or l_panel.shape[-1] == 0:
             return acc
@@ -147,15 +152,17 @@ def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
         return acc
     out = torch.empty_like(acc)
     _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
-            u_panel.data_ptr(), out.data_ptr(), 1, m, n, k, 0, _stream(acc))
+            u_panel.data_ptr(), out.data_ptr(), 1, m, n, k, 0,
+            int(acc.dtype == torch.float64), _stream(acc))
     panel_update.launches += 1
     return out
 
 
 def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
                          u_panel: torch.Tensor) -> torch.Tensor:
-    """K4: (B, M, N) stacked K3 updates in one launch; each slice is
-    bitwise equal to K3 on that slice (same kernel body, same K order)."""
+    """K4: (B, M, N) stacked K3 updates in one launch (float32 or
+    float64); each slice is bitwise equal to K3 on that slice (same kernel
+    body, same K order)."""
     if _on_cpu(acc, l_panel, u_panel):
         if 0 in acc.shape or l_panel.shape[-1] == 0:
             return acc
@@ -169,13 +176,68 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
                          f"(grid z), got {b}")
     out = torch.empty_like(acc)
     _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
-            u_panel.data_ptr(), out.data_ptr(), b, m, n, k, 1, _stream(acc))
+            u_panel.data_ptr(), out.data_ptr(), b, m, n, k, 1,
+            int(acc.dtype == torch.float64), _stream(acc))
     panel_update_batched.launches += 1
     return out
 
 
+FLASH_HEAD_DIMS = (16, 64, 128)   # K5's instantiations of D
+
+
+def _attention_shapes(q, k, v, causal: bool):
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"attention takes q (B, H, S, D) and k, v "
+                         f"(B, H, T, D), got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    if tuple(k.shape[:2]) != (b, h) or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         f"disagree on B, H or D")
+    if causal and k.shape[2] < s:
+        raise ValueError(f"causal attention needs T >= S (the queries are "
+                         f"the last S of T positions), got S={s}, "
+                         f"T={k.shape[2]}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """K5: (B, H, S, D) online-softmax attention of q over k, v
+    (B, H, T, D), float32 or bfloat16, accumulated in float32, returned in
+    q's dtype.  Causal queries are the last S of T positions: query s sees
+    keys ``<= s + (T - S)``.  ``scale`` defaults to ``D ** -0.5``; D is one
+    of ``FLASH_HEAD_DIMS`` on the card."""
+    _attention_shapes(q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return plain.flash_attention_plain(q, k, v, causal=causal,
+                                           scale=scale)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, 4)
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention is built for D in "
+                         f"{FLASH_HEAD_DIMS}, got D={d}")
+    if s > 64 * 65535:
+        raise ValueError(f"flash_attention takes at most {64 * 65535} "
+                         f"queries (grid y), got {s}")
+    out = torch.empty_like(q)
+    if b * h == 0 or s == 0:
+        return out
+    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b * h, s, t, d, int(causal),
+            d ** -0.5 if scale is None else float(scale),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    flash_attention.launches += 1
+    return out
+
+
 KERNELS = (minmax_relax, column_fingerprints, panel_update,
-           panel_update_batched)
+           panel_update_batched, flash_attention)
 
 
 def reset_launches() -> None:

@@ -68,7 +68,7 @@ def column_fingerprints_plain(rel: torch.Tensor, src: torch.Tensor,
 
 
 @contextlib.contextmanager
-def _fp32_highest():
+def fp32_highest():
     """True float32 matmul for the block: no TF32 on the card."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
@@ -80,14 +80,15 @@ def _fp32_highest():
 
 def panel_update_plain(acc: torch.Tensor, l_panel: torch.Tensor,
                        u_panel: torch.Tensor) -> torch.Tensor:
-    """(M, N) float32 ``acc - l_panel @ u_panel``."""
-    with _fp32_highest():
+    """(M, N) ``acc - l_panel @ u_panel`` in the inputs' dtype (float32
+    or float64)."""
+    with fp32_highest():
         return acc - l_panel @ u_panel
 
 
 def panel_update_batched_plain(acc: torch.Tensor, l_panel: torch.Tensor,
                                u_panel: torch.Tensor) -> torch.Tensor:
-    """(B, M, N) float32 stacked ``acc - l_panel @ u_panel``, slice by slice
+    """(B, M, N) stacked ``acc - l_panel @ u_panel``, slice by slice
     through ``panel_update_plain`` so every slice is bitwise the per-panel
     result — K4's contract (``torch.bmm`` is not: its summation order
     depends on the batch size)."""
@@ -95,3 +96,24 @@ def panel_update_batched_plain(acc: torch.Tensor, l_panel: torch.Tensor,
         return acc
     return torch.stack([panel_update_plain(a, l, u)
                         for a, l, u in zip(acc, l_panel, u_panel)])
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
+    """Softmax attention of q (B, H, S, D) over k, v (B, H, T, D), in
+    float32, returned in q's dtype: query s sees keys ``<= s + (T - S)``
+    when ``causal`` (the queries are the last S positions), else all T.
+    ``scale`` defaults to ``D ** -0.5``.  The (S, T) scores are formed in
+    full."""
+    s, t = q.shape[-2], k.shape[-2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    with fp32_highest():
+        logits = q.float() @ k.float().transpose(-1, -2) * scale
+        if causal:
+            visible = torch.ones((s, t), dtype=torch.bool,
+                                 device=q.device).tril(t - s)
+            logits = logits.masked_fill(~visible, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        return (probs @ v.float()).to(q.dtype)

@@ -1,0 +1,155 @@
+"""GQA attention with a KV cache for decode, through the flash-attention
+kernel K5 (``kernels/ops.py::flash_attention``).
+
+The port of the GQA half of the JAX package's ``models/attention.py``.
+Weights and layouts are the reference's, 1:1: q heads are zero-padded from
+``n_heads`` up to ``cfg.hp`` (``wq`` gains zero columns, ``wo`` zero rows),
+K/V heads are repeated ``n_heads // n_kv_heads`` times in ``jnp.repeat``
+order and zero-padded to ``hp``, so the padded heads contribute exactly
+zero.  Prefill and decode both attend through K5: prefill causally over its
+own S positions, decode with S = 1 over the cache's valid prefix
+``[0, idx]`` (the reference's ``_sdpa`` under the mask ``pos <= idx``).
+
+Cache contract: ``{"k", "v"}`` of shape (B, n_kv_heads, max_len, hd) and
+``idx``, the number of positions written, one host int for the whole
+batch.  Decode writes the new token's K/V into the cache tensors IN PLACE
+(the reference returns new arrays) and returns the same tensors with
+``idx + 1``: a serving loop holds one cache, and a copy per token would
+move the whole cache.  Without sliding windows the valid slots are exactly
+``[0, idx]``, so the port keeps no per-slot position array.
+
+Not ported yet: sliding-window (local) layers and their ring caches,
+cross-attention and MLA (``models/transformer.py::check_supported`` raises
+for them, naming their ROADMAP item).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import _normal, apply_rope, init_rmsnorm, rmsnorm
+
+
+def init_gqa(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> Dict:
+    d, hd = cfg.d_model, cfg.hd
+    s = d ** -0.5
+    wq = _normal(gen, (d, cfg.n_heads * hd), s, dtype)
+    wk = _normal(gen, (d, cfg.n_kv_heads * hd), s, dtype)
+    wv = _normal(gen, (d, cfg.n_kv_heads * hd), s, dtype)
+    wo = _normal(gen, (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5,
+                 dtype)
+    if cfg.hp != cfg.n_heads:
+        # zero column / row blocks for the padded heads, as the reference
+        pad = (cfg.hp - cfg.n_heads) * hd
+        wq = torch.cat([wq, wq.new_zeros((d, pad))], dim=1)
+        wo = torch.cat([wo, wo.new_zeros((pad, d))], dim=0)
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, gen.device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, gen.device)
+    return p
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.view(b, s, n_heads, hd).transpose(1, 2)        # (B, H, S, hd)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def _expand_kv(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, n_kv_heads, T, hd) -> contiguous (B, hp, T, hd): each KV head
+    repeated ``n_heads // n_kv_heads`` times (``jnp.repeat`` order), then
+    zero heads up to ``hp`` — the reference's ``_pad_heads(_repeat_kv(.))``
+    in one copy."""
+    b, hkv, t, hd = x.shape
+    rep = cfg.n_heads // cfg.n_kv_heads
+    shape = (b, cfg.hp, t, hd)
+    out = (x.new_zeros(shape) if cfg.hp != cfg.n_heads
+           else x.new_empty(shape))
+    out[:, :cfg.n_heads].view(b, hkv, rep, t, hd).copy_(x[:, :, None])
+    return out
+
+
+def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor):
+    """Projected, normed and rotated q (B, hp, S, hd) and k, v
+    (B, n_kv_heads, S, hd)."""
+    hd = cfg.hd
+    q = _split_heads(x @ params["wq"], cfg.hp, hd)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                return_kv: bool = False):
+    """Full-sequence (prefill) causal GQA over x (B, S, d) at positions
+    ``[0, S)``.
+
+    ``return_kv`` additionally returns the (pre-repeat) rotated K and V for
+    the prefill cache.
+    """
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = kops.flash_attention(q.contiguous(), _expand_kv(k, cfg),
+                               _expand_kv(v, cfg), causal=True,
+                               scale=cfg.hd ** -0.5)
+    y = _merge_heads(out) @ params["wo"]
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   dtype=torch.float32, device=None) -> Dict:
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": 0}
+
+
+def fill_gqa_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
+    """Write a prefill segment (rotated K/V, (B, n_kv_heads, S, hd)) into
+    slots ``[0, S)`` of a fresh cache, in place."""
+    s = k.shape[2]
+    t = cache["k"].shape[2]
+    if s > t:
+        raise ValueError(f"a {s}-token prefill does not fit a {t}-slot cache")
+    cache["k"][:, :, :s] = k
+    cache["v"][:, :, :s] = v
+    return {"k": cache["k"], "v": cache["v"], "idx": s}
+
+
+def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (B, 1, d); the token sits at position
+    ``cache["idx"]`` and attends over slots ``[0, idx]``."""
+    b = x.shape[0]
+    idx = cache["idx"]
+    t = cache["k"].shape[2]
+    if idx >= t:
+        raise ValueError(f"the {t}-slot KV cache is full")
+    pos = torch.full((b, 1), idx, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(params, x, cfg, pos)
+    cache["k"][:, :, idx] = k[:, :, 0]
+    cache["v"][:, :, idx] = v[:, :, 0]
+    kr = _expand_kv(cache["k"][:, :, :idx + 1], cfg)
+    vr = _expand_kv(cache["v"][:, :, :idx + 1], cfg)
+    out = kops.flash_attention(q.contiguous(), kr, vr, causal=True,
+                               scale=cfg.hd ** -0.5)
+    new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
+    return _merge_heads(out) @ params["wo"], new_cache

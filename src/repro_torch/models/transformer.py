@@ -1,0 +1,201 @@
+"""Transformer assembly for serving: embed -> ``n_groups`` x pattern ->
+final norm, in prefill and decode.
+
+The port of the JAX package's ``models/transformer.py`` for patterns made
+of ``("attn", "mlp")`` layers (the dense GQA family: smollm, qwen3).  A
+model is a sequence of layer groups, each one copy of ``cfg.pattern``;
+``params["groups"]`` is a LIST of per-group dicts (the reference stacks
+them along a leading ``n_groups`` axis for ``lax.scan``; a Python loop over
+the list takes its place here, and ``models/convert.py`` unstacks a
+reference tree).  The caches are a list of per-group dicts in the same way.
+
+What has no counterpart on one card: ``lax.scan`` and remat (PyTorch runs
+eagerly, and serving keeps no activations for a backward pass), and the
+sharding constraints ``constrain`` / ``step_context`` (one device holds
+every tensor).
+
+Modes: ``prefill`` (full sequence, returns the KV caches) and ``decode``
+(one token against them).  ``train``, and the layer kinds and model parts
+not ported yet, raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+_TODO = {  # what is not ported yet -> its ROADMAP Queue A item
+    "rwkv6": "the rwkv6 mixer (with K7) is not ported yet (ROADMAP Queue A "
+             "item 12.2)",
+    "mamba": "the mamba mixer (with K6) is not ported yet (ROADMAP Queue A "
+             "item 12.3)",
+    "local": "sliding-window (local) attention is not ported yet (ROADMAP "
+             "Queue A item 12.4)",
+    "mla": "MLA attention is not ported yet (ROADMAP Queue A item 12.5)",
+    "moe": "MoE layers are not ported yet (ROADMAP Queue A item 12.6)",
+    "encdec": "encoder-decoder models and cross-attention are not ported "
+              "yet (ROADMAP Queue A item 12.7)",
+    "vlm": "patch-embedding (VLM) inputs are not ported yet (ROADMAP Queue "
+           "A item 12.8)",
+    "train": "training is not ported yet (ROADMAP Queue A item 12.9)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port cannot
+    run yet."""
+    if cfg.encdec is not None:
+        raise NotImplementedError(_TODO["encdec"])
+    if cfg.n_patches:
+        raise NotImplementedError(_TODO["vlm"])
+    for mixer, ffn in cfg.pattern:
+        for kind in (mixer, ffn):
+            if kind in _TODO:
+                raise NotImplementedError(f"{cfg.name}: {_TODO[kind]}")
+        if (mixer, ffn) != ("attn", "mlp"):
+            raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    return {
+        "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "mixer": attn.init_gqa(gen, cfg, dtype),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+        "norm2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+    }
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
+                device=None) -> Dict:
+    """Random parameters at the reference's scales, drawn on the CPU from
+    a ``torch.Generator`` seeded with ``seed`` (so every device gets the
+    same numbers) and moved to ``device`` (``None``: the card)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    params: Dict = {
+        "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype),
+        "groups": [{f"l{i}": init_layer(gen, cfg, dtype)
+                    for i in range(len(cfg.pattern))}
+                   for _ in range(cfg.n_groups)],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
+                                             cfg.d_model ** -0.5, dtype)}
+    return to_device(params, dev)
+
+
+def to_device(tree, device):
+    """A copy of a nested dict / list of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def n_params(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.float32, device=None) -> List[Dict]:
+    """Per-group list of per-layer KV caches, zeroed, on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [{f"l{i}": {"self": attn.init_gqa_cache(cfg, batch, cache_len,
+                                                   dtype=dtype, device=dev)}
+             for i in range(len(cfg.pattern))}
+            for _ in range(cfg.n_groups)]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
+           *, mode: str) -> Tuple[torch.Tensor, Dict]:
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    if mode == "decode":
+        o, self_cache = attn.gqa_decode(lp["mixer"], h, ce["self"], cfg)
+    else:
+        o, (k, v) = attn.gqa_forward(lp["mixer"], h, cfg, return_kv=True)
+        self_cache = attn.fill_gqa_cache(ce["self"], k, v)
+    x = x + o
+    h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    return x + L.mlp(lp["ffn"], h2), {"self": self_cache}
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            mode: str, caches: Optional[List[Dict]] = None,
+            cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Returns (hidden (B, S, d) after the final norm, new caches).
+
+    ``prefill`` builds caches of ``cache_len`` slots (default: the prompt
+    length) from ``tokens`` (B, S); ``decode`` runs ``tokens`` (B, 1)
+    against ``caches`` (updated in place, see ``models/attention.py``).
+    The reference also returns MoE auxiliaries; with no MoE ported there
+    are none.
+    """
+    if mode == "train":
+        raise NotImplementedError(_TODO["train"])
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    check_supported(cfg)
+    if mode == "decode" and caches is None:
+        raise ValueError("decode needs the caches of a prefill")
+    x = L.embed(params["embed"], tokens)
+    if mode == "prefill":
+        caches = init_caches(cfg, x.shape[0], cache_len or x.shape[1],
+                             dtype=x.dtype, device=x.device)
+    new_caches = []
+    for gp, cg in zip(params["groups"], caches):
+        nc = {}
+        for i in range(len(cfg.pattern)):
+            x, nc[f"l{i}"] = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg,
+                                    mode=mode)
+        new_caches.append(nc)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_caches
+
+
+# ---------------------------------------------------------------------------
+# heads
+# ---------------------------------------------------------------------------
+
+def _unembed_table(params: Dict) -> torch.Tensor:
+    return (params["head"]["table"] if "head" in params
+            else params["embed"]["table"])
+
+
+def logits_last(params: Dict, cfg: ModelConfig,
+                hidden: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) -> (B, V) float32 logits of the last position."""
+    return hidden[:, -1].float() @ _unembed_table(params).float().T

@@ -11,9 +11,9 @@ packed blocks of ``storage.PanelStore`` on the store's device:
   order: solve ``U(K, J) = L(K, K)^{-1} X(K, J)``, scatter the rank-|K|
   update into the rows of later ancestors, and defer the whole trailing
   update to one accumulated GEMM ``X(s:, J) -= L(s:, anc) @ U(anc, J)``:
-  float64 ``torch.matmul`` on the default ``"numpy"`` backend (named after
-  the reference's host BLAS backend), the float32 panel-update kernels K3/K4
-  on the ``"kernel"`` backend.
+  the panel-update kernels K3/K4 in float64 on the default ``"numpy"``
+  backend (named after the reference's host BLAS backend), in float32 on
+  the ``"kernel"`` backend.
 * **Panel factor** — dense no-pivot LU of the diagonal block, then one
   triangular solve for the below-panel L rows.  Pivots are checked once per
   dependency level (one host sync) and a failure raises the same
@@ -164,11 +164,13 @@ def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
 
 
 def _gemm_update(acc: torch.Tensor, lp: torch.Tensor, b: torch.Tensor,
-                 backend: str) -> torch.Tensor:
-    """``acc - lp @ b``: float64 torch, or K3 in float32."""
+                 backend: str, update=kops.panel_update) -> torch.Tensor:
+    """``acc - lp @ b`` through ``update`` (K3, or K4 on stacked operands):
+    its float64 instance, or float32 on the kernel backend.  On the CPU
+    both are the plain ``acc - lp @ b``, slice by slice."""
     if backend == "kernel":
-        return kops.panel_update(acc.float(), lp.float(), b.float()).double()
-    return acc - lp @ b
+        return update(acc.float(), lp.float(), b.float()).double()
+    return update(acc, lp, b)
 
 
 def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
@@ -190,12 +192,12 @@ def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
     batched dispatches (DESIGN.md §13).
 
     Three phases: prepare operands for every panel, apply the trailing GEMMs
-    — panels sharing an (M, K, N) shape go through ONE stacked dispatch
-    (``torch.matmul`` on the float64 backend, K4 on the kernel backend) —
-    then run every diagonal factor in segment order.  Panels within a level
-    only read strictly-earlier levels and write their own block, so the
-    phase split and the grouping change no float op beyond what the stacked
-    GEMM itself does (K4 slices are bitwise K3).
+    — panels sharing an (M, K, N) shape go through ONE stacked K4 dispatch
+    (its float64 instance, or float32 on the kernel backend) — then run
+    every diagonal factor in segment order.  Panels within a level only read
+    strictly-earlier levels and write their own block, and K4 slices are
+    bitwise K3 (on the CPU, its plain version loops over the slices), so
+    segment batching gives the per-panel factors bitwise.
 
     Returns per-panel ``(j, n_updates, flops, dropped)`` tuples.
     """
@@ -224,11 +226,8 @@ def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
         acc = torch.stack(accs)
         lps = torch.stack([operands[j][0] for j in js])
         bs = torch.stack([operands[j][1] for j in js])
-        if backend == "kernel":
-            upds = kops.panel_update_batched(acc.float(), lps.float(),
-                                             bs.float()).double()
-        else:
-            upds = acc - torch.matmul(lps, bs)
+        upds = _gemm_update(acc, lps, bs, backend,
+                            update=kops.panel_update_batched)
         for bi, a in enumerate(accs):
             a.copy_(upds[bi])
         batched_calls += 1

@@ -89,6 +89,101 @@ def test_panel_update_kernels_on_card(cuda, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(200, 96, 70), (8, 1, 1), (65, 17, 129)])
+def test_panel_update_float64_kernels_on_card(cuda, m, k, n):
+    """The float64 instances: K4 bitwise K3 per slice, K3 within float64
+    roundoff of the plain product, and the plain stacked version bitwise
+    the plain per-panel one."""
+    acc, lp, up = (torch.as_tensor(x.astype(np.float64), device=cuda)
+                   for x in _pu_inputs((5, m, n), (5, m, k), (5, k, n),
+                                       seed=m * n + k))
+    before = ops.panel_update_batched.launches
+    stacked = ops.panel_update_batched(acc, lp, up)
+    assert ops.panel_update_batched.launches == before + 1
+    assert stacked.dtype == torch.float64
+    want = plain.panel_update_batched_plain(acc, lp, up)
+    for i in range(5):
+        one = ops.panel_update(acc[i], lp[i], up[i])
+        assert torch.equal(stacked[i], one)
+        assert torch.equal(want[i],
+                           plain.panel_update_plain(acc[i], lp[i], up[i]))
+        assert float((one - want[i]).abs().max()) <= 1e-14 * k * float(
+            lp.abs().max() * up.abs().max())
+
+
+# the shapes chip_smoke.py holds K5 at: the serve path's prefill and decode
+# (smollm-135m, 8 requests, hp = 16 heads, hd = 64, 512 + 32 tokens) and a
+# D = 128 prefill (qwen3's head size)
+K5_SHAPES = [(8, 16, 512, 512, 64, True), (8, 16, 1, 544, 64, True),
+             (2, 16, 256, 256, 128, True)]
+
+
+def _attn_inputs(b, h, s, t, d, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                                 device=device).to(dtype)
+                 for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,t,d,causal", K5_SHAPES + [
+    (1, 2, 70, 130, 16, True), (1, 3, 33, 47, 16, False)])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, s, t, d, causal):
+    q, k, v = _attn_inputs(b, h, s, t, d, seed=s + t + d, device=cuda)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.flash_attention.launches == before + 1
+    want = plain.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    # float32 sums over up to T keys in another order than cuBLAS's
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_bfloat16(cuda):
+    q, k, v = _attn_inputs(2, 4, 128, 160, 64, seed=9, device=cuda,
+                           dtype=torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    want = plain.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16
+    # both round the float32 result to bfloat16 once (3e-2: the reference's
+    # bfloat16 tolerance)
+    assert float((got.float() - want.float()).abs().max()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_smollm_prefill_on_card_matches_cpu(cuda):
+    """Full-width smollm-135m prefill through K5 on the card against the
+    same parameters on the CPU (plain attention): same greedy tokens, last
+    hidden state and logits within float32 tolerance."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config("smollm-135m")
+    params = tf.init_params(cfg, seed=0, device=cuda)
+    host = tf.to_device(params, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)))
+    step = make_prefill_step(cfg, cache_len=136)
+    before = ops.flash_attention.launches
+    tok_card, caches = step(params, {"tokens": toks.to(cuda)})
+    assert ops.flash_attention.launches == before + cfg.n_layers
+    tok_host, _ = step(host, {"tokens": toks})
+    assert torch.equal(tok_card.cpu(), tok_host)
+    assert caches[0]["l0"]["self"]["k"].shape == (2, cfg.n_kv_heads, 136, 64)
+    with torch.inference_mode():
+        h_card, _ = tf.forward(params, cfg, toks.to(cuda), mode="prefill")
+        h_host, _ = tf.forward(host, cfg, toks, mode="prefill")
+        lg_card = tf.logits_last(params, cfg, h_card).cpu()
+        lg_host = tf.logits_last(host, cfg, h_host)
+    assert float((h_card.cpu() - h_host).abs().max()) <= 1e-3
+    assert float((lg_card - lg_host).abs().max()) <= 1e-3 * float(
+        lg_host.abs().max())
+
+
+@pytest.mark.cuda
 def test_kernel_path_on_card_matches_cpu(cuda):
     """analyze -> factorize -> solve with every kernel on the card gives the
     CPU run's structure bitwise and its factors within float32 tolerance."""
@@ -103,7 +198,10 @@ def test_kernel_path_on_card_matches_cpu(cuda):
     ops.reset_launches()
     card = repro_torch.analyze(a, opts, device=cuda)
     f_card = card.factorize(values)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("minmax_relax", "column_fingerprints",
+                                       "panel_update",
+                                       "panel_update_batched"))
     host = repro_torch.analyze(a, opts, device="cpu")
     f_host = host.factorize(values)
     assert np.array_equal(card.sym.supernodes, host.sym.supernodes)

@@ -98,6 +98,19 @@ def test_panel_update_batched_plain_matches_pallas(b, m, k, n):
     np.testing.assert_array_equal(got[1].numpy(), single.numpy())
 
 
+@pytest.mark.parametrize("b,m,k,n", [(4, 8, 1, 1), (3, 33, 70, 9)])
+def test_panel_update_batched_plain_float64_is_per_panel(b, m, k, n):
+    """The float64 sweep's stacked update on the CPU: every slice bitwise
+    the per-panel ``acc - l @ u`` (a stacked ``torch.matmul`` is not)."""
+    acc, lp, up = (torch.as_tensor(x.astype(np.float64)) for x in _pu_inputs(
+        (b, m, n), (b, m, k), (b, k, n), seed=b * m + k))
+    got = ops.panel_update_batched(acc, lp, up)
+    assert got.dtype == torch.float64
+    for i in range(b):
+        assert torch.equal(got[i], ops.panel_update(acc[i], lp[i], up[i]))
+        assert torch.equal(got[i], acc[i] - lp[i] @ up[i])
+
+
 @pytest.mark.parametrize("m,k,n", [(0, 4, 5), (6, 0, 5), (6, 4, 0)])
 def test_panel_update_empty_returns_acc(m, k, n):
     acc, lp, up = _pu_inputs((m, n), (m, k), (k, n), seed=1)
