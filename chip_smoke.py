@@ -40,17 +40,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   parameters: equal tokens, last logits within 1e-3.
 8. ``breakdown_serve`` — the serve path's prefill and one decode step
                   under ``torch.profiler``: idle share and top kernels.
+9. ``serve_rwkv6`` — the same serve run for rwkv6-7b whole (32 layers),
+                  K7 in every layer's prefill and decode (1024 launches);
+                  then, on its first 4 layers at full width, a 128-token
+                  prompt and 8 teacher-forced decode steps on the card and
+                  on the CPU (plain kernels) with the same parameters: every
+                  step's logits within 1e-4 of the largest, the final
+                  recurrent states too; greedy-token agreement reported.
+10. ``breakdown_serve_rwkv6`` — phase 8 for rwkv6-7b.
+11. ``serve_jamba`` — phase 9 for one 8-layer period of
+                  jamba-1.5-large-398b at full width with each MoE FFN
+                  replaced by the dense MLP of the same width (1 attention
+                  + 7 mamba layers: K6 224 launches, K5 32 at D = 128); the
+                  card-vs-CPU check on its first 2 layers (attention +
+                  mamba).
+12. ``breakdown_serve_jamba`` — phase 8 for the jamba period.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
-at, and K5's numbers at the decode shape), one ``kernels`` line (each
-kernel's time beside its bound; K3/K4 once per element type), the card's
-name and power limit, and the final ``{"ok": true, ...}``.
-The launch counters are reset just before each of phases 3, 4 and 7 and
-read just after it, so each path reports its own launches (phase 3: K2
-and the float64 K3/K4; phase 4: K1..K4 in float32; phase 7: K5), split by
-stage in ``launches_by_stage``; the ``kernels`` line takes each row's
-launches from the path that runs it.  The comparison and timing launches
-of phase 2, phases 5, 6 and 8 and the per-kernel timings are not counted.
+at, and K5's, K6's and K7's numbers at their decode shapes), one
+``kernels`` line (each kernel's time beside its bound; K3/K4 once per
+element type; ``ms`` and ``library_ms`` are the device time alone, the
+calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
+events around calls of the plain version, a host-driven sequence of many
+small launches whose time includes the host's gaps), the card's name and
+power limit, and the final ``{"ok": true, ...}``.
+The launch counters are reset just before each of phases 3, 4, 7, 9 and
+11 and read just after it, so each path reports its own launches (phase 3:
+K2 and the float64 K3/K4; phase 4: K1..K4 in float32; phase 7: K5; phase
+9: K7; phase 11: K6 and K5), split by stage in ``launches_by_stage`` for
+the LU paths; the ``kernels`` line takes each row's launches from the path
+that runs it.  The comparison and timing launches of phase 2, the
+breakdown and reference phases, the card-vs-CPU checks and the per-kernel
+timings are not counted.  Each serve phase frees its parameters before the
+next model is drawn.
 """
 import dataclasses
 import json
@@ -73,7 +95,19 @@ PEAK_OPS_S = 67e12
 # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34
 # TFLOP/s), for the float64 instances of K3/K4
 PEAK_F64_OPS_S = 34e12
+# exponentials on the special function units: 16 results per clock per SM
+# (CUDA C++ programming guide, throughput table, compute capability 9.0) x
+# 132 SMs x 1.98 GHz, the clock at which 132 x 128 FMA lanes give the
+# 67 TFLOP/s above; K6 computes one per (t, d, n)
+PEAK_SFU_S = 132 * 16 * 1.98e9
+# device_ms's spin: 1e8 cycles, >= 50 ms at the H100's <= 1.98 GHz clock
+SPIN_CYCLES = 100_000_000
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
+# the card-vs-CPU check of the SSM serve phases: a prompt, then teacher-
+# forced decode steps, each step's logits gated at max |card - CPU| /
+# max |CPU logit| (float32 sums in another order give ~1e-6; TF32 anywhere
+# on the path would exceed it)
+CHECK_PROMPT, CHECK_STEPS, CHECK_TOL = 128, 8, 1e-4
 SOURCES = {
     "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
                      "src/repro/kernels/gsofa_relax.py:60"),
@@ -86,6 +120,10 @@ SOURCES = {
                              "src/repro/kernels/panel_update.py:86"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:77"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/ssm_scan.py:71"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/ssm_scan.py:129"),
 }
 # the kernel path's kernels (K1..K4, float32) and their profiler names
 PROFILED_PATH = ("minmax_relax", "column_fingerprints", "panel_update",
@@ -130,8 +168,41 @@ def cuda_ms(torch, fn, *, inner: int = 1, reps: int = 5,
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops
+def device_ms(torch, fn, *, n: int = 50, reps: int = 3) -> float:
+    """Median device milliseconds of one ``fn()`` call with the host out of
+    the way: a spin kernel (``torch.cuda._sleep``, ~50 ms) holds the stream
+    while the host enqueues ``n`` calls, so the CUDA events around them time
+    the calls back to back on the device.  ``cuda_ms`` instead includes the
+    gaps where the device waits for the host's next launch, which dominate
+    calls of a few microseconds.  Fails if the host took longer to enqueue
+    the calls than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        check(host_s < SPIN_CYCLES / 2e9,
+              f"enqueueing {n} calls took {host_s} s, longer than the spin")
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S,
+          sfu_ops: float = 0):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over their peak rate, the ALU's and, for
+    ``sfu_ops`` exponentials, the special function units'."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = max(ops / peak_ops, sfu_ops / PEAK_SFU_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -236,6 +307,22 @@ def kernel_checks(torch, ops, plain, adj_real):
           f"K5 bfloat16: err {err} > 3e-2")
     out["K5_bf16_prefill_err"] = err
     out["K5_tol"] = K5_TOL
+
+    # K7 and K6 at their serve paths' prefill and decode shapes, from a
+    # zero and from a non-zero state, output and final state
+    for name, shapes, inputs in (("K7", K7_SHAPES, rwkv6_inputs),
+                                 ("K6", K6_SHAPES, mamba_inputs)):
+        fn = ops.rwkv6_scan if name == "K7" else ops.mamba_scan
+        ref = (plain.rwkv6_scan_plain if name == "K7"
+               else plain.mamba_scan_plain)
+        for tag, shape in shapes.items():
+            for zero in (True, False):
+                args = inputs(torch, rng, *shape, zero_state=zero)
+                err, rel = scan_error(torch, fn(*args), ref(*args))
+                check(rel <= SCAN_TOL, f"{name} {tag} {shape} zero={zero}: "
+                      f"relative error {rel} > {SCAN_TOL}")
+                out[f"{name}_{tag}_{'zero' if zero else 'state'}_err"] = err
+    out["K6_K7_rel_tol"] = SCAN_TOL
     return out
 
 
@@ -256,6 +343,75 @@ def attn_inputs(torch, rng, b, h, s, t, d):
     return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
                                  device=dev)
                  for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+# K7's shapes (B, L, H, K): rwkv6-7b's serve path (8 requests, 64 heads
+# of 64; prefill 512, decode 1).  K6's (B, L, di, N): the jamba period's
+# (8 requests, di = 2 x 8192, N = 16).  Tolerance: max |kernel - plain| over
+# the output and the final state, relative to max(1, max |plain|): float32
+# sums over K or N in another order, and the state grows with L.
+K7_SHAPES = {"prefill": (8, 512, 64, 64), "decode": (8, 1, 64, 64)}
+K6_SHAPES = {"prefill": (8, 512, 16384, 16), "decode": (8, 1, 16384, 16)}
+SCAN_TOL = 1e-4
+
+
+def rwkv6_inputs(torch, rng, b, l, h, k, *, zero_state=True):
+    """r, k, v (B, L, H, K) normal, w in (0.5, 0.999), u (H, K), state
+    (B, H, K, K), on the card."""
+    import numpy as np
+
+    arrs = [rng.standard_normal((b, l, h, k)) for _ in range(3)]
+    arrs += [rng.uniform(0.5, 0.999, (b, l, h, k)),
+             rng.standard_normal((h, k)) * 0.3,
+             np.zeros((b, h, k, k)) if zero_state
+             else rng.standard_normal((b, h, k, k))]
+    return tuple(torch.as_tensor(a.astype(np.float32), device="cuda")
+                 for a in arrs)
+
+
+def mamba_inputs(torch, rng, b, l, di, n, *, zero_state=True):
+    """x (B, L, di), dt ~ 0.05 |normal|, b_t, c_t (B, L, N), a < 0 (di, N),
+    d (di,), h0 (B, di, N), on the card."""
+    import numpy as np
+
+    arrs = [rng.standard_normal((b, l, di)),
+            np.abs(rng.standard_normal((b, l, di))) * 0.05,
+            rng.standard_normal((b, l, n)), rng.standard_normal((b, l, n)),
+            -(np.abs(rng.standard_normal((di, n))) + 0.1),
+            rng.standard_normal(di),
+            np.zeros((b, di, n)) if zero_state
+            else rng.standard_normal((b, di, n))]
+    return tuple(torch.as_tensor(a.astype(np.float32), device="cuda")
+                 for a in arrs)
+
+
+def scan_error(torch, got, want):
+    """(max abs error, max relative error) of a scan's (output, final
+    state) against the plain version's, each relative to max(1, max
+    |plain|)."""
+    torch.cuda.synchronize()
+    errs = [(float((g - w).abs().max()), max(1.0, float(w.abs().max())))
+            for g, w in zip(got, want)]
+    return max(e for e, _ in errs), max(e / sc for e, sc in errs)
+
+
+def rwkv6_work(b, l, h, k):
+    """(bytes, float ops) of K7: r, k, v, w read and o written once, u,
+    the state in and out; 5 flops per (t, key, value): k_i v_j, the FMA
+    w_i S_ij + kv and the FMA r_i S_ij; and 5 per (t, value) for the bonus
+    term, the scalar sum_i r_i u_i k_i (3 per key) times v_j added to the
+    output (2 per value)."""
+    return (4 * (5 * b * l * h * k + h * k + 2 * b * h * k * k),
+            5 * b * l * h * k * k + 5 * b * l * h * k)
+
+
+def mamba_work(b, l, di, n):
+    """(bytes, float ops, exponentials) of K6: x, dt read and y written
+    once, B_t, C_t, A, D, the state in and out; 6 flops and one exp per
+    (t, d, n), 3 flops per (t, d)."""
+    return (4 * (3 * b * l * di + 2 * b * l * n + di * n + di
+                 + 2 * b * di * n),
+            6 * b * l * di * n + 3 * b * l * di, b * l * di * n)
 
 
 def attn_work(b, h, s, t, d):
@@ -510,16 +666,14 @@ def greedy(torch, tf, fp32_highest, cfg, params, prompt, gen_len):
     return torch.stack(toks, dim=1).cpu(), logits.cpu()
 
 
-def serve_phase(torch, ops):
-    """Phase 7: the serve path at full width on the card, then one request
-    on the card and on the CPU with the same parameters."""
-    import numpy as np
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels.plain import fp32_highest
+def serve_run(torch, ops, cfg):
+    """The serve path at full width on the card: draw the parameters, warm
+    up, then serve SERVE_REQUESTS x (SERVE_PROMPT + SERVE_GEN) with the
+    launch counters set to 0 just before.  Returns the parameters and the
+    phase line's common keys."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
-    cfg = get_config(SERVE_ARCH)
     held = torch.cuda.memory_allocated()     # the earlier phases' tensors
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0)
@@ -536,6 +690,37 @@ def serve_phase(torch, ops):
     toks = res["tokens"]
     check(toks.shape == (SERVE_REQUESTS, SERVE_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab, f"serve tokens {toks.shape}")
+    b, p, g = SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN
+    return params, {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.hp, cfg.n_kv_heads], "hd": cfg.hd,
+        "vocab": cfg.vocab, "n_params": tf.n_params(params),
+        "requests": b, "prompt_len": p, "gen_len": g,
+        "init_params_s": t_init,
+        "prefill_ms": res["prefill_s"] * 1e3,
+        "prefill_tok_s": b * p / res["prefill_s"],
+        "decode_ms": res["decode_s"] * 1e3,
+        # the decode loop makes gen - 1 tokens per request (the first comes
+        # from the prefill)
+        "decode_tok_s": b * (g - 1) / res["decode_s"],
+        "decode_ms_per_step": res["decode_s"] * 1e3 / (g - 1),
+        "max_memory_allocated": peak,
+        # the serve run's own peak: parameters, caches and activations
+        "serve_peak_bytes": peak - held, "launches": launches,
+        "sample_tokens": toks[0].tolist()}
+
+
+def serve_phase(torch, ops):
+    """Phase 7: the serve path at full width on the card, then one request
+    on the card and on the CPU with the same parameters."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(SERVE_ARCH)
+    params, line = serve_run(torch, ops, cfg)
+    launches = line["launches"]
     want = cfg.n_layers * SERVE_GEN        # prefill + (gen - 1) decode steps
     check(launches["flash_attention"] == want,
           f"K5 launched {launches['flash_attention']} times, not {want}")
@@ -554,38 +739,102 @@ def serve_phase(torch, ops):
     check(torch.equal(card_toks, host_toks),
           f"card tokens {card_toks.tolist()} != CPU {host_toks.tolist()}")
     check(logits_rel <= 1e-3, f"card vs CPU last logits: {logits_rel}")
-    b, p, g = SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN
     return params, {
-        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "heads": [cfg.n_heads, cfg.hp, cfg.n_kv_heads], "hd": cfg.hd,
-        "vocab": cfg.vocab, "n_params": tf.n_params(params),
-        "requests": b, "prompt_len": p, "gen_len": g,
-        "init_params_s": t_init,
-        "prefill_ms": res["prefill_s"] * 1e3,
-        "prefill_tok_s": b * p / res["prefill_s"],
-        "decode_ms": res["decode_s"] * 1e3,
-        # the decode loop makes gen - 1 tokens per request (the first comes
-        # from the prefill)
-        "decode_tok_s": b * (g - 1) / res["decode_s"],
-        "decode_ms_per_step": res["decode_s"] * 1e3 / (g - 1),
-        "max_memory_allocated": peak,
-        # the serve run's own peak: parameters, caches and activations
-        "serve_peak_bytes": peak - held, "launches": launches,
-        "sample_tokens": toks[0].tolist(),
-        "check_tokens": card_toks[0].tolist(),
+        **line, "check_tokens": card_toks[0].tolist(),
         "check_tokens_equal": True, "check_logits_rel": logits_rel,
         "check_cpu_s": t_host}
 
 
-def breakdown_serve(torch, params):
-    """Phase 8: the serve path's prefill and one decode step (after one
-    warm decode step) under torch.profiler."""
+def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced):
+    """Prefill ``prompt`` (1, P), then decode the tokens of ``forced``
+    (1, T) one at a time, whatever the model predicts.  Returns every
+    step's float32 logits (T + 1, V) and the final recurrent states
+    {(group, layer, leaf): tensor}, all on the host."""
+    dev = params["embed"]["table"].device
+    with torch.inference_mode(), fp32_highest():
+        h, caches = tf.forward(params, cfg, prompt.to(dev), mode="prefill",
+                               cache_len=prompt.shape[1] + forced.shape[1])
+        logits = [tf.logits_last(params, cfg, h)]
+        for t in range(forced.shape[1]):
+            h, caches = tf.forward(params, cfg, forced[:, t:t + 1].to(dev),
+                                   mode="decode", caches=caches)
+            logits.append(tf.logits_last(params, cfg, h))
+    states = {(g, name, key): leaf.cpu()
+              for g, cg in enumerate(caches) for name, ce in cg.items()
+              if "state" in ce for key, leaf in ce["state"].items()
+              if key != "idx"}
+    return torch.cat(logits).cpu(), states
+
+
+def ssm_serve_phase(torch, ops, cfg, *, cut, kernel, check_layers):
+    """Phases 9 and 11: the serve path at full width on the card (launch
+    counts checked exactly), then the first ``check_layers`` layers of the
+    same parameters on the card and on the CPU, teacher-forced.  Returns
+    the parameters (the breakdown phase reuses them) and the phase line."""
+    import numpy as np
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import transformer as tf
+
+    params, line = serve_run(torch, ops, cfg)
+    launches = line["launches"]
+    n_ssm = sum(m != "attn" for m, _ in cfg.pattern) * cfg.n_groups
+    want = {name: 0 for name in launches}
+    want[kernel] = n_ssm * SERVE_GEN       # prefill + (gen - 1) decode steps
+    want["flash_attention"] = (cfg.n_layers - n_ssm) * SERVE_GEN
+    check(launches == want, f"{cfg.name}: launches {launches}, not {want}")
+
+    # the first layers on the card and, copied, on the CPU
+    n_groups = max(1, check_layers // len(cfg.pattern))
+    pattern = cfg.pattern[:check_layers]
+    sub_cfg = dataclasses.replace(cfg, n_layers=check_layers,
+                                  pattern=pattern)
+    sub = {k: v for k, v in params.items() if k != "groups"}
+    sub["groups"] = [{f"l{i}": gp[f"l{i}"] for i in range(len(pattern))}
+                     for gp in params["groups"][:n_groups]]
+    rng = np.random.default_rng(1)
+    prompt, forced = (torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)))
+                      for n in (CHECK_PROMPT, CHECK_STEPS))
+    card_logits, card_states = teacher_forced(torch, tf, fp32_highest,
+                                              sub_cfg, sub, prompt, forced)
+    host = tf.to_device(sub, "cpu")
+    t0 = time.perf_counter()
+    host_logits, host_states = teacher_forced(torch, tf, fp32_highest,
+                                              sub_cfg, host, prompt, forced)
+    t_host = time.perf_counter() - t0
+    del host
+    step_rel = ((card_logits - host_logits).abs().amax(dim=1)
+                / host_logits.abs().amax(dim=1)).tolist()
+    state_rel = {f"{g}/{name}/{key}": float(
+        (card_states[g, name, key] - leaf).abs().max()
+        / max(1.0, float(leaf.abs().max())))
+        for (g, name, key), leaf in host_states.items()}
+    agree = int((card_logits.argmax(1) == host_logits.argmax(1)).sum())
+    check(max(step_rel) <= CHECK_TOL,
+          f"{cfg.name}: card vs CPU logits {step_rel} > {CHECK_TOL}")
+    check(state_rel and max(state_rel.values()) <= CHECK_TOL,
+          f"{cfg.name}: card vs CPU final states {state_rel}")
+    return params, {
+        **line, "cut": cut, "pattern": [list(lk) for lk in cfg.pattern],
+        "d_ff": cfg.d_ff, "ssm": dataclasses.asdict(cfg.ssm),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in tf._leaves(params)),
+        "check_layers": f"the first {check_layers} layers "
+                        f"({', '.join(m for m, _ in pattern)}), full width",
+        "check_prompt": CHECK_PROMPT,
+        "check_teacher_forced_steps": CHECK_STEPS,
+        "check_logits_rel_per_step": step_rel,
+        "check_logits_tol": CHECK_TOL, "check_state_rel": state_rel,
+        "check_greedy_agree": f"{agree}/{CHECK_STEPS + 1}",
+        "check_cpu_s": t_host}
+
+
+def breakdown_serve(torch, cfg, params):
+    """Phases 8, 10 and 12: the serve path's prefill and one decode step
+    (after one warm decode step) under torch.profiler."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.base import get_config
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    cfg = get_config(SERVE_ARCH)
     prefill = make_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_GEN)
     decode = make_decode_step(cfg)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
@@ -645,7 +894,8 @@ def main() -> int:
     a = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
                                        seed=SEED)
     adj = prepare_graph(a, dense_block=128, device="cuda").adj_dense
-    emit({"phase": "kernels", **kernel_checks(torch, ops, plain, adj)})
+    checks = kernel_checks(torch, ops, plain, adj)
+    emit({"phase": "kernels", **checks})
 
     values = generic_values_csr(a)
     ops.reset_launches()
@@ -710,25 +960,51 @@ def main() -> int:
     emit({"phase": "reference",
           **reference_check(torch, repro_torch, sparse, generic_values_csr)})
 
+    from repro_torch.configs.base import dense_period, get_config
+
     params, serve_res = serve_phase(torch, ops)
     emit({"phase": "serve", **serve_res})
-    emit({"phase": "breakdown_serve", **breakdown_serve(torch, params)})
+    emit({"phase": "breakdown_serve",
+          **breakdown_serve(torch, get_config(SERVE_ARCH), params)})
     del params
 
-    # per-kernel times at the main paths' shapes
+    ssm_launches = {}
+    for tag, cfg, cut, kernel, layers in (
+            ("rwkv6", get_config("rwkv6-7b"), "none: the whole model",
+             "rwkv6_scan", 4),
+            ("jamba", dense_period(get_config("jamba-1.5-large-398b")),
+             "one 8-layer period of 72 (1 attention + 7 mamba), each MoE "
+             "FFN (16 experts) replaced by the dense MLP of the same width",
+             "mamba_scan", 2)):
+        params, res = ssm_serve_phase(torch, ops, cfg, cut=cut,
+                                      kernel=kernel, check_layers=layers)
+        ssm_launches[kernel] = res["launches"][kernel]
+        emit({"phase": f"serve_{tag}", **res})
+        emit({"phase": f"breakdown_serve_{tag}",
+              **breakdown_serve(torch, cfg, params)})
+        del params
+        torch.cuda.empty_cache()
+
+    # per-kernel times at the main paths' shapes: the kernel and the
+    # library call on the device alone (device_ms), the plain version with
+    # CUDA events around it (cuda_ms, ``plain_kw`` its repetitions)
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     kern = []
 
-    def row(name, n_launches, err, ms, plain_ms, nbytes, nops, library_ms,
-            *, kernel=None, peak_ops=PEAK_OPS_S):
-        b_ms, b_by = bound(nbytes, nops, peak_ops)
+    def timing(fn, plain_fn, nbytes, nops, library_fn=None, *,
+               peak_ops=PEAK_OPS_S, sfu_ops=0, plain_kw=None):
+        b_ms, b_by = bound(nbytes, nops, peak_ops, sfu_ops)
+        return {"ms": device_ms(torch, fn),
+                "plain_ms": cuda_ms(torch, plain_fn, **(plain_kw or {})),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_fn and device_ms(torch, library_fn)}
+
+    def row(name, n_launches, err, *args, kernel=None, **kw):
         src, replaces = SOURCES[kernel or name]
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n_launches,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library_ms})
+                     "max_abs_err": err, **timing(*args, **kw)})
 
     s, u = CONCURRENCY, adj.shape[0]
     prop = torch.as_tensor(rng.integers(0, u, size=(s, u)).astype(np.int32),
@@ -737,10 +1013,10 @@ def main() -> int:
     err = float((got - plain.minmax_relax_plain(prop, adj)).abs().max())
     nnz_adj = int((adj != 0).sum())
     row("minmax_relax", launches["minmax_relax"], err,
-        cuda_ms(torch, lambda: ops.minmax_relax(prop, adj)),
-        cuda_ms(torch, lambda: plain.minmax_relax_plain(prop, adj), reps=1,
-                warmup=0),
-        s * u * 4 + adj.numel() + s * u * 4, s * nnz_adj, None)
+        lambda: ops.minmax_relax(prop, adj),
+        lambda: plain.minmax_relax_plain(prop, adj),
+        s * u * 4 + adj.numel() + s * u * 4, s * nnz_adj,
+        plain_kw={"reps": 1, "warmup": 0})
 
     v = N_LARGE
     rel = torch.as_tensor(rng.integers(-1, v + 2, size=(s, v)).astype(
@@ -753,10 +1029,9 @@ def main() -> int:
     err = float((ops.column_fingerprints(rel, *lanes)
                  - plain.column_fingerprints_plain(rel, *lanes)).abs().max())
     row("column_fingerprints", launches["column_fingerprints"], err,
-        cuda_ms(torch, lambda: ops.column_fingerprints(rel, *lanes),
-                inner=10),
-        cuda_ms(torch, lambda: plain.column_fingerprints_plain(rel, *lanes)),
-        s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v, None)
+        lambda: ops.column_fingerprints(rel, *lanes),
+        lambda: plain.column_fingerprints_plain(rel, *lanes),
+        s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v)
 
     # K3/K4 at the commonest GEMM shape and the largest stack of the bbd-20k
     # sweep: float32 (the kernel path's launches) and float64 (the default
@@ -778,13 +1053,11 @@ def main() -> int:
         err, tol = k3_error(torch, ops, plain, acc, lp, up)
         check(err <= tol, f"K3{suffix} at the common bbd shape: {err} > {tol}")
         row("panel_update" + suffix, counts["panel_update"], err,
-            cuda_ms(torch, lambda: ops.panel_update(acc, lp, up), inner=100),
-            cuda_ms(torch, lambda: plain.panel_update_plain(acc, lp, up),
-                    inner=100),
+            lambda: ops.panel_update(acc, lp, up),
+            lambda: plain.panel_update_plain(acc, lp, up),
             esize * (2 * m * n + m * k + k * n), 2 * m * n * k,
-            cuda_ms(torch, lambda: torch.addmm(acc, lp, up, alpha=-1),
-                    inner=100),
-            kernel="panel_update", peak_ops=peak)
+            lambda: torch.addmm(acc, lp, up, alpha=-1),
+            kernel="panel_update", peak_ops=peak, plain_kw={"inner": 100})
 
         m, k, n = bm, bk, bn
         accb, lpb, upb = (torch.as_tensor(rng.standard_normal(sh),
@@ -796,47 +1069,62 @@ def main() -> int:
         check(k4_bitwise(torch, ops, rng, bsz, m, k, n, dtype=dtype),
               f"K4{suffix} != K3 per slice")
         row("panel_update_batched" + suffix, counts["panel_update_batched"],
-            err,
-            cuda_ms(torch, lambda: ops.panel_update_batched(accb, lpb, upb),
-                    inner=100),
-            cuda_ms(torch, lambda: plain.panel_update_batched_plain(
-                accb, lpb, upb), inner=100),
+            err, lambda: ops.panel_update_batched(accb, lpb, upb),
+            lambda: plain.panel_update_batched_plain(accb, lpb, upb),
             esize * bsz * (2 * m * n + m * k + k * n), 2 * bsz * m * n * k,
-            cuda_ms(torch, lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
-                    inner=100),
-            kernel="panel_update_batched", peak_ops=peak)
+            lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
+            kernel="panel_update_batched", peak_ops=peak,
+            plain_kw={"inner": 100})
 
     # K5 at the serve path's prefill shape (its row) and decode shape;
     # scaled_dot_product_attention is the library yardstick only
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k5 = {}
+    shapes_line = {
+        "phase": "kernel_shapes", "minmax_relax": [s, u, u],
+        "column_fingerprints": [s, v], "panel_update": list(k3_shape),
+        "panel_update_batched": [bsz, bm, bk, bn], "adj_nnz": nnz_adj,
+        "flash_attention": list(K5_SHAPES["prefill"])}
     for tag in ("prefill", "decode"):
         shape = K5_SHAPES[tag]
         qkv = attn_inputs(torch, rng, *shape)
         err = float((ops.flash_attention(*qkv)
                      - plain.flash_attention_plain(*qkv)).abs().max())
         causal = shape[2] > 1       # S = 1 sees every key
-        nbytes, nops = attn_work(*shape)
-        k5[tag] = (err,
-                   cuda_ms(torch, lambda: ops.flash_attention(*qkv),
-                           inner=20),
-                   cuda_ms(torch, lambda: plain.flash_attention_plain(*qkv),
-                           inner=5),
-                   nbytes, nops,
-                   cuda_ms(torch, lambda: sdpa(*qkv, is_causal=causal),
-                           inner=20))
-    row("flash_attention", serve_res["launches"]["flash_attention"],
-        *k5["prefill"])
-    d_err, d_ms, d_plain, d_bytes, d_ops, d_lib = k5["decode"]
-    d_bound, d_by = bound(d_bytes, d_ops)
-    emit({"phase": "kernel_shapes", "minmax_relax": [s, u, u],
-          "column_fingerprints": [s, v], "panel_update": list(k3_shape),
-          "panel_update_batched": [bsz, bm, bk, bn], "adj_nnz": nnz_adj,
-          "flash_attention": list(K5_SHAPES["prefill"]),
-          "flash_attention_decode": {
-              "shape": list(K5_SHAPES["decode"]), "max_abs_err": d_err,
-              "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
-              "bound_by": d_by, "library_ms": d_lib}})
+        args = (lambda: ops.flash_attention(*qkv),
+                lambda: plain.flash_attention_plain(*qkv), *attn_work(*shape),
+                lambda: sdpa(*qkv, is_causal=causal))
+        if tag == "prefill":
+            row("flash_attention", serve_res["launches"]["flash_attention"],
+                err, *args, plain_kw={"inner": 5})
+        else:
+            shapes_line["flash_attention_decode"] = {
+                "shape": list(shape), "max_abs_err": err,
+                **timing(*args, plain_kw={"inner": 5})}
+
+    # K6 and K7 from a zero state at their serve paths' prefill shapes
+    # (their rows) and from a non-zero state at the decode shapes, their
+    # errors those of phase 2 at the same shapes and states; no one
+    # PyTorch call computes either scan (library_ms null)
+    for name, key, shapes, inputs, work, fn, ref in (
+            ("mamba_scan", "K6", K6_SHAPES, mamba_inputs, mamba_work,
+             ops.mamba_scan, plain.mamba_scan_plain),
+            ("rwkv6_scan", "K7", K7_SHAPES, rwkv6_inputs, rwkv6_work,
+             ops.rwkv6_scan, plain.rwkv6_scan_plain)):
+        for tag, state in (("prefill", "zero"), ("decode", "state")):
+            shape = shapes[tag]
+            args = inputs(torch, rng, *shape, zero_state=state == "zero")
+            err = checks[f"{key}_{tag}_{state}_err"]
+            nbytes, nops, *sfu = work(*shape)
+            t = (lambda: fn(*args), lambda: ref(*args), nbytes, nops)
+            kw = {"sfu_ops": sfu[0] if sfu else 0, "plain_kw": {"reps": 3}}
+            if tag == "prefill":
+                shapes_line[name] = list(shape)
+                row(name, ssm_launches[name], err, *t, **kw)
+            else:
+                shapes_line[f"{name}_decode"] = {
+                    "shape": list(shape), "max_abs_err": err,
+                    **timing(*t, **kw)}
+    emit(shapes_line)
     emit({"kernels": kern})
 
     check("jax" not in sys.modules and "repro" not in sys.modules,

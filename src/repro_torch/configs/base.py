@@ -205,6 +205,17 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
+def dense_period(cfg):
+    """``cfg`` cut to one period of its pattern with every FFN the dense
+    MLP of the model's width (``d_ff``).  For jamba-1.5-large-398b that is
+    the 8-layer period the port serves: the whole model, or one period
+    with its 16-expert MoE FFNs, does not fit one card.  Not registered.
+    Only ``dataclasses.replace`` and ``cfg.pattern`` are used, so the JAX
+    package's config takes the same cut."""
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern), pattern=tuple(
+        (mixer, "mlp") for mixer, _ in cfg.pattern))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str

@@ -39,6 +39,10 @@ SIGNATURES = {
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention_launch",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
+    "rwkv6_scan": ("rwkv6_scan_launch",
+                   (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "mamba_scan": ("mamba_scan_launch",
+                   (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -19,6 +19,8 @@ wrapper                   replaces (src/repro/kernels/)
 ``panel_update``          panel_update.py::panel_update_pallas          K3
 ``panel_update_batched``  panel_update.py::panel_update_batched_pallas  K4
 ``flash_attention``       flash_attention.py::flash_attention_pallas    K5
+``mamba_scan``            ssm_scan.py::mamba_scan_pallas                K6
+``rwkv6_scan``            ssm_scan.py::rwkv6_scan_pallas                K7
 ========================  ============================================  ==
 """
 from __future__ import annotations
@@ -236,8 +238,105 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+RWKV6_HEAD_SIZES = (16, 64)   # K7's instantiations of K
+MAMBA_STATE_SIZES = (4, 16)   # K6's instantiations of N
+
+
+def _same_shapes(names: str, *tensors: torch.Tensor):
+    shapes = {tuple(t.shape) for t in tensors}
+    if len(shapes) != 1:
+        raise ValueError(f"{names} must share one shape, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: the rwkv6 recurrence ``o_t = r_t (S + diag(u) k_t^T v_t)``,
+    ``S <- diag(w_t) S + k_t^T v_t`` from ``state``, float32.
+
+    r, k, v, w (B, L, H, K); u (H, K); state (B, H, K, K) keyed
+    [key, value].  Returns (o (B, L, H, K), the final state) as new
+    tensors: ``state`` is not written.  K is one of ``RWKV6_HEAD_SIZES``
+    on the card."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan takes r, k, v, w (B, L, H, K), got "
+                         f"{tuple(r.shape)}")
+    _same_shapes("r, k, v, w", r, k, v, w)
+    b, l, h, kk = r.shape
+    if tuple(u.shape) != (h, kk) or tuple(state.shape) != (b, h, kk, kk):
+        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)} needs u {(h, kk)} "
+                         f"and state {(b, h, kk, kk)}, got u "
+                         f"{tuple(u.shape)} and state {tuple(state.shape)}")
+    if _on_cpu(r, k, v, w, u, state):
+        return plain.rwkv6_scan_plain(r, k, v, w, u, state)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state)):
+        _check(name, t, torch.float32, t.dim())
+    if kk not in RWKV6_HEAD_SIZES:
+        raise ValueError(f"rwkv6_scan is built for K in {RWKV6_HEAD_SIZES}, "
+                         f"got K={kk}")
+    o = torch.empty_like(r)
+    s_out = torch.empty_like(state)
+    if b * h == 0:
+        return o, s_out
+    _launch("rwkv6_scan", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(), state.data_ptr(), o.data_ptr(),
+            s_out.data_ptr(), b, l, h, kk, _stream(r))
+    rwkv6_scan.launches += 1
+    return o, s_out
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
+               c_t: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+               h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: the selective scan ``h <- exp(dt_t A) * h + (dt_t x_t) (x) B_t``,
+    ``y_t = h . C_t + D x_t`` from ``h0``, float32.
+
+    x, dt (B, L, di); b_t, c_t (B, L, N); a (di, N); d_skip (di,); h0
+    (B, di, N).  Returns (y (B, L, di), the final state) as new tensors:
+    ``h0`` is not written.  N is one of ``MAMBA_STATE_SIZES`` on the
+    card."""
+    if x.dim() != 3 or b_t.dim() != 3:
+        raise ValueError(f"mamba_scan takes x, dt (B, L, di) and b_t, c_t "
+                         f"(B, L, N), got x {tuple(x.shape)}, b_t "
+                         f"{tuple(b_t.shape)}")
+    _same_shapes("x, dt", x, dt)
+    _same_shapes("b_t, c_t", b_t, c_t)
+    b, l, di = x.shape
+    n = b_t.shape[2]
+    if (tuple(b_t.shape[:2]) != (b, l) or tuple(a.shape) != (di, n)
+            or tuple(d_skip.shape) != (di,)
+            or tuple(h0.shape) != (b, di, n)):
+        raise ValueError(f"mamba_scan: x {tuple(x.shape)} and b_t "
+                         f"{tuple(b_t.shape)} need a {(di, n)}, d_skip "
+                         f"{(di,)} and h0 {(b, di, n)}, got a "
+                         f"{tuple(a.shape)}, d_skip {tuple(d_skip.shape)}, "
+                         f"h0 {tuple(h0.shape)}")
+    if _on_cpu(x, dt, b_t, c_t, a, d_skip, h0):
+        return plain.mamba_scan_plain(x, dt, b_t, c_t, a, d_skip, h0)
+    for name, t in (("x", x), ("dt", dt), ("b_t", b_t), ("c_t", c_t),
+                    ("a", a), ("d_skip", d_skip), ("h0", h0)):
+        _check(name, t, torch.float32, t.dim())
+    if n not in MAMBA_STATE_SIZES:
+        raise ValueError(f"mamba_scan is built for N in {MAMBA_STATE_SIZES}, "
+                         f"got N={n}")
+    if b > 65535:
+        raise ValueError(f"mamba_scan takes at most 65535 sequences (grid "
+                         f"y), got {b}")
+    y = torch.empty_like(x)
+    h_out = torch.empty_like(h0)
+    if b * di == 0:
+        return y, h_out
+    _launch("mamba_scan", x.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
+            c_t.data_ptr(), a.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
+            y.data_ptr(), h_out.data_ptr(), b, l, di, n, _stream(x))
+    mamba_scan.launches += 1
+    return y, h_out
+
+
 KERNELS = (minmax_relax, column_fingerprints, panel_update,
-           panel_update_batched, flash_attention)
+           panel_update_batched, flash_attention, mamba_scan, rwkv6_scan)
 
 
 def reset_launches() -> None:

@@ -117,3 +117,52 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             logits = logits.masked_fill(~visible, float("-inf"))
         probs = torch.softmax(logits, dim=-1)
         return (probs @ v.float()).to(q.dtype)
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rwkv6 time-mix recurrence from ``state``, one step at a time
+    in the reference's order (``repro/models/rwkv6.py::_recurrence``):
+
+        o_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(w_t) S + k_t^T v_t
+
+    r, k, v, w (B, L, H, K); u (H, K); state (B, H, K, K) keyed
+    [key, value].  Returns (o (B, L, H, K), the final state); ``state`` is
+    not written."""
+    s = state
+    outs = []
+    with fp32_highest():
+        for t in range(r.shape[1]):
+            r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+            kv = k_t[..., :, None] * v_t[..., None, :]       # (B, H, K, K)
+            outs.append(torch.einsum("bhk,bhkv->bhv", r_t,
+                                     s + u[None, :, :, None] * kv))
+            s = s * w_t[..., :, None] + kv
+    o = torch.stack(outs, dim=1) if outs else torch.empty_like(r)
+    return o, s.clone() if s is state else s
+
+
+def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
+                     c_t: torch.Tensor, a: torch.Tensor,
+                     d_skip: torch.Tensor, h0: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective (S6) scan from ``h0``, one step at a time in the
+    reference's order (``repro/models/mamba.py::_selective_scan``):
+
+        h <- exp(dt_t A) * h + (dt_t x_t) (x) B_t,   y_t = h . C_t + D x_t
+
+    x, dt (B, L, di); b_t, c_t (B, L, N); a (di, N); d_skip (di,); h0
+    (B, di, N).  Returns (y (B, L, di), the final state); ``h0`` is not
+    written."""
+    h = h0
+    ys = []
+    with fp32_highest():
+        for t in range(x.shape[1]):
+            x_t, dt_t = x[:, t], dt[:, t]                    # (B, di)
+            decay = torch.exp(dt_t[..., None] * a[None])     # (B, di, N)
+            h = h * decay + (dt_t * x_t)[..., None] * b_t[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, c_t[:, t])
+                      + d_skip[None] * x_t)
+    y = torch.stack(ys, dim=1) if ys else torch.empty_like(x)
+    return y, h.clone() if h is h0 else h

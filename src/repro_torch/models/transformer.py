@@ -2,9 +2,10 @@
 final norm, in prefill and decode.
 
 The port of the JAX package's ``models/transformer.py`` for patterns made
-of ``("attn", "mlp")`` layers (the dense GQA family: smollm, qwen3).  A
-model is a sequence of layer groups, each one copy of ``cfg.pattern``;
-``params["groups"]`` is a LIST of per-group dicts (the reference stacks
+of ``("attn", "mlp")``, ``("rwkv6", "mlp")`` and ``("mamba", "mlp")``
+layers: the dense GQA family (smollm, qwen3), rwkv6-7b, and jamba's period
+with dense FFNs.  A model is a sequence of layer groups, each one copy of
+``cfg.pattern``; ``params["groups"]`` is a LIST of per-group dicts (the reference stacks
 them along a leading ``n_groups`` axis for ``lax.scan``; a Python loop over
 the list takes its place here, and ``models/convert.py`` unstacks a
 reference tree).  The caches are a list of per-group dicts in the same way.
@@ -14,9 +15,11 @@ eagerly, and serving keeps no activations for a backward pass), and the
 sharding constraints ``constrain`` / ``step_context`` (one device holds
 every tensor).
 
-Modes: ``prefill`` (full sequence, returns the KV caches) and ``decode``
-(one token against them).  ``train``, and the layer kinds and model parts
-not ported yet, raise ``NotImplementedError`` naming their ROADMAP item.
+Modes: ``prefill`` (full sequence, returns the caches: KV caches for
+attention layers, recurrent states for rwkv6 and mamba layers) and
+``decode`` (one token against them).  ``train``, and the layer kinds and
+model parts not ported yet, raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,12 +31,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 
+LAYER_KINDS = (("attn", "mlp"), ("rwkv6", "mlp"), ("mamba", "mlp"))
 _TODO = {  # what is not ported yet -> its ROADMAP Queue A item
-    "rwkv6": "the rwkv6 mixer (with K7) is not ported yet (ROADMAP Queue A "
-             "item 12.2)",
-    "mamba": "the mamba mixer (with K6) is not ported yet (ROADMAP Queue A "
-             "item 12.3)",
     "local": "sliding-window (local) attention is not ported yet (ROADMAP "
              "Queue A item 12.4)",
     "mla": "MLA attention is not ported yet (ROADMAP Queue A item 12.5)",
@@ -57,7 +59,7 @@ def check_supported(cfg: ModelConfig) -> None:
         for kind in (mixer, ffn):
             if kind in _TODO:
                 raise NotImplementedError(f"{cfg.name}: {_TODO[kind]}")
-        if (mixer, ffn) != ("attn", "mlp"):
+        if (mixer, ffn) not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
 
 
@@ -65,10 +67,13 @@ def check_supported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
+               dtype) -> Dict:
+    init_mixer = {"attn": attn.init_gqa, "rwkv6": rwkv_mod.init_rwkv6,
+                  "mamba": mamba_mod.init_mamba}[mixer]
     return {
         "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "mixer": attn.init_gqa(gen, cfg, dtype),
+        "mixer": init_mixer(gen, cfg, dtype),
         "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
         "norm2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
     }
@@ -78,21 +83,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
                 device=None) -> Dict:
     """Random parameters at the reference's scales, drawn on the CPU from
     a ``torch.Generator`` seeded with ``seed`` (so every device gets the
-    same numbers) and moved to ``device`` (``None``: the card)."""
+    same numbers).  Each layer, the embedding and the head move to
+    ``device`` (``None``: the card) as soon as they are drawn, so the host
+    holds one of them at a time, not the model."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     params: Dict = {
-        "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dtype),
-        "groups": [{f"l{i}": init_layer(gen, cfg, dtype)
-                    for i in range(len(cfg.pattern))}
+        "embed": to_device(
+            L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype), dev),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+        "groups": [{f"l{i}": to_device(init_layer(gen, cfg, mixer, dtype),
+                                       dev)
+                    for i, (mixer, _) in enumerate(cfg.pattern)}
                    for _ in range(cfg.n_groups)],
     }
     if not cfg.tie_embeddings:
-        params["head"] = {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
-                                             cfg.d_model ** -0.5, dtype)}
-    return to_device(params, dev)
+        params["head"] = to_device(
+            {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
+                                cfg.d_model ** -0.5, dtype)}, dev)
+    return params
 
 
 def to_device(tree, device):
@@ -125,14 +135,25 @@ def n_params(params) -> int:
 # caches
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
+                 dtype, device) -> Dict:
+    if mixer == "attn":
+        return {"self": attn.init_gqa_cache(cfg, batch, cache_len,
+                                            dtype=dtype, device=device)}
+    init_state = {"rwkv6": rwkv_mod.init_rwkv6_state,
+                  "mamba": mamba_mod.init_mamba_state}[mixer]
+    return {"state": init_state(cfg, batch, dtype, device)}
+
+
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.float32, device=None) -> List[Dict]:
-    """Per-group list of per-layer KV caches, zeroed, on ``device``."""
+    """Per-group list of per-layer caches, zeroed, on ``device``: a KV
+    cache of ``cache_len`` slots for an attention layer, the recurrent
+    state for an rwkv6 or mamba layer."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [{f"l{i}": {"self": attn.init_gqa_cache(cfg, batch, cache_len,
-                                                   dtype=dtype, device=dev)}
-             for i in range(len(cfg.pattern))}
+    return [{f"l{i}": _layer_cache(cfg, mixer, batch, cache_len, dtype, dev)
+             for i, (mixer, _) in enumerate(cfg.pattern)}
             for _ in range(cfg.n_groups)]
 
 
@@ -140,17 +161,27 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 # forward
 # ---------------------------------------------------------------------------
 
+_SSM_FORWARD = {"rwkv6": rwkv_mod.rwkv6_forward,
+                "mamba": mamba_mod.mamba_forward}
+
+
 def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
-           *, mode: str) -> Tuple[torch.Tensor, Dict]:
+           mixer: str, *, mode: str) -> Tuple[torch.Tensor, Dict]:
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if mixer != "attn":
+        # prefill runs from the fresh cache's zero state, decode from the
+        # state the previous step returned
+        o, state = _SSM_FORWARD[mixer](lp["mixer"], h, cfg, ce["state"])
+        new_cache = {"state": state}
+    elif mode == "decode":
         o, self_cache = attn.gqa_decode(lp["mixer"], h, ce["self"], cfg)
+        new_cache = {"self": self_cache}
     else:
         o, (k, v) = attn.gqa_forward(lp["mixer"], h, cfg, return_kv=True)
-        self_cache = attn.fill_gqa_cache(ce["self"], k, v)
+        new_cache = {"self": attn.fill_gqa_cache(ce["self"], k, v)}
     x = x + o
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp(lp["ffn"], h2), {"self": self_cache}
+    return x + L.mlp(lp["ffn"], h2), new_cache
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -161,7 +192,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ``prefill`` builds caches of ``cache_len`` slots (default: the prompt
     length) from ``tokens`` (B, S); ``decode`` runs ``tokens`` (B, 1)
-    against ``caches`` (updated in place, see ``models/attention.py``).
+    against ``caches`` (KV caches updated in place, see
+    ``models/attention.py``; recurrent states replaced).
     The reference also returns MoE auxiliaries; with no MoE ported there
     are none.
     """
@@ -179,8 +211,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     new_caches = []
     for gp, cg in zip(params["groups"], caches):
         nc = {}
-        for i in range(len(cfg.pattern)):
-            x, nc[f"l{i}"] = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg,
+        for i, (mixer, _) in enumerate(cfg.pattern):
+            x, nc[f"l{i}"] = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg, mixer,
                                     mode=mode)
         new_caches.append(nc)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_caches

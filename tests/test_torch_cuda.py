@@ -211,3 +211,145 @@ def test_kernel_path_on_card_matches_cpu(cuda):
                  ) <= 1e-4 * scale
     b = np.random.default_rng(0).standard_normal(a.n)
     assert f_card.solve(b).residual <= 1e-10
+
+
+def _rwkv6_inputs(b, l, h, k, seed, device, zero_state=False):
+    """r, k, v, w (B, L, H, K), u (H, K), state (B, H, K, K)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, l, h, k)) for _ in range(3)]
+    arrs.append(rng.uniform(0.5, 0.999, (b, l, h, k)))
+    arrs.append(rng.standard_normal((h, k)) * 0.3)
+    arrs.append(np.zeros((b, h, k, k)) if zero_state
+                else rng.standard_normal((b, h, k, k)))
+    return tuple(torch.as_tensor(a.astype(np.float32), device=device)
+                 for a in arrs)
+
+
+def _mamba_inputs(b, l, di, n, seed, device, zero_state=False):
+    """x, dt (B, L, di), b_t, c_t (B, L, N), a (di, N), d (di,), h0."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, l, di)),
+            np.abs(rng.standard_normal((b, l, di))) * 0.05,
+            rng.standard_normal((b, l, n)), rng.standard_normal((b, l, n)),
+            -(np.abs(rng.standard_normal((di, n))) + 0.1),
+            rng.standard_normal(di),
+            np.zeros((b, di, n)) if zero_state
+            else rng.standard_normal((b, di, n))]
+    return tuple(torch.as_tensor(a.astype(np.float32), device=device)
+                 for a in arrs)
+
+
+def _scan_err(got, want):
+    """max |got - want| over the output and the final state, relative to
+    max(1, max |want|): the recurrences sum K or N float32 terms per step
+    in another order than the plain version, and the state grows with L."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+# K7 at rwkv6-7b's serve shapes (8 requests, 64 heads of 64; prefill 512,
+# decode 1) and at the reduced configurations' head size 16 with ragged L
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,k,zero", [
+    (8, 512, 64, 64, True), (8, 1, 64, 64, False), (2, 77, 3, 64, False),
+    (2, 45, 4, 16, False), (1, 1, 4, 16, True)])
+def test_rwkv6_scan_kernel_matches_plain(cuda, b, l, h, k, zero):
+    args = _rwkv6_inputs(b, l, h, k, seed=l + h + k, device=cuda,
+                         zero_state=zero)
+    state = args[-1].clone()
+    before = ops.rwkv6_scan.launches
+    got = ops.rwkv6_scan(*args)
+    assert ops.rwkv6_scan.launches == before + 1
+    want = plain.rwkv6_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, l, h, k) and got[1].shape == (b, h, k, k)
+    assert torch.equal(args[-1], state)          # the state is not written
+    assert _scan_err(got, want) <= 1e-4
+
+
+# K6 at the jamba period's serve shapes (8 requests, di = 16384, N = 16;
+# prefill 512, decode 1) and at the reduced configurations' N = 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,di,n,zero", [
+    (8, 512, 16384, 16, True), (8, 1, 16384, 16, False),
+    (2, 77, 300, 16, False), (2, 45, 128, 4, False), (1, 1, 128, 4, True)])
+def test_mamba_scan_kernel_matches_plain(cuda, b, l, di, n, zero):
+    args = _mamba_inputs(b, l, di, n, seed=l + di + n, device=cuda,
+                         zero_state=zero)
+    state = args[-1].clone()
+    before = ops.mamba_scan.launches
+    got = ops.mamba_scan(*args)
+    assert ops.mamba_scan.launches == before + 1
+    want = plain.mamba_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, l, di) and got[1].shape == (b, di, n)
+    assert torch.equal(args[-1], state)
+    assert _scan_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_scan_kernels_raise_on_what_they_do_not_take(cuda):
+    r, k, v, w, u, s = _rwkv6_inputs(1, 4, 2, 32, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="built for K"):
+        ops.rwkv6_scan(r, k, v, w, u, s)
+    r, k, v, w, u, s = _rwkv6_inputs(1, 4, 2, 16, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                       w, u, s)
+    with pytest.raises(ValueError, match="float32"):
+        ops.rwkv6_scan(r.double(), k, v, w, u, s)
+    with pytest.raises(ValueError, match="needs u"):
+        ops.rwkv6_scan(r, k, v, w, u, s[:1, :1])
+    x, dt, bt, ct, a, d, h0 = _mamba_inputs(1, 4, 64, 8, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="built for N"):
+        ops.mamba_scan(x, dt, bt, ct, a, d, h0)
+    x, dt, bt, ct, a, d, h0 = _mamba_inputs(1, 4, 64, 4, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="share one device"):
+        ops.mamba_scan(x, dt, bt, ct, a.cpu(), d, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-dense"])
+def test_ssm_serving_on_card_matches_cpu(cuda, name):
+    """Reduced rwkv6-7b and the reduced jamba period with dense FFNs:
+    prefill + 3 teacher-forced decode steps on the card (K7 or K6 and K5)
+    against the same parameters on the CPU (plain scans): hidden states
+    and final recurrent states within 1e-4."""
+    from repro_torch.configs.base import dense_period, get_config
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import transformer as tf
+
+    if name == "jamba-dense":
+        cfg = dense_period(get_config("jamba-1.5-large-398b")).reduced()
+    else:
+        cfg = get_config(name).reduced()
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)))
+    out = {}
+    ops.reset_launches()
+    for dev, params in (("cuda", card), ("cpu", host)):
+        with torch.inference_mode(), fp32_highest():
+            h, caches = tf.forward(params, cfg, toks[:, :17].to(dev),
+                                   mode="prefill", cache_len=20)
+            hs = [h[:, -1]]
+            for t in range(17, 20):
+                h, caches = tf.forward(params, cfg, toks[:, t:t + 1].to(dev),
+                                       mode="decode", caches=caches)
+                hs.append(h[:, 0])
+        states = [leaf.cpu() for cg in caches for ce in cg.values()
+                  if "state" in ce for key, leaf in ce["state"].items()
+                  if key != "idx"]
+        out[dev] = (torch.stack(hs).cpu(), states)
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    n_ssm = sum(m != "attn" for m, _ in cfg.pattern) * cfg.n_groups
+    kernel = "rwkv6_scan" if name == "rwkv6-7b" else "mamba_scan"
+    assert counts[kernel] == 4 * n_ssm
+    assert counts["flash_attention"] == 4 * (cfg.n_layers - n_ssm)
+    (h_card, s_card), (h_host, s_host) = out["cuda"], out["cpu"]
+    assert float((h_card - h_host).abs().max()) <= 1e-4
+    for a, b in zip(s_card, s_host):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(
+            b.abs().max()))
