@@ -7,12 +7,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``env``      — card, torch/CUDA versions, and the build of every kernel
                   from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a).
-2. ``kernels``  — K1..K5 against their plain versions on the card at the
+2. ``kernels``  — K1..K7 against their plain versions on the card at the
                   main paths' shapes (K1/K2 bitwise, K3 within tolerance, K4
                   bitwise against K3 per slice, in float32 and float64; K5
-                  at the serve path's prefill and decode shapes and at
-                  D = 128, within 2e-5, and in bfloat16), with K5's time
-                  at the prefill and decode shapes.
+                  at the standing prefill and decode shapes, at D = 128 and
+                  at the serve paths' grouped shapes over caches whose
+                  unused slots hold NaN, within 2e-5, and in bfloat16).
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
@@ -57,7 +57,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. ``breakdown_serve_jamba`` — phase 8 for the jamba period.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
-at, and K5's, K6's and K7's numbers at their decode shapes), one
+at, K5's, K6's and K7's numbers at their decode shapes, and K5's at the
+serve paths' grouped shapes with SDPA's beside them), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4 once per
 element type; ``ms`` and ``library_ms`` are the device time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
@@ -95,6 +96,9 @@ PEAK_OPS_S = 67e12
 # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34
 # TFLOP/s), for the float64 instances of K3/K4
 PEAK_F64_OPS_S = 34e12
+# TF32 on the tensor cores (NVIDIA's H100 SXM data sheet, dense): K5's
+# prefill does each float32 product as 3 TF32 products (3xTF32)
+PEAK_TF32_S = 495e12
 # exponentials on the special function units: 16 results per clock per SM
 # (CUDA C++ programming guide, throughput table, compute capability 9.0) x
 # 132 SMs x 1.98 GHz, the clock at which 132 x 128 FMA lanes give the
@@ -298,6 +302,17 @@ def kernel_checks(torch, ops, plain, adj_real):
         check(got.shape == want.shape and err <= K5_TOL,
               f"K5 {tag} {shape}: err {err} > {K5_TOL}")
         out[f"K5_{tag}_err"] = err
+    for tag, shape in K5_GQA_SHAPES.items():
+        q, k, v, kw = gqa_inputs(torch, rng, *shape)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = plain.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and err <= K5_TOL
+              and not bool(got[:, kw["live_heads"]:].any()),
+              f"K5 {tag} {shape}: err {err} > {K5_TOL}, or a padded head "
+              f"is not zero")
+        out[f"K5_{tag}_err"] = err
     q, k, v = (x.to(torch.bfloat16) for x in attn_inputs(
         torch, rng, *K5_SHAPES["prefill"]))
     got = ops.flash_attention(q, k, v)
@@ -334,6 +349,13 @@ def kernel_checks(torch, ops, plain, adj_real):
 K5_SHAPES = {"prefill": (8, 16, 512, 512, 64), "decode": (8, 16, 1, 544, 64),
              "d128": (2, 16, 256, 256, 128)}
 K5_TOL = 2e-5
+# K5 as the serve paths call it (B, H, live heads, KV heads, S, cache slots,
+# kv_len, D): smollm-135m's prefill and its last decode step (9 of 16 query
+# heads live on 3 KV heads), and a decode step of the jamba period's
+# attention layer (64 query heads on 8 KV heads, hd 128)
+K5_GQA_SHAPES = {"smollm_prefill": (8, 16, 9, 3, 512, 512, 512, 64),
+                 "smollm_decode": (8, 16, 9, 3, 1, 544, 544, 64),
+                 "jamba_decode": (8, 64, 64, 8, 1, 544, 514, 128)}
 
 
 def attn_inputs(torch, rng, b, h, s, t, d):
@@ -343,6 +365,18 @@ def attn_inputs(torch, rng, b, h, s, t, d):
     return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
                                  device=dev)
                  for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
+
+
+def gqa_inputs(torch, rng, b, h, live, hkv, s, t_alloc, kv_len, d):
+    """q (B, H, S, D) and k, v (B, Hkv, t_alloc, D) on the card, the cache
+    slots >= kv_len NaN (K5 must not read them), and K5's keywords."""
+    import numpy as np
+
+    q = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    kv = rng.standard_normal((2, b, hkv, t_alloc, d)).astype(np.float32)
+    kv[:, :, :, kv_len:] = np.nan
+    q, k, v = (torch.as_tensor(x, device="cuda") for x in (q, *kv))
+    return q, k, v, {"causal": True, "kv_len": kv_len, "live_heads": live}
 
 
 # K7's shapes (B, L, H, K): rwkv6-7b's serve path (8 requests, 64 heads
@@ -414,12 +448,16 @@ def mamba_work(b, l, di, n):
             6 * b * l * di * n + 3 * b * l * di, b * l * di * n)
 
 
-def attn_work(b, h, s, t, d):
-    """(bytes, useful float ops) of causal float32 attention: q, k, v read
-    once and the output written once; QK^T and PV over the visible
-    (query, key) pairs only."""
+def attn_work(b, h, s, t, d, live=None, hkv=None):
+    """(bytes, useful float ops) of causal float32 attention over t keys:
+    the live heads' q, the unique k and v (hkv heads) read once and the
+    output (all h heads) written once; QK^T and PV over the visible
+    (query, key) pairs of the live heads only."""
+    live = h if live is None else live
+    hkv = h if hkv is None else hkv
     pairs = s * (t - s) + s * (s + 1) // 2
-    return 4 * (2 * b * h * s * d + 2 * b * h * t * d), 4 * d * pairs * b * h
+    return (4 * (b * live * s * d + b * h * s * d + 2 * b * hkv * t * d),
+            4 * d * pairs * b * live)
 
 
 def k3_error(torch, ops, plain, acc, lp, up):
@@ -1076,8 +1114,11 @@ def main() -> int:
             kernel="panel_update_batched", peak_ops=peak,
             plain_kw={"inner": 100})
 
-    # K5 at the serve path's prefill shape (its row) and decode shape;
-    # scaled_dot_product_attention is the library yardstick only
+    # K5 at the standing prefill shape (its row; the bound counts 3 TF32
+    # products per float32 one on the tensor cores, the CUDA-core bound
+    # beside it), the standing decode shape and the serve paths' grouped
+    # shapes (bound by the unique bytes); scaled_dot_product_attention is
+    # the library yardstick only, on the live heads with enable_gqa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes_line = {
         "phase": "kernel_shapes", "minmax_relax": [s, u, u],
@@ -1090,16 +1131,38 @@ def main() -> int:
         err = float((ops.flash_attention(*qkv)
                      - plain.flash_attention_plain(*qkv)).abs().max())
         causal = shape[2] > 1       # S = 1 sees every key
-        args = (lambda: ops.flash_attention(*qkv),
-                lambda: plain.flash_attention_plain(*qkv), *attn_work(*shape),
-                lambda: sdpa(*qkv, is_causal=causal))
+        nbytes, flops = attn_work(*shape)
+        fns = (lambda: ops.flash_attention(*qkv),
+               lambda: plain.flash_attention_plain(*qkv))
+        lib = lambda: sdpa(*qkv, is_causal=causal)
         if tag == "prefill":
             row("flash_attention", serve_res["launches"]["flash_attention"],
-                err, *args, plain_kw={"inner": 5})
+                err, *fns, nbytes, 3 * flops, lib, peak_ops=PEAK_TF32_S,
+                plain_kw={"inner": 5})
+            shapes_line["flash_attention_bound_cuda_cores"] = dict(zip(
+                ("bound_ms", "bound_by"), bound(nbytes, flops)))
         else:
             shapes_line["flash_attention_decode"] = {
                 "shape": list(shape), "max_abs_err": err,
-                **timing(*args, plain_kw={"inner": 5})}
+                **timing(*fns, nbytes, flops, lib, plain_kw={"inner": 5})}
+    for tag, shape in K5_GQA_SHAPES.items():
+        b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
+        qg, kg, vg, kw = gqa_inputs(torch, rng, *shape)
+        err = checks[f"K5_{tag}_err"]
+        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv)
+        ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
+        t = timing(lambda: ops.flash_attention(qg, kg, vg, **kw),
+                   lambda: plain.flash_attention_plain(qg, kg, vg, **kw),
+                   nbytes, 3 * flops if s_ > 1 else flops,
+                   lambda: sdpa(qg[:, :live], ks, vs, is_causal=s_ > 1,
+                                enable_gqa=True),
+                   peak_ops=PEAK_TF32_S if s_ > 1 else PEAK_OPS_S,
+                   plain_kw={"inner": 5})
+        shapes_line[f"flash_attention_{tag}"] = {
+            "shape": {"B": b_, "H": h_, "live_heads": live, "Hkv": hkv,
+                      "S": s_, "T_alloc": t_alloc, "kv_len": kv_len,
+                      "D": d_},
+            "max_abs_err": err, **t}
 
     # K6 and K7 from a zero state at their serve paths' prefill shapes
     # (their rows) and from a non-zero state at the decode shapes, their

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # source stem -> (exported launch function, its argument types)
 SIGNATURES = {
     "minmax_relax": ("minmax_relax_launch", (_P, _P, _P, _I, _I, _I, _P)),
@@ -38,7 +39,8 @@ SIGNATURES = {
     "panel_update": ("panel_update_launch",
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "flash_attention": ("flash_attention_launch",
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P)),
+                        (_P,) * 5 + (_I,) * 8 + (_F, _I) + (_L,) * 12
+                        + (_P,)),
     "rwkv6_scan": ("rwkv6_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "mamba_scan": ("mamba_scan_launch",

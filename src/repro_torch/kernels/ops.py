@@ -82,7 +82,9 @@ def _stream(t: torch.Tensor) -> int:
 
 def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     """K1: (S, V) int32 ``min_u (adj[u, v] != 0 ? prop[s, u] : INF)`` for
-    int32 ``prop`` (S, U) and uint8 ``adj`` (U, V)."""
+    int32 ``prop`` (S, U) and uint8 ``adj`` (U, V).  On the card the output
+    is filled with INF and the kernel lowers it with ``atomicMin``: two
+    device ops, one launch counted."""
     if _on_cpu(prop, adj):
         return plain.minmax_relax_plain(prop, adj)
     _check("prop", prop, torch.int32, 2)
@@ -92,8 +94,9 @@ def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"prop {tuple(prop.shape)} and adj "
                          f"{tuple(adj.shape)} disagree on U")
     v = adj.shape[1]
-    out = torch.empty((s, v), dtype=torch.int32, device=prop.device)
-    if s and v:
+    # the kernel lowers the entries its edges reach with atomicMin
+    out = torch.full((s, v), INF, dtype=torch.int32, device=prop.device)
+    if s and u and v:
         _launch("minmax_relax", prop.data_ptr(), adj.data_ptr(),
                 out.data_ptr(), s, u, v, _stream(prop))
         minmax_relax.launches += 1
@@ -185,55 +188,100 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
 
 
 FLASH_HEAD_DIMS = (16, 64, 128)   # K5's instantiations of D
+FLASH_MAX_GROUP = 64              # query heads per KV head on the card
+FLASH_DECODE_CHUNK = 64           # keys per block of K5's decode kernel
 
 
-def _attention_shapes(q, k, v, causal: bool):
+def _attention_shapes(q, k, v, causal: bool, kv_len, live_heads):
+    """Checks K5's shapes; returns (kv_len, live_heads) with their
+    defaults (T, H) filled in."""
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"attention takes q (B, H, S, D) and k, v "
-                         f"(B, H, T, D), got q {tuple(q.shape)}, k "
+                         f"(B, Hkv, T, D), got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, s, d = q.shape
-    if tuple(k.shape[:2]) != (b, h) or k.shape[3] != d:
+    hkv, t = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
-                         f"disagree on B, H or D")
-    if causal and k.shape[2] < s:
+                         f"disagree on B or D")
+    kv_len = t if kv_len is None else int(kv_len)
+    live = h if live_heads is None else int(live_heads)
+    if not 1 <= live <= h or hkv < 1 or live % hkv:
+        raise ValueError(f"live_heads={live} must lie in [1, H={h}] and be "
+                         f"a multiple of the {hkv} KV heads (q {tuple(q.shape)}"
+                         f" and k {tuple(k.shape)} disagree on the heads)")
+    if not 1 <= kv_len <= t:
+        raise ValueError(f"kv_len={kv_len} must lie in [1, T={t}]")
+    if causal and kv_len < s:
         raise ValueError(f"causal attention needs T >= S (the queries are "
-                         f"the last S of T positions), got S={s}, "
-                         f"T={k.shape[2]}")
+                         f"the last S of kv_len positions), got S={s}, "
+                         f"kv_len={kv_len}")
+    return kv_len, live
+
+
+def _rows_16b(t: torch.Tensor) -> bool:
+    """Unit stride along D, and every row of t 16-byte aligned."""
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per == 0 for st in t.stride()[:-1]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
-    """K5: (B, H, S, D) online-softmax attention of q over k, v
-    (B, H, T, D), float32 or bfloat16, accumulated in float32, returned in
-    q's dtype.  Causal queries are the last S of T positions: query s sees
-    keys ``<= s + (T - S)``.  ``scale`` defaults to ``D ** -0.5``; D is one
-    of ``FLASH_HEAD_DIMS`` on the card."""
-    _attention_shapes(q, k, v, causal)
+                    causal: bool = True, scale: float | None = None,
+                    kv_len: int | None = None,
+                    live_heads: int | None = None) -> torch.Tensor:
+    """K5: (B, H, S, D) online-softmax attention of q over the first
+    ``kv_len`` (default T) rows of k, v (B, Hkv, T, D), float32 or
+    bfloat16, accumulated in float32, returned in q's dtype.
+
+    Query head ``h < live_heads`` (default H) attends to KV head
+    ``h // (live_heads // Hkv)`` (``jnp.repeat`` order); heads
+    ``>= live_heads`` come out exactly zero (the reference's zero-padded
+    heads).  Causal queries are the last S of kv_len positions: query s
+    sees keys ``<= s + (kv_len - S)``.  ``scale`` defaults to
+    ``D ** -0.5``.  On the card q, k and v are read in place through their
+    strides (unit stride along D, 16-byte aligned rows; anything else is
+    copied first), D is one of ``FLASH_HEAD_DIMS`` and a KV head serves at
+    most ``FLASH_MAX_GROUP`` query heads; the result is a (B, H, S, D) view
+    of a (B, S, H, D) tensor, so merging the heads is free."""
+    kv_len, live = _attention_shapes(q, k, v, causal, kv_len, live_heads)
     if _on_cpu(q, k, v):
         return plain.flash_attention_plain(q, k, v, causal=causal,
-                                           scale=scale)
+                                           scale=scale, kv_len=kv_len,
+                                           live_heads=live)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype, 4)
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
     b, h, s, d = q.shape
-    t = k.shape[2]
+    hkv = k.shape[1]
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention is built for D in "
                          f"{FLASH_HEAD_DIMS}, got D={d}")
-    if s > 64 * 65535:
+    if live // hkv > FLASH_MAX_GROUP:
+        raise ValueError(f"flash_attention takes at most {FLASH_MAX_GROUP} "
+                         f"query heads per KV head, got {live // hkv}")
+    if s > 64 * 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most {64 * 65535} "
-                         f"queries (grid y), got {s}")
-    out = torch.empty_like(q)
+                         f"queries and 65535 sequences, got S={s}, B={b}")
+    q, k, v = (t if _rows_16b(t) else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     if b * h == 0 or s == 0:
         return out
+    part = None
+    if s == 1:       # the decode kernel's per-chunk partial results
+        chunks = -(-kv_len // FLASH_DECODE_CHUNK)
+        part = torch.empty((b, live, chunks, d + 2), dtype=torch.float32,
+                           device=q.device)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b * h, s, t, d, int(causal),
+            out.data_ptr(), 0 if part is None else part.data_ptr(), b, h,
+            hkv, s, kv_len, live, d, int(causal),
             d ** -0.5 if scale is None else float(scale),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], _stream(q))
     flash_attention.launches += 1
     return out
 

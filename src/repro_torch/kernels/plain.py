@@ -99,24 +99,36 @@ def panel_update_batched_plain(acc: torch.Tensor, l_panel: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
-    """Softmax attention of q (B, H, S, D) over k, v (B, H, T, D), in
-    float32, returned in q's dtype: query s sees keys ``<= s + (T - S)``
-    when ``causal`` (the queries are the last S positions), else all T.
-    ``scale`` defaults to ``D ** -0.5``.  The (S, T) scores are formed in
-    full."""
-    s, t = q.shape[-2], k.shape[-2]
+                          *, causal: bool = True, scale: float | None = None,
+                          kv_len: int | None = None,
+                          live_heads: int | None = None) -> torch.Tensor:
+    """Softmax attention of q (B, H, S, D) over the first ``kv_len``
+    (default T) rows of k, v (B, Hkv, T, D), in float32, returned in q's
+    dtype.  The KV heads are repeated ``live_heads // Hkv`` times
+    (``jnp.repeat`` order) for the first ``live_heads`` (default H) query
+    heads; the heads after them are zero.  Query s sees keys
+    ``<= s + (kv_len - S)`` when ``causal`` (the queries are the last S
+    positions), else all kv_len.  ``scale`` defaults to ``D ** -0.5``.
+    The (S, kv_len) scores are formed in full."""
+    h, s = q.shape[1], q.shape[-2]
+    live = h if live_heads is None else live_heads
+    t = k.shape[-2] if kv_len is None else kv_len
+    rep = live // k.shape[1]
+    k, v = (x[:, :, :t].repeat_interleave(rep, dim=1) for x in (k, v))
     if scale is None:
         scale = q.shape[-1] ** -0.5
     with fp32_highest():
-        logits = q.float() @ k.float().transpose(-1, -2) * scale
+        logits = q[:, :live].float() @ k.float().transpose(-1, -2) * scale
         if causal:
             visible = torch.ones((s, t), dtype=torch.bool,
                                  device=q.device).tril(t - s)
             logits = logits.masked_fill(~visible, float("-inf"))
         probs = torch.softmax(logits, dim=-1)
-        return (probs @ v.float()).to(q.dtype)
+        out = (probs @ v.float()).to(q.dtype)
+    if live < h:
+        out = torch.cat([out, out.new_zeros((q.shape[0], h - live)
+                                            + tuple(q.shape[2:]))], dim=1)
+    return out
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

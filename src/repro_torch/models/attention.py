@@ -3,20 +3,26 @@ kernel K5 (``kernels/ops.py::flash_attention``).
 
 The port of the GQA half of the JAX package's ``models/attention.py``.
 Weights and layouts are the reference's, 1:1: q heads are zero-padded from
-``n_heads`` up to ``cfg.hp`` (``wq`` gains zero columns, ``wo`` zero rows),
-K/V heads are repeated ``n_heads // n_kv_heads`` times in ``jnp.repeat``
-order and zero-padded to ``hp``, so the padded heads contribute exactly
-zero.  Prefill and decode both attend through K5: prefill causally over its
-own S positions, decode with S = 1 over the cache's valid prefix
-``[0, idx]`` (the reference's ``_sdpa`` under the mask ``pos <= idx``).
+``n_heads`` up to ``cfg.hp`` (``wq`` gains zero columns, ``wo`` zero rows).
+The reference repeats the K/V heads ``n_heads // n_kv_heads`` times
+(``jnp.repeat`` order) and zero-pads them to ``hp``; here K5 does both
+itself: it takes the (B, n_kv_heads, ., hd) K/V as they are, maps query
+head h to KV head ``h // (n_heads // n_kv_heads)`` and returns exact zeros
+for the padded heads (``live_heads=n_heads``), so no repeated or padded
+copy of K/V is ever made.  Prefill attends causally over its own S
+positions (K/V read in place through their strides), decode with S = 1
+over the cache's valid prefix ``[0, idx]`` (the reference's ``_sdpa``
+under the mask ``pos <= idx``), passing the cache tensors themselves with
+``kv_len = idx + 1``.
 
 Cache contract: ``{"k", "v"}`` of shape (B, n_kv_heads, max_len, hd) and
 ``idx``, the number of positions written, one host int for the whole
 batch.  Decode writes the new token's K/V into the cache tensors IN PLACE
 (the reference returns new arrays) and returns the same tensors with
 ``idx + 1``: a serving loop holds one cache, and a copy per token would
-move the whole cache.  Without sliding windows the valid slots are exactly
-``[0, idx]``, so the port keeps no per-slot position array.
+move the whole cache.  Slots ``>= idx + 1`` are never read.  Without
+sliding windows the valid slots are exactly ``[0, idx]``, so the port keeps
+no per-slot position array.
 
 Not ported yet: sliding-window (local) layers and their ring caches,
 cross-attention and MLA (``models/transformer.py::check_supported`` raises
@@ -64,20 +70,6 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
-def _expand_kv(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B, n_kv_heads, T, hd) -> contiguous (B, hp, T, hd): each KV head
-    repeated ``n_heads // n_kv_heads`` times (``jnp.repeat`` order), then
-    zero heads up to ``hp`` — the reference's ``_pad_heads(_repeat_kv(.))``
-    in one copy."""
-    b, hkv, t, hd = x.shape
-    rep = cfg.n_heads // cfg.n_kv_heads
-    shape = (b, cfg.hp, t, hd)
-    out = (x.new_zeros(shape) if cfg.hp != cfg.n_heads
-           else x.new_empty(shape))
-    out[:, :cfg.n_heads].view(b, hkv, rep, t, hd).copy_(x[:, :, None])
-    return out
-
-
 def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     """Projected, normed and rotated q (B, hp, S, hd) and k, v
@@ -99,15 +91,14 @@ def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence (prefill) causal GQA over x (B, S, d) at positions
     ``[0, S)``.
 
-    ``return_kv`` additionally returns the (pre-repeat) rotated K and V for
-    the prefill cache.
+    ``return_kv`` additionally returns the rotated (B, n_kv_heads, S, hd)
+    K and V for the prefill cache.
     """
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = kops.flash_attention(q.contiguous(), _expand_kv(k, cfg),
-                               _expand_kv(v, cfg), causal=True,
-                               scale=cfg.hd ** -0.5)
+    out = kops.flash_attention(q, k, v, causal=True, scale=cfg.hd ** -0.5,
+                               live_heads=cfg.n_heads)
     y = _merge_heads(out) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -147,9 +138,8 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict,
     q, k, v = _qkv(params, x, cfg, pos)
     cache["k"][:, :, idx] = k[:, :, 0]
     cache["v"][:, :, idx] = v[:, :, 0]
-    kr = _expand_kv(cache["k"][:, :, :idx + 1], cfg)
-    vr = _expand_kv(cache["v"][:, :, :idx + 1], cfg)
-    out = kops.flash_attention(q.contiguous(), kr, vr, causal=True,
-                               scale=cfg.hd ** -0.5)
+    out = kops.flash_attention(q, cache["k"], cache["v"], causal=True,
+                               scale=cfg.hd ** -0.5, kv_len=idx + 1,
+                               live_heads=cfg.n_heads)
     new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     return _merge_heads(out) @ params["wo"], new_cache

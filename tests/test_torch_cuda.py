@@ -66,6 +66,33 @@ def test_minmax_relax_kernel_bitwise(cuda, s, u, v):
     assert torch.equal(got, plain.minmax_relax_plain(prop, adj))
 
 
+def _relax_adjacency(kind, u, v, rng):
+    """The adjacencies K1 is held to bitwise: none, all, a sparse ragged
+    one, and a sparse one with one dense strip of border columns."""
+    if kind == "empty":
+        return np.zeros((u, v), np.uint8)
+    if kind == "dense":
+        return np.ones((u, v), np.uint8)
+    adj = (rng.random((u, v)) < 0.02).astype(np.uint8)
+    if kind == "border":
+        adj[:, v - 64:] = 1
+    return adj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,s,u,v", [
+    ("empty", 512, 1024, 2048), ("dense", 40, 300, 200),
+    ("ragged", 530, 1001, 1037), ("border", 512, 2048, 1280)])
+def test_minmax_relax_kernel_bitwise_adjacencies(cuda, kind, s, u, v):
+    rng = np.random.default_rng(u + v)
+    prop = rng.integers(-1, u + 2, size=(s, u)).astype(np.int32)
+    prop[rng.random((s, u)) < 0.3] = I32MAX
+    adj = _relax_adjacency(kind, u, v, rng)
+    prop, adj = (torch.as_tensor(x, device=cuda) for x in (prop, adj))
+    got = ops.minmax_relax(prop, adj)
+    assert torch.equal(got, plain.minmax_relax_plain(prop, adj))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,v", [(1, 1), (65, 300), (130, 1000)])
 def test_column_fingerprints_kernel_bitwise(cuda, s, v):
@@ -150,6 +177,48 @@ def test_flash_attention_kernel_bfloat16(cuda):
     # both round the float32 result to bfloat16 once (3e-2: the reference's
     # bfloat16 tolerance)
     assert float((got.float() - want.float()).abs().max()) <= 3e-2
+
+
+def _gqa_cache_inputs(b, h, hkv, s, t_alloc, kv_len, d, seed, device,
+                      dtype=torch.float32):
+    """q (B, H, S, D), and k, v as strided (B, Hkv, T_alloc, D) views of
+    (B, T_alloc, Hkv, D) caches whose slots >= kv_len hold NaN."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(np.float32),
+                        device=device).to(dtype)
+    kv = []
+    for _ in range(2):
+        x = rng.standard_normal((b, t_alloc, hkv, d)).astype(np.float32)
+        x[:, kv_len:] = np.nan
+        kv.append(torch.as_tensor(x, device=device).to(dtype).transpose(1, 2))
+    return q, kv[0], kv[1]
+
+
+# grouped heads over a cache read in place: smollm's 9 of 16 query heads on
+# 3 KV heads, a group of 4 with no padding, and no grouping; prefill and
+# decode; the kernel must not read past kv_len (NaN there)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("b,h,live,hkv,s,t_alloc,kv_len,causal", [
+    (2, 16, 9, 3, 70, 200, 150, True), (2, 16, 9, 3, 1, 200, 150, True),
+    (1, 8, 8, 2, 1, 300, 257, True), (1, 4, 4, 4, 33, 96, 47, False)])
+def test_flash_attention_kernel_grouped_cache(cuda, dtype, d, b, h, live,
+                                              hkv, s, t_alloc, kv_len,
+                                              causal):
+    q, k, v = _gqa_cache_inputs(b, h, hkv, s, t_alloc, kv_len, d,
+                                seed=s + kv_len + d, device=cuda, dtype=dtype)
+    kw = {"causal": causal, "kv_len": kv_len, "live_heads": live}
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == before + 1
+    want = plain.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[:, live:].any())          # padded heads exactly 0
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, plain
 from test_torch_cuda import (
-    I32MAX, _fp_inputs, _pu_inputs, _pu_tol, _relax_inputs,
+    I32MAX, _fp_inputs, _pu_inputs, _pu_tol, _relax_adjacency, _relax_inputs,
 )
 
 # tiny shapes, several pytest workers: one intra-op thread each keeps
@@ -30,6 +30,21 @@ def test_minmax_relax_plain_matches_pallas(s, u, v):
                                                jnp.asarray(adj))))
     got = ops.minmax_relax(torch.as_tensor(prop), torch.as_tensor(adj))
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind,s,u,v", [
+    ("empty", 6, 70, 100), ("dense", 5, 40, 33), ("ragged", 7, 101, 77),
+    ("border", 4, 96, 130)])
+def test_minmax_relax_plain_matches_pallas_adjacencies(kind, s, u, v):
+    """The adjacencies the card test holds K1 to bitwise, on the CPU: the
+    plain version against the Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(u + v)
+    prop = rng.integers(-1, u + 2, size=(s, u)).astype(np.int32)
+    prop[rng.random((s, u)) < 0.3] = I32MAX
+    adj = _relax_adjacency(kind, u, v, rng)
+    want = np.asarray(jops.minmax_relax(jnp.asarray(prop), jnp.asarray(adj)))
+    got = ops.minmax_relax(torch.as_tensor(prop), torch.as_tensor(adj))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

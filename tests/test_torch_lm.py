@@ -120,6 +120,63 @@ def test_flash_attention_rejects_bad_shapes():
                             torch.zeros(1, 2, 9, 16))
 
 
+def _gqa_reference(q, k, v, live, kv_len, causal):
+    """The JAX model's path: the first kv_len cache rows, each KV head
+    repeated for its group (``jnp.repeat``), zero heads up to H, through
+    the Pallas kernel (interpret mode) and its oracle."""
+    h, hkv = q.shape[1], k.shape[1]
+    kk, vv = (jnp.repeat(jnp.asarray(x[:, :, :kv_len]), live // hkv, axis=1)
+              for x in (k, v))
+    pad = ((0, 0), (0, h - live), (0, 0), (0, 0))
+    kk, vv = jnp.pad(kk, pad), jnp.pad(vv, pad)
+    jq = jnp.asarray(q)
+    kernel = jops.flash_attention(jq, kk, vv, causal=causal, block_q=8,
+                                  block_k=16)
+    return np.asarray(kernel), np.asarray(
+        jops.flash_attention_ref(jq, kk, vv, causal=causal))
+
+
+@pytest.mark.parametrize("b,h,live,hkv,s,t_alloc,kv_len,d,causal", [
+    (1, 6, 6, 6, 8, 24, 20, 16, True),      # Hkv = H, a cache tail
+    (2, 6, 6, 3, 8, 32, 32, 16, True),      # Hkv = H / 2
+    (1, 6, 6, 2, 1, 40, 33, 16, True),      # Hkv = H / 3, decode
+    (1, 6, 6, 2, 5, 40, 33, 16, False),     # Hkv = H / 3, not causal
+    (1, 8, 6, 2, 16, 48, 40, 32, False),    # padded heads
+    (2, 16, 9, 3, 1, 24, 17, 64, True),     # smollm's heads, decode
+    (1, 16, 9, 3, 12, 12, 12, 64, True),    # smollm's heads, prefill
+])
+def test_flash_attention_grouped_plain_matches_pallas(b, h, live, hkv, s,
+                                                      t_alloc, kv_len, d,
+                                                      causal):
+    """K5's grouped interface on the CPU against the reference's repeat +
+    zero-pad + Pallas path; the cache slots past kv_len hold NaN and must
+    not be read; the padded heads are exactly zero."""
+    q, k, v = _qkv((b, h, s, d), (b, hkv, t_alloc, d),
+                   seed=h + live + hkv + s + kv_len + d)
+    kernel, ref = _gqa_reference(q, k, v, live, kv_len, causal)
+    k[:, :, kv_len:] = np.nan
+    v[:, :, kv_len:] = np.nan
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              kv_len=kv_len, live_heads=live)
+    assert got.shape == (b, h, s, d) and got.dtype == torch.float32
+    assert not got[:, live:].any()
+    np.testing.assert_allclose(got.numpy(), kernel, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_grouped_arguments_are_checked():
+    q, k = torch.zeros(1, 6, 4, 16), torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="live_heads"):
+        ops.flash_attention(q, k, k)                  # 4 does not divide 6
+    with pytest.raises(ValueError, match="live_heads"):
+        ops.flash_attention(q, k, k, live_heads=7)    # more than H
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, k, kv_len=9)
+    with pytest.raises(ValueError, match="T >= S"):
+        ops.flash_attention(q, k, k, kv_len=3)
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------

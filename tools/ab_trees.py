@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""One end-to-end sample of a checkout of the port, for comparing two
+commits on one card in one call.
+
+    git archive <parent> | tar -x -C build/parent      # build/ is ignored
+    for t in build/parent . . build/parent; do
+        python3 tools/ab_trees.py $t; done
+
+Imports ``repro_torch`` and ``chip_smoke`` from the tree given and runs,
+each after a warm-up: smollm-135m serving 8 x 512 prompt + 32 greedy
+tokens three times (``chip_smoke.serve_run``; median prefill ms and ms
+per decode step), its prefill and one decode step under
+``torch.profiler`` (``chip_smoke.breakdown_serve``: wall, device busy,
+idle share, device calls, top kernels), the host time to enqueue one
+layer's decode attention, and bbd-20k's ``analyze`` under kernel options
+three times (wall s).  Prints one JSON line, then the
+card's name and power limit.  Run the trees in turns (parent, change,
+change, parent): host-bound stages move between calls and within one.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def decode_attention_host_us(torch, cfg, params, n=300):
+    """Host microseconds to enqueue one decode step of layer 0's attention
+    (projections, rope, cache write, K5, output projection) for 8 requests
+    at cache slot 512, the median of 5 runs of ``n`` calls with no
+    synchronisation inside a run."""
+    from repro_torch.models import attention as attn
+
+    mixer = params["groups"][0]["l0"]["mixer"]
+    cache = attn.init_gqa_cache(cfg, 8, 544, device="cuda")
+    cache["idx"] = 512
+    x = torch.randn(8, 1, cfg.d_model, device="cuda")
+    runs = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                attn.gqa_decode(mixer, x, dict(cache), cfg)
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    return statistics.median(runs[1:])
+
+
+def main(tree: str) -> int:
+    tree = str(Path(tree).resolve())
+    sys.path[:0] = [tree + "/src", tree]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_trees: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    import repro_torch
+    from repro_torch import sparse
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build, ops
+
+    _build.build()
+    out = {"tree": tree}
+    cfg = get_config("smollm-135m")
+    runs = []
+    for _ in range(3):
+        params, line = chip_smoke.serve_run(torch, ops, cfg)
+        runs.append((line["prefill_ms"], line["decode_ms_per_step"]))
+    out["serve_prefill_ms"] = statistics.median(r[0] for r in runs)
+    out["serve_decode_ms_per_step"] = statistics.median(r[1] for r in runs)
+    out["serve_runs"] = runs
+    bd = chip_smoke.breakdown_serve(torch, cfg, params)
+    out["decode_attention_host_us"] = decode_attention_host_us(torch, cfg,
+                                                              params)
+    out["breakdown"] = {
+        stage: {k: v[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                  "device_calls", "top")}
+        for stage, v in bd.items()}
+    del params
+    a = sparse.bordered_block_diagonal(20_000, block=16, border=64, seed=3)
+    opts = repro_torch.LUOptions(concurrency=512, backend="kernel",
+                                 numeric_backend="kernel")
+    repro_torch.analyze(a, opts)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        repro_torch.analyze(a, opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["kernel_analyze_s"] = times
+    print(json.dumps(out), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))
