@@ -9,7 +9,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a).
 2. ``kernels``  — K1..K7 against their plain versions on the card at the
                   main paths' shapes (K1/K2 bitwise, K3 within tolerance, K4
-                  bitwise against K3 per slice, in float32 and float64; K5
+                  bitwise against K3 per slice, in float32 and float64; the
+                  mapped K3/K4 in place on ragged slices with absent rows
+                  within tolerance of its plain version and bitwise dense
+                  K3 per slice, both element modes; K5
                   at the standing prefill and decode shapes, at D = 128 and
                   at the serve paths' grouped shapes over caches whose
                   unused slots hold NaN, within 2e-5, and in bfloat16).
@@ -18,17 +21,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
                   (no device argument: the card), factorize, refactorize,
                   solve with (n,) and (n, 4) right-hand sides.  The float64
-                  sweep runs the float64 instances of K3/K4.
+                  sweep runs the mapped K3/K4 (float64) once per level with
+                  trailing updates, checked per sweep; the factors' sha256
+                  (``flat_sha256``) is printed for comparing commits.
 4. ``kernel_path`` — the same matrix with ``backend="kernel",
                   numeric_backend="kernel"``: structure bitwise equal to
-                  phase 3, factors within 1e-4, every kernel seen by
+                  phase 3, factors within 1e-4, the mapped K3/K4 (float32)
+                  once per level per sweep, every kernel seen by
                   ``torch.profiler`` (over analyze and the first
                   factorize) and by the launch counters; segment batching
                   bitwise on both numeric backends.
 5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
                   refactorize and a (n, 4) solve (default options), once
                   more under ``torch.profiler``: wall time, device busy
-                  time, idle share and the top kernels.
+                  time, idle share, device calls and the top kernels.
 6. ``reference`` — a small matrix against dense numpy (L @ U = A, solve)
                   and against the port run on the CPU (bitwise structure).
 7. ``serve``    — the LM serving path (``repro_torch.launch.serve``):
@@ -57,18 +63,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
 12. ``breakdown_serve_jamba`` — phase 8 for the jamba period.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
-at, K5's, K6's and K7's numbers at their decode shapes, and K5's at the
-serve paths' grouped shapes with SDPA's beside them), one
-``kernels`` line (each kernel's time beside its bound; K3/K4 once per
-element type; ``ms`` and ``library_ms`` are the device time alone, the
+at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
+serve paths' grouped shapes with SDPA's beside them, an empty kernel's
+device time, and dense K4 float64 against ``baddbmm`` in turns), one
+``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
+mapped, once per element type; ``ms`` and ``library_ms`` are the device
+time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9 and
 11 and read just after it, so each path reports its own launches (phase 3:
-K2 and the float64 K3/K4; phase 4: K1..K4 in float32; phase 7: K5; phase
-9: K7; phase 11: K6 and K5), split by stage in ``launches_by_stage`` for
+K2 and the float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped
+K3/K4; phase 7: K5; phase 9: K7; phase 11: K6 and K5; the dense K3/K4
+entry points are off the paths since the sweep runs the mapped form),
+split by stage in ``launches_by_stage`` for
 the LU paths; the ``kernels`` line takes each row's launches from the path
 that runs it.  The comparison and timing launches of phase 2, the
 breakdown and reference phases, the card-vs-CPU checks and the per-kernel
@@ -94,7 +104,7 @@ N_LARGE, BLOCK, BORDER, SEED, CONCURRENCY = 20_000, 16, 64, 3, 512
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34
-# TFLOP/s), for the float64 instances of K3/K4
+# TFLOP/s), for the float64 instances of K3/K4 and the mapped update
 PEAK_F64_OPS_S = 34e12
 # TF32 on the tensor cores (NVIDIA's H100 SXM data sheet, dense): K5's
 # prefill does each float32 product as 3 TF32 products (3xTF32)
@@ -122,6 +132,8 @@ SOURCES = {
                      "src/repro/kernels/panel_update.py:53"),
     "panel_update_batched": ("src/repro_torch/kernels/csrc/panel_update.cu",
                              "src/repro/kernels/panel_update.py:86"),
+    "panel_update_mapped": ("src/repro_torch/kernels/csrc/panel_update.cu",
+                            "src/repro/kernels/panel_update.py:86"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:77"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -129,12 +141,12 @@ SOURCES = {
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/ssm_scan.py:129"),
 }
-# the kernel path's kernels (K1..K4, float32) and their profiler names
-PROFILED_PATH = ("minmax_relax", "column_fingerprints", "panel_update",
-                 "panel_update_batched")
+# the kernel path's kernels (K1, K2, the mapped K3/K4 in float32) and
+# their profiler names
+PROFILED_PATH = ("minmax_relax", "column_fingerprints",
+                 "panel_update_mapped")
 PROFILED = ("minmax_relax_kernel", "column_fingerprints_kernel",
-            "panel_update_kernel<float, false>",
-            "panel_update_kernel<float, true>")
+            "panel_update_mapped_kernel<float>")
 
 
 def emit(obj) -> None:
@@ -291,6 +303,15 @@ def kernel_checks(torch, ops, plain, adj_real):
         check(k4_bitwise(torch, ops, rng, 5, m, k, n, dtype=torch.float64),
               "float64 K4 != K3 per slice")
     out["K4_f64_bitwise_vs_K3"] = True
+
+    # the mapped K3/K4 in place on ragged slices with absent rows, both
+    # element modes
+    flat, u, lmap, tiles = mapped_inputs(torch, ops, rng, MAPPED_SHAPES)
+    for f32 in (False, True):
+        err, tol = mapped_check(torch, ops, plain, flat, u, lmap, tiles, f32)
+        out[f"mapped_{'f32' if f32 else 'f64'}_err"] = err
+        out[f"mapped_{'f32' if f32 else 'f64'}_tol"] = tol
+    out["mapped_bitwise_vs_K3"] = True
 
     # K5 at the serve path's shapes and at D = 128, and in bfloat16
     for tag, shape in K5_SHAPES.items():
@@ -481,6 +502,79 @@ def k4_bitwise(torch, ops, rng, b, m, k, n, dtype=None) -> bool:
                for i in range(b))
 
 
+# the mapped update's ragged slices (M, N, K): the sweep's commonest, a
+# border panel's 48-deep chain, every tile kind and ragged edge
+MAPPED_SHAPES = [(9, 1, 2), (14, 14, 48), (200, 3, 20), (5, 64, 7),
+                 (33, 17, 512), (1, 1, 1), (130, 65, 16), (3, 5, 17)]
+
+
+def mapped_inputs(torch, ops, rng, shapes, *, n_l=4096, absent=0.3):
+    """A random float64 store on the card for the mapped update: (flat, u,
+    lmap, tiles), slices of ``shapes`` (M, N, K) whose acc runs lie after
+    the ``n_l`` L entries, a share ``absent`` of L entries structural
+    zeros (-1)."""
+    import numpy as np
+
+    slices, lmaps, acc, moff, uoff = [], [], n_l, 0, 0
+    for m, n, k in shapes:
+        idx = rng.integers(0, n_l, m * k)
+        idx[rng.random(m * k) < absent] = -1
+        lmaps.append(idx)
+        slices.append((acc, moff, uoff, m, n, k))
+        acc, moff, uoff = acc + m * n, moff + m * k, uoff + k * n
+    return tuple(torch.as_tensor(x, device="cuda") for x in (
+        rng.standard_normal(acc), rng.standard_normal(uoff),
+        np.concatenate(lmaps).astype(np.int32), ops.mapped_tiles(slices)))
+
+
+def slice_records(tiles):
+    """The tile records (host numpy) that stand for whole slices."""
+    t = tiles.cpu().numpy()
+    return t[(t[:, 6] == 0) & (t[:, 7] == 0)]
+
+
+def mapped_check(torch, ops, plain, flat, u, lmap, tiles, f32):
+    """The mapped K3/K4 once over ``tiles`` on a copy of ``flat`` against
+    its plain version on another: (max abs error, tolerance eps * max K *
+    max|flat| * max|u|, eps 2e-6 in float32 mode and 1e-14 in float64).
+    Every slice must also be bitwise dense K3 on its gathered operands
+    (float32 mode: on ``.float()`` operands, widened) and nothing else of
+    ``flat`` may change; fails otherwise."""
+    got, want = flat.clone(), flat.clone()
+    ops.panel_update_mapped(got, u, lmap, tiles, f32=f32)
+    plain.panel_update_mapped_plain(want, u, lmap, tiles, f32=f32)
+    recs = slice_records(tiles)
+    touched = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
+    for acc_off, map_off, u_off, m, n, k, *_ in recs.tolist():
+        lm = lmap[map_off:map_off + m * k].view(m, k).long()
+        lp = torch.where(lm >= 0, flat[lm.clamp(min=0)], 0.0)
+        acc = flat[acc_off:acc_off + m * n].view(m, n)
+        b = u[u_off:u_off + k * n].view(k, n)
+        dense = (ops.panel_update(acc.float(), lp.float(), b.float()).double()
+                 if f32 else ops.panel_update(acc, lp, b))
+        mine = got[acc_off:acc_off + m * n].view(m, n)
+        check(torch.equal(mine.view(torch.int64), dense.view(torch.int64)),
+              f"mapped update (f32={f32}) of a {m}x{n}x{k} slice is not "
+              f"bitwise dense K3")
+        touched[acc_off:acc_off + m * n] = True
+    check(torch.equal(got[~touched].view(torch.int64),
+                      flat[~touched].view(torch.int64)),
+          "the mapped update wrote outside its slices")
+    torch.cuda.synchronize()
+    eps = 2e-6 if f32 else 1e-14
+    tol = (eps * int(recs[:, 5].max()) * float(flat.abs().max())
+           * float(u.abs().max()))
+    err = float((got - want).abs().max())
+    check(err <= tol, f"mapped update (f32={f32}): err {err} > tol {tol}")
+    return err, tol
+
+
+def gemm_levels(plan) -> int:
+    """Levels of the plan's sweep with at least one trailing update."""
+    return sum(any(plan.gather_maps[j] is not None for j in level)
+               for level in plan.schedule.levels)
+
+
 def gemm_shapes(plan):
     """(level, panel, M, K, N) of every trailing GEMM of the plan's sweep."""
     st, sched = plan.store_template, plan.schedule
@@ -526,6 +620,7 @@ def run_path(torch, repro_torch, a, values, opts, *, device=None,
     else:
         plan, factor, t_an, t_f = head()
     ptr = factor.store.flat.data_ptr()
+    digest = flat_sha256(factor.store.flat)
     t0 = time.perf_counter()
     factor = factor.refactorize(values)
     torch.cuda.synchronize()
@@ -533,6 +628,8 @@ def run_path(torch, repro_torch, a, values, opts, *, device=None,
     snaps.append(ops.launch_counts())
     check(factor.store.flat.data_ptr() == ptr,
           "refactorize did not reuse the device buffers")
+    check(flat_sha256(factor.store.flat) == digest,
+          "refactorize of the same values changed the factors' bits")
     rng = np.random.default_rng(42)
     b1 = rng.standard_normal(a.n)
     b4 = rng.standard_normal((a.n, 4))
@@ -549,7 +646,7 @@ def run_path(torch, repro_torch, a, values, opts, *, device=None,
               f"refinement history increased: {s.residuals}")
     res = {
         "analyze_s": t_an, "factorize_s": t_f, "refactorize_s": t_rf,
-        "solve_s": t_s, "lu_nnz": plan.lu_nnz,
+        "solve_s": t_s, "flat_sha256": digest, "lu_nnz": plan.lu_nnz,
         "n_supernodes": plan.n_supernodes, "n_levels": plan.n_levels,
         "supersteps": plan.sym.supersteps,
         "residual_n": s1.residual, "residual_n4": s4.residual,
@@ -564,7 +661,19 @@ def run_path(torch, repro_torch, a, values, opts, *, device=None,
     }
     if seen is not None:
         res["profiler"] = seen
+    want = gemm_levels(plan)
+    for stage in ("factorize", "refactorize"):
+        got = res["launches_by_stage"][stage]["panel_update_mapped"]
+        check(got == want, f"{stage}: the mapped update launched {got} "
+              f"times, not once per level with trailing updates ({want})")
     return plan, factor, res
+
+
+def flat_sha256(flat) -> str:
+    """sha256 of a store's float64 values, as bytes on the host."""
+    import hashlib
+
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
 def reference_check(torch, repro_torch, sparse, generic_values_csr):
@@ -676,6 +785,7 @@ def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
         busy = busy_ms(prof)
         out[name] = {"wall_ms": wall, "device_busy_ms": busy,
                      "idle_share": 1.0 - busy / wall,
+                     "device_calls": device_calls(prof),
                      "top": top_kernels(prof)}
         return result
 
@@ -943,8 +1053,7 @@ def main() -> int:
     check(res["residual_n"] <= 1e-10 and res["residual_n4"] <= 1e-10
           and res["host_residual_n"] <= 1e-10
           and res["host_residual_n4"] <= 1e-10, f"default residual {res}")
-    for name in ("column_fingerprints", "panel_update",
-                 "panel_update_batched"):
+    for name in ("column_fingerprints", "panel_update_mapped"):
         check(counts_default[name] > 0,
               f"{name} was not launched on the default path")
     emit({"phase": "default", "n": a.n, "nnz": a.nnz,
@@ -973,8 +1082,8 @@ def main() -> int:
               f"{name} was not launched on the kernel path")
     for name in PROFILED:
         check(name in seen, f"torch.profiler did not see {name}: {seen}")
-    # segment batching within the port: stacked GEMMs vs per-panel ones,
-    # bitwise on both backends (K4 slices are K3, float32 and float64)
+    # segment batching within the port: one mapped launch per level vs one
+    # per panel, bitwise on both backends (float32 and float64)
     unbatched = dataclasses.replace(
         plan, options=opts.replace(segment_batch=False)).factorize(values)
     seg_equal = bool(torch.equal(unbatched.store.flat, factor.store.flat))
@@ -1113,6 +1222,59 @@ def main() -> int:
             lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
             kernel="panel_update_batched", peak_ops=peak,
             plain_kw={"inner": 100})
+    # dense K4 float64 (the last stack above) against baddbmm in turns,
+    # five samples each, and an empty kernel's device time at one block
+    # and at that stack's grid (one block per slice): the floor
+    panel_line = {"panel_update_batched_f64_vs_baddbmm": {
+        "shape": [bsz, bm, bk, bn], "panel_update_batched_ms": [],
+        "baddbmm_ms": []}}
+    turns = panel_line["panel_update_batched_f64_vs_baddbmm"]
+    for _ in range(5):
+        turns["panel_update_batched_ms"].append(device_ms(
+            torch, lambda: ops.panel_update_batched(accb, lpb, upb), reps=1))
+        turns["baddbmm_ms"].append(device_ms(
+            torch, lambda: torch.baddbmm(accb, lpb, upb, alpha=-1), reps=1))
+    panel_line["empty_kernel_ms"] = {
+        str(nb): device_ms(torch, lambda: ops.panel_update_empty(nb, dev))
+        for nb in (1, bsz)}
+
+    # the mapped K3/K4 over bbd-20k's largest level (most slices) on the
+    # factored store with random U rows, float64 (the default path's) and
+    # float32 (the kernel path's); the bound counts the L entries the map
+    # hits, U, and acc read and written, and 2 flops per hit per column;
+    # no single PyTorch call updates a ragged set of slices in place
+    upd = plan._device_state(dev)[2]
+    bounds = [int(x) for x in upd.level_tiles]
+    per_level = [len(slice_records(upd.tiles[lo:hi])) if hi > lo else 0
+                 for lo, hi in zip(bounds, bounds[1:])]
+    lvl = max(range(len(per_level)), key=per_level.__getitem__)
+    tiles = upd.tiles[bounds[lvl]:bounds[lvl + 1]]
+    recs = slice_records(tiles)
+    lmap_h = upd.lmap.cpu().numpy()
+    hits = [int((lmap_h[mo:mo + m * k] >= 0).sum())
+            for _, mo, _, m, _, k, *_ in recs.tolist()]
+    outs = int((recs[:, 3] * recs[:, 4]).sum())
+    u_len = int((recs[:, 5] * recs[:, 4]).sum())
+    u_lvl = torch.as_tensor(rng.standard_normal(u_len), device=dev)
+    flat_lvl = factor.store.flat.clone()
+    panel_line["panel_update_mapped"] = {
+        "level": lvl, "slices": len(recs), "tiles": int(tiles.shape[0]),
+        "outputs": outs, "l_hits": sum(hits), "u_entries": u_len,
+        "max_k": int(recs[:, 5].max()), "slices_per_level": per_level}
+    for f32, suffix, counts, peak in (
+            (True, "", launches, PEAK_OPS_S),
+            (False, " (float64)", counts_default, PEAK_F64_OPS_S)):
+        err, _ = mapped_check(torch, ops, plain, flat_lvl, u_lvl, upd.lmap,
+                              tiles, f32)
+        row("panel_update_mapped" + suffix, counts["panel_update_mapped"],
+            err, lambda: ops.panel_update_mapped(flat_lvl, u_lvl, upd.lmap,
+                                                 tiles, f32=f32),
+            lambda: plain.panel_update_mapped_plain(flat_lvl, u_lvl, upd.lmap,
+                                                    tiles, f32=f32),
+            8 * (sum(hits) + u_len + 2 * outs),
+            sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4])),
+            kernel="panel_update_mapped", peak_ops=peak,
+            plain_kw={"reps": 3})
 
     # K5 at the standing prefill shape (its row; the bound counts 3 TF32
     # products per float32 one on the tensor cores, the CUDA-core bound
@@ -1123,7 +1285,8 @@ def main() -> int:
     shapes_line = {
         "phase": "kernel_shapes", "minmax_relax": [s, u, u],
         "column_fingerprints": [s, v], "panel_update": list(k3_shape),
-        "panel_update_batched": [bsz, bm, bk, bn], "adj_nnz": nnz_adj,
+        "panel_update_batched": [bsz, bm, bk, bn], **panel_line,
+        "adj_nnz": nnz_adj,
         "flash_attention": list(K5_SHAPES["prefill"])}
     for tag in ("prefill", "decode"):
         shape = K5_SHAPES[tag]

@@ -40,7 +40,8 @@ from repro_torch.core.symbolic import SymbolicResult
 from repro_torch.core.symbolic import symbolic_factorize as _symbolic_factorize
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.numeric.schedule import (
-    PanelSchedule, build_gather_maps, build_schedule, device_maps,
+    PanelSchedule, build_gather_maps, build_schedule, build_update_maps,
+    device_maps,
 )
 from repro_torch.numeric.solve import (
     SolveResult, SolveSchedule, build_solve_schedule,
@@ -309,13 +310,16 @@ class LUPlan:
         return self.schedule.n_levels
 
     def _device_state(self, dev: torch.device):
-        """(store index, per-panel device gather maps) on ``dev``, built on
-        first use and cached for every later factorization."""
+        """(store index, per-panel device gather maps, trailing-update
+        tables) on ``dev``, built on first use and cached for every later
+        factorization."""
         key = str(dev)
         if key not in self._device_cache:
             self._device_cache[key] = (
                 self.store_template.build_index(self.csr_maps, dev),
-                device_maps(self.gather_maps, dev))
+                device_maps(self.gather_maps, dev),
+                build_update_maps(self.store_template, self.schedule,
+                                  self.gather_maps).to(dev))
         return self._device_cache[key]
 
     def factorize(self, values=None, *,
@@ -328,7 +332,7 @@ class LUPlan:
             values = generic_values_csr(self.a)
         dev = resolve_device(self.device)
         values = torch.as_tensor(values, dtype=torch.float64, device=dev)
-        index, maps = self._device_state(dev)
+        index, maps, update_maps = self._device_state(dev)
         store = (_reuse_store if _reuse_store is not None
                  else PanelStore.from_structure(self.store_template, dev,
                                                 index))
@@ -342,7 +346,8 @@ class LUPlan:
                     piv_tol=self.options.piv_tol,
                     check_pattern=self.options.check_pattern,
                     pattern_tol=self.options.pattern_tol,
-                    maps=maps, csr_maps=self.csr_maps,
+                    maps=maps, update_maps=update_maps,
+                    csr_maps=self.csr_maps,
                     store_is_zeroed=_reuse_store is None,
                     segment_batch=self.options.segment_batch)
             stats = tr.summary(mark) if tr is not None else None

@@ -31,21 +31,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-# source stem -> (exported launch function, its argument types)
+# launcher name -> (source stem, exported launch function, argument types)
 SIGNATURES = {
-    "minmax_relax": ("minmax_relax_launch", (_P, _P, _P, _I, _I, _I, _P)),
-    "column_fingerprints": ("column_fingerprints_launch",
+    "minmax_relax": ("minmax_relax", "minmax_relax_launch",
+                     (_P, _P, _P, _I, _I, _I, _P)),
+    "column_fingerprints": ("column_fingerprints",
+                            "column_fingerprints_launch",
                             (_P, _P, _P, _P, _P, _P, _I, _I, _P)),
-    "panel_update": ("panel_update_launch",
-                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "flash_attention": ("flash_attention_launch",
+    "panel_update": ("panel_update", "panel_update_launch",
+                     (_P, _P, _P, _P) + (_I,) * 8 + (_P,)),
+    "panel_update_mapped": ("panel_update", "panel_update_mapped_launch",
+                            (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "panel_update_empty": ("panel_update", "panel_update_empty_launch",
+                           (_I, _P)),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
                         (_P,) * 5 + (_I,) * 8 + (_F, _I) + (_L,) * 12
                         + (_P,)),
-    "rwkv6_scan": ("rwkv6_scan_launch",
+    "rwkv6_scan": ("rwkv6_scan", "rwkv6_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "mamba_scan": ("mamba_scan_launch",
+    "mamba_scan": ("mamba_scan", "mamba_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
 }
+# the sources, one library each
+SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
@@ -70,8 +78,8 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
-    """Compile every library in ``names`` that is not built yet, all at
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every library (source stem) in ``names`` not built yet, all at
     once.  Returns {name: seconds} for the ones compiled (the wall time of
     the parallel build); the compiler's ``-Xptxas -v`` report of each lands
     in ``_build/<name>.log``."""
@@ -109,8 +117,8 @@ def launcher(name: str):
         fn = _FUNCS.get(name)
         if fn is None:
             build()
-            lib = ctypes.CDLL(str(library_path(name)))
-            symbol, argtypes = SIGNATURES[name]
+            source, symbol, argtypes = SIGNATURES[name]
+            lib = ctypes.CDLL(str(library_path(source)))
             fn = getattr(lib, symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

@@ -18,13 +18,19 @@ wrapper                   replaces (src/repro/kernels/)
 ``column_fingerprints``   supernode_fp.py::supernode_fp_pallas          K2
 ``panel_update``          panel_update.py::panel_update_pallas          K3
 ``panel_update_batched``  panel_update.py::panel_update_batched_pallas  K4
+``panel_update_mapped``   panel_update.py::panel_update_batched_pallas  K4
 ``flash_attention``       flash_attention.py::flash_attention_pallas    K5
 ``mamba_scan``            ssm_scan.py::mamba_scan_pallas                K6
 ``rwkv6_scan``            ssm_scan.py::rwkv6_scan_pallas                K7
 ========================  ============================================  ==
+
+``panel_update_mapped`` is K3/K4 in the form the panel sweep launches: in
+place in the packed store, L read through a static map, one launch per
+dependency level (one slice is K3's role).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -143,6 +149,66 @@ def _panel_args(acc, l_panel, u_panel, ndim: int):
     return m, n, k
 
 
+PANEL_THREADS = 128            # K3/K4's block: one output per thread
+PANEL_TILE_INTS = 10           # a mapped tile record's int32 fields
+
+
+def _tile_shapes(n: np.ndarray, k: np.ndarray):
+    """(TC, BK) arrays of ``panel_tile`` for arrays of N and K."""
+    large = k > 16
+    tc = np.ones_like(n)
+    while (tc < n).any():
+        tc = np.where(tc < n, 2 * tc, tc)
+    return np.clip(tc, 4, np.where(large, 32, 64)), np.where(large, 32, 16)
+
+
+def panel_tile(n: int, k: int) -> tuple:
+    """(TC, BK) of the K3/K4 tile for a slice of N columns and depth K: TC
+    outputs along N (the power of two >= N in [4, 64], [4, 32] for deep
+    slices) times ``PANEL_THREADS // TC`` along M; ``BK`` the K chunk
+    staged at a time, 16 for K <= 16 and 32 beyond
+    (``csrc/panel_update.cu``)."""
+    tc, bk = _tile_shapes(np.array([n]), np.array([k]))
+    return int(tc[0]), int(bk[0])
+
+
+def mapped_tiles(slices) -> np.ndarray:
+    """(T, ``PANEL_TILE_INTS``) int32 tile records of the mapped update
+    for ``slices``, rows ``(acc_off, map_off, u_off, M, N, K)``: each
+    slice's tiles in row-major tile order, each record ``(acc_off, map_off,
+    u_off, M, N, K, m0, n0, TC, BK)`` with (TC, BK) ``panel_tile``'s.  A
+    slice's first record, ``m0 = n0 = 0``, stands for the whole slice in
+    the plain version."""
+    s = np.asarray(slices, dtype=np.int64).reshape(-1, 6)
+    m, n, k = s[:, 3], s[:, 4], s[:, 5]
+    tc, bk = _tile_shapes(n, k)
+    tr = PANEL_THREADS // tc
+    tiles_n = -(-n // tc)
+    count = -(-m // tr) * tiles_n
+    t = np.arange(count.sum()) - np.repeat(np.cumsum(count) - count, count)
+
+    def rep(x):
+        return np.repeat(x, count)
+
+    return np.column_stack([
+        np.repeat(s, count, axis=0), t // rep(tiles_n) * rep(tr),
+        t % rep(tiles_n) * rep(tc), rep(tc), rep(bk)]).astype(np.int32)
+
+
+def _dense_panel_launch(acc, l_panel, u_panel, b: int, m: int, n: int,
+                        k: int, batched: bool) -> torch.Tensor:
+    out = torch.empty_like(acc)
+    tc, bk = panel_tile(n, k)
+    tiles = -(-m // (PANEL_THREADS // tc)) * -(-n // tc)
+    if tiles * b > 2 ** 31 - 1:
+        raise ValueError(f"panel update of {b} x ({m}, {n}) takes {tiles * b}"
+                         f" blocks, more than a grid holds")
+    _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
+            u_panel.data_ptr(), out.data_ptr(), b, m, n, k, tc, bk,
+            int(batched), int(acc.dtype == torch.float64), _stream(acc))
+    return out
+
+
 def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
                  u_panel: torch.Tensor) -> torch.Tensor:
     """K3: (M, N) ``acc - l_panel @ u_panel`` in true float32, or in
@@ -155,10 +221,7 @@ def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
     m, n, k = _panel_args(acc, l_panel, u_panel, 2)
     if m == 0 or n == 0 or k == 0:
         return acc
-    out = torch.empty_like(acc)
-    _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
-            u_panel.data_ptr(), out.data_ptr(), 1, m, n, k, 0,
-            int(acc.dtype == torch.float64), _stream(acc))
+    out = _dense_panel_launch(acc, l_panel, u_panel, 1, m, n, k, False)
     panel_update.launches += 1
     return out
 
@@ -176,15 +239,56 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
     b = acc.shape[0]
     if b == 0 or m == 0 or n == 0 or k == 0:
         return acc
-    if b > 65535:
-        raise ValueError(f"panel_update_batched takes at most 65535 slices "
-                         f"(grid z), got {b}")
-    out = torch.empty_like(acc)
-    _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
-            u_panel.data_ptr(), out.data_ptr(), b, m, n, k, 1,
-            int(acc.dtype == torch.float64), _stream(acc))
+    out = _dense_panel_launch(acc, l_panel, u_panel, b, m, n, k, True)
     panel_update_batched.launches += 1
     return out
+
+
+def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
+                        lmap: torch.Tensor, tiles: torch.Tensor, *,
+                        u_shift: int = 0, f32: bool = False) -> None:
+    """K3/K4 in place in a packed store: for every slice of the tile
+    records ``tiles`` (``mapped_tiles``), ``acc -= L @ U`` where acc is the
+    (M, N) row-major run of ``flat`` at acc_off, ``L[i, k] =
+    flat[lmap[map_off + i*K + k]]`` (-1: an exact zero) and U the (K, N)
+    run of ``u`` at ``u_off - u_shift``.  ``flat`` and ``u`` are float64,
+    ``lmap`` and ``tiles`` int32; ``f32`` rounds acc, L and U to float32
+    once each, runs the product in float32 and stores the widened result
+    (the kernel backend).  On the card the whole set is one launch; acc
+    must not overlap any L entry (the sweep's L lies in earlier levels)."""
+    if _on_cpu(flat, u, lmap, tiles):
+        plain.panel_update_mapped_plain(flat, u, lmap, tiles,
+                                        u_shift=u_shift, f32=f32)
+        return
+    for name, t, dtype, ndim in (("flat", flat, torch.float64, 1),
+                                 ("u", u, torch.float64, 1),
+                                 ("lmap", lmap, torch.int32, 1),
+                                 ("tiles", tiles, torch.int32, 2)):
+        _check(name, t, dtype, ndim)
+    if tiles.shape[1] != PANEL_TILE_INTS:
+        raise ValueError(f"tiles must be (T, {PANEL_TILE_INTS}) records, got "
+                         f"{tuple(tiles.shape)}")
+    if flat.numel() >= 2 ** 31:
+        raise ValueError(f"the mapped panel update addresses the store with "
+                         f"int32 offsets; this store has {flat.numel()} "
+                         f"entries")
+    n_tiles = tiles.shape[0]
+    if n_tiles == 0:
+        return
+    if n_tiles > 2 ** 31 - 1:
+        raise ValueError(f"{n_tiles} tiles are more than a grid holds")
+    _launch("panel_update_mapped", flat.data_ptr(), u.data_ptr(),
+            lmap.data_ptr(), tiles.data_ptr(), n_tiles, int(u_shift),
+            int(f32), _stream(flat))
+    panel_update_mapped.launches += 1
+
+
+def panel_update_empty(blocks: int, device) -> None:
+    """An empty kernel of ``blocks`` blocks of ``PANEL_THREADS`` on
+    ``device``'s current stream: the device time of a launch, the floor
+    under K3/K4's small shapes.  Not counted: it computes nothing."""
+    _launch("panel_update_empty", int(blocks),
+            torch.cuda.current_stream(device).cuda_stream)
 
 
 FLASH_HEAD_DIMS = (16, 64, 128)   # K5's instantiations of D
@@ -384,7 +488,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
 
 
 KERNELS = (minmax_relax, column_fingerprints, panel_update,
-           panel_update_batched, flash_attention, mamba_scan, rwkv6_scan)
+           panel_update_batched, panel_update_mapped, flash_attention,
+           mamba_scan, rwkv6_scan)
 
 
 def reset_launches() -> None:

@@ -1,9 +1,10 @@
 """Supernodal numeric LU on packed device storage + triangular solves.
 
 schedule.py levels the panel DAG (numpy) -> storage.py holds one float64
-block per panel on the plan's device -> supernodal.py factors panel by panel
-with accumulated trailing GEMMs (float64 torch, or K3/K4 on the "kernel"
-backend) -> solve.py runs substitution + iterative refinement.
+block per panel on the plan's device -> supernodal.py factors level by level,
+each level's trailing updates one in-place K3/K4 launch (float64, or float32
+on the "kernel" backend) -> solve.py runs substitution + iterative
+refinement.
 """
 from repro_torch.numeric.schedule import (
     PanelMaps, PanelSchedule, build_gather_maps, build_schedule,

@@ -32,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import mapped_tiles
 from repro_torch.numeric.storage import CSCPattern, RowGather
 from repro_torch.supernodes.balance import PanelPartition, pack_panels
 
@@ -89,12 +90,12 @@ class PanelMaps:
     hit_j: np.ndarray
 
     def to(self, device) -> "DevicePanelMaps":
-        """The same maps as device index tensors (``storage.RowGather``)."""
+        """The phase-A maps as device index tensors (``storage.RowGather``);
+        the below-row maps go into ``UpdateMaps.lmap`` instead."""
         miss = np.flatnonzero(~self.hit_j)
         return DevicePanelMaps(
             offs=self.offs, n_rows=len(self.anc_rows),
             strips=[RowGather.build(i, h, device) for i, h in self.strip_maps],
-            belows=[RowGather.build(i, h, device) for i, h in self.below_maps],
             target=RowGather.build(self.idx_j, self.hit_j, device),
             miss=(torch.as_tensor(miss, dtype=torch.int64, device=device)
                   if len(miss) else None))
@@ -102,15 +103,14 @@ class PanelMaps:
 
 @dataclasses.dataclass(frozen=True)
 class DevicePanelMaps:
-    """Device form of ``PanelMaps``, built once per (plan, device): the
-    ancestor strip and below-row gathers, the gather/scatter of the solved
+    """Device form of ``PanelMaps``' phase-A half, built once per (plan,
+    device): the ancestor strip gathers, the gather/scatter of the solved
     U rows in the target block (``target``), and the U rows the target
     block lacks (``miss``, None when every row is present)."""
 
     offs: np.ndarray
     n_rows: int
     strips: List[RowGather]
-    belows: List[RowGather]
     target: RowGather
     miss: Optional[torch.Tensor]
 
@@ -145,6 +145,99 @@ def build_gather_maps(store, schedule: PanelSchedule) -> List[Optional[PanelMaps
     ._factor_panel``, built once per analysis and replayed per factorize."""
     return [build_panel_maps(store, schedule, j)
             for j in range(schedule.n_panels)]
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateMaps:
+    """Static tables of the trailing updates of one store structure, for
+    the mapped panel update (``kernels.ops.panel_update_mapped``): every
+    panel with ancestors is one slice ``acc -= L @ U``, acc its block rows
+    from its diagonal down, L read in place from its ancestors' blocks,
+    U its solved U rows.
+
+    * ``lmap`` — int32 flat offsets of every slice's (M, K) L entries,
+      row-major; column order is the ancestors in schedule order, each
+      ancestor's columns in order (the order of the K chain); -1 where the
+      ancestor lacks the row (an exact zero);
+    * ``tiles`` — the int32 tile records (``ops.mapped_tiles``) of every
+      slice, level by level, each level's slices in level order; ``u_off``
+      counts from the start of the slice's level's U buffer, the level's
+      solved U rows concatenated in that order;
+    * ``level_tiles`` — (n_levels + 1,) bounds of each level's records;
+    * ``panel_tiles`` — (n_panels, 2) bounds of each panel's records
+      ((0, 0) for a panel without ancestors); ``u_off`` — (n_panels,) each
+      panel's U offset in its level's buffer.
+
+    Offsets, never pointers: a factorization on a fresh store of the same
+    structure reuses the tables.  Value-independent, so built once per
+    (plan, device) next to the gather maps (``to``)."""
+
+    lmap: np.ndarray
+    tiles: np.ndarray
+    level_tiles: np.ndarray
+    panel_tiles: np.ndarray
+    u_off: np.ndarray
+
+    def to(self, device) -> "UpdateMaps":
+        """The same tables with ``lmap`` and ``tiles`` on ``device``."""
+        return dataclasses.replace(
+            self, lmap=torch.as_tensor(self.lmap, device=device),
+            tiles=torch.as_tensor(self.tiles, device=device))
+
+
+def build_update_maps(store, schedule: PanelSchedule,
+                      maps: List[Optional[PanelMaps]]) -> UpdateMaps:
+    """``UpdateMaps`` from the packed store's structure and each panel's
+    ``PanelMaps.below_maps``; raises when the store is too large for int32
+    offsets."""
+    if store.total_entries >= 2 ** 31:
+        raise ValueError(f"the mapped panel update addresses the store with "
+                         f"int32 offsets; this store has "
+                         f"{store.total_entries} entries")
+    widths = schedule.supernodes[:, 1] - schedule.supernodes[:, 0]
+    lmaps, slices = [], []
+    level_slices = [0]
+    u_off = np.zeros(schedule.n_panels, dtype=np.int64)
+    map_off = u_max = 0
+    for level in schedule.levels:
+        u_level = 0
+        for j in level:
+            pm = maps[j]
+            if pm is None:
+                continue
+            d = int(store.diag[j])
+            m, n, k = len(store.rows[j]) - d, int(widths[j]), len(pm.anc_rows)
+            cols = []
+            for a, (idx, hit) in zip(schedule.ancestors[j], pm.below_maps):
+                wa = int(widths[a])
+                part = ((store.offsets[a] + idx * wa)[:, None]
+                        + np.arange(wa)[None, :])
+                part[~hit] = -1
+                cols.append(part)
+            lmaps.append(np.concatenate(cols, axis=1).ravel())
+            slices.append((store.offsets[j] + d * n, map_off, u_level,
+                           m, n, k))
+            u_off[j] = u_level
+            map_off += m * k
+            u_level += k * n
+        level_slices.append(len(slices))
+        u_max = max(u_max, u_level)
+    if map_off >= 2 ** 31 or u_max >= 2 ** 31:
+        raise ValueError(f"the trailing updates' L map ({map_off} entries) "
+                         f"or a level's U rows exceed int32 offsets")
+    tiles = mapped_tiles(np.asarray(slices, dtype=np.int64).reshape(-1, 6))
+    # each slice's first record is its (m0, n0) = (0, 0) tile
+    ptr = np.append(np.flatnonzero((tiles[:, 6] == 0) & (tiles[:, 7] == 0)),
+                    len(tiles))
+    panel_tiles = np.zeros((schedule.n_panels, 2), dtype=np.int64)
+    have = [j for level in schedule.levels for j in level
+            if maps[j] is not None]
+    panel_tiles[have] = np.column_stack([ptr[:-1], ptr[1:]])
+    lmap = (np.concatenate(lmaps).astype(np.int32) if lmaps
+            else np.zeros(0, dtype=np.int32))
+    return UpdateMaps(lmap=lmap, tiles=tiles,
+                      level_tiles=ptr[np.asarray(level_slices)],
+                      panel_tiles=panel_tiles, u_off=u_off)
 
 
 def _validate_supernodes(supernodes: np.ndarray, n: int) -> np.ndarray:

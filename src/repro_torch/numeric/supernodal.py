@@ -5,21 +5,22 @@
 unit-lower L and upper U out, factorized panel-by-panel in the O(nnz(L+U))
 packed blocks of ``storage.PanelStore`` on the store's device:
 
-* **Panel gather** — ancestor U rows and L panels are gathered into dense
+* **Panel gather** — ancestor U rows and L strips are gathered into dense
   operands through device row maps (absent rows are structural zeros).
 * **Left-looking updates** — ancestors K of J are consumed in ascending
   order: solve ``U(K, J) = L(K, K)^{-1} X(K, J)``, scatter the rank-|K|
   update into the rows of later ancestors, and defer the whole trailing
-  update to one accumulated GEMM ``X(s:, J) -= L(s:, anc) @ U(anc, J)``:
-  the panel-update kernels K3/K4 in float64 on the default ``"numpy"``
-  backend (named after the reference's host BLAS backend), in float32 on
-  the ``"kernel"`` backend.
+  update to one accumulated product ``X(s:, J) -= L(s:, anc) @ U(anc,
+  J)``: the mapped panel update (K3/K4), in place in the store with L read
+  from the ancestors' blocks through a static map, in float64 on the
+  default ``"numpy"`` backend (named after the reference's host BLAS
+  backend), in float32 on the ``"kernel"`` backend.
 * **Panel factor** — dense no-pivot LU of the diagonal block, then one
   triangular solve for the below-panel L rows.  Pivots are checked once per
   dependency level (one host sync) and a failure raises the same
   ``ZeroPivotError`` — column, panel, level — as the reference.
 * **Level schedule** — panels within a level are independent; with
-  ``segment_batch`` same-shape panels share one stacked GEMM.
+  ``segment_batch`` a level's trailing updates are one launch.
 
 Entries outside the symbolic prediction stay exactly zero except at a
 panel's explicit padding, which is bounded by ``pattern_tol`` and zeroed —
@@ -36,7 +37,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.numeric.schedule import (
-    DevicePanelMaps, PanelSchedule, build_gather_maps, device_maps,
+    DevicePanelMaps, PanelSchedule, UpdateMaps, build_gather_maps,
+    build_update_maps, device_maps,
 )
 from repro_torch.numeric.storage import PanelStore
 from repro_torch.obs import metrics as _om
@@ -115,22 +117,22 @@ def _panel_prepare(store: PanelStore, schedule: PanelSchedule, j: int,
     """Phase A of panel j: per-ancestor solves + U-row scatter.
 
     Runs the ascending per-ancestor unit-lower solves and rank updates on
-    the gathered target rows, writes the solved U(anc, J) rows back into
-    the packed block, and assembles the trailing-GEMM operands.  Reads only
+    the gathered target rows and writes the solved U(anc, J) rows back into
+    the packed block (rows above its diagonal block).  Reads only
     strictly-earlier-level blocks, so phase A of every panel in a level can
-    run before any same-level GEMM/finish.
+    run before any same-level update/finish.
 
-    Returns (lp, b, dropped, flops): the gathered (M, K) ancestor L panel
-    and solved (K, w) U rows, the largest |value| the solves produced on a
-    row absent from the panel's structure (0-d device tensor, or None when
-    every row is present) and the GEMM flop count.  ``(None, None, None,
-    0)`` when the panel has no ancestors.
+    Returns (b, dropped, flops): the solved (K, w) U rows, the operand of
+    the trailing update, the largest |value| the solves produced on a row
+    absent from the panel's structure (0-d device tensor, or None when
+    every row is present) and the trailing update's flop count.
+    ``(None, None, 0)`` when the panel has no ancestors.
     """
     s, e = schedule.supernodes[j]
     w = int(e - s)
     anc = schedule.ancestors[j]
     if not len(anc):
-        return None, None, None, 0
+        return None, None, 0
     offs = maps.offs
     b = store.gather_rows_mapped(j, maps.target)          # (K, w)
     for idx, k in enumerate(anc):
@@ -144,13 +146,8 @@ def _panel_prepare(store: PanelStore, schedule: PanelSchedule, j: int,
     tgt = maps.target
     block[tgt.sel] = b if tgt.pos is None else b[tgt.pos]
     dropped = b[maps.miss].abs().max() if maps.miss is not None else None
-
-    # trailing-GEMM operands: the gathered ancestor L panels against the
-    # solved U rows, targeting the packed block rows >= s
-    lp = torch.cat([store.gather_rows_mapped(int(k), maps.belows[idx])
-                    for idx, k in enumerate(anc)], dim=1)
-    flops = 2 * lp.shape[0] * maps.n_rows * w
-    return lp, b, dropped, flops
+    rows = block.shape[0] - int(store.diag[j])
+    return b, dropped, 2 * rows * maps.n_rows * w
 
 
 def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
@@ -163,85 +160,65 @@ def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
         block[below:] = _solve_upper_right(diag, block[below:])
 
 
-def _gemm_update(acc: torch.Tensor, lp: torch.Tensor, b: torch.Tensor,
-                 backend: str, update=kops.panel_update) -> torch.Tensor:
-    """``acc - lp @ b`` through ``update`` (K3, or K4 on stacked operands):
-    its float64 instance, or float32 on the kernel backend.  On the CPU
-    both are the plain ``acc - lp @ b``, slice by slice."""
-    if backend == "kernel":
-        return update(acc.float(), lp.float(), b.float()).double()
-    return update(acc, lp, b)
+def _trailing_update(store: PanelStore, upd: UpdateMaps, lo: int, hi: int,
+                     u: torch.Tensor, backend: str, n_panels: int,
+                     u_shift: int = 0) -> None:
+    """``acc -= L @ U`` in place for the ``n_panels`` slices of tile
+    records [lo, hi): the mapped panel update (K3/K4), L read in place
+    through ``upd.lmap``, in float64, or in float32 on the kernel backend.
+    On the CPU its plain version, slice by slice."""
+    kops.panel_update_mapped(store.flat, u, upd.lmap, upd.tiles[lo:hi],
+                             u_shift=u_shift, f32=backend == "kernel")
+    if _ot.ENABLED:
+        reg = _om.registry()
+        reg.count("gemm.batched.calls", 1)
+        reg.count("gemm.batched.panels", n_panels)
 
 
 def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
-                  backend: str, maps: Optional[DevicePanelMaps]):
-    """Factor panel j in place on its packed block (per-panel dispatch).
-    Returns (#ancestor updates, trailing flops, dropped)."""
-    lp, b, dropped, flops = _panel_prepare(store, schedule, j, maps)
-    if lp is not None:
-        acc = store.blocks[j][int(store.diag[j]):]
-        acc.copy_(_gemm_update(acc, lp, b, backend))
+                  backend: str, maps: Optional[DevicePanelMaps],
+                  upd: UpdateMaps):
+    """Factor panel j in place on its packed block (per-panel dispatch: a
+    one-slice update).  Returns (#ancestor updates, trailing flops,
+    dropped)."""
+    b, dropped, flops = _panel_prepare(store, schedule, j, maps)
+    if b is not None:
+        lo, hi = (int(x) for x in upd.panel_tiles[j])
+        _trailing_update(store, upd, lo, hi, b.reshape(-1), backend, 1,
+                         u_shift=int(upd.u_off[j]))
     _panel_finish(store, schedule, j)
     return len(schedule.ancestors[j]), flops, dropped
 
 
 def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
-                            seg, backend: str,
-                            maps: List[Optional[DevicePanelMaps]]):
-    """Factor one level's panels with same-shape GEMMs stacked into single
-    batched dispatches (DESIGN.md §13).
+                            li: int, seg, backend: str,
+                            maps: List[Optional[DevicePanelMaps]],
+                            upd: UpdateMaps):
+    """Factor level ``li``'s panels ``seg`` with ONE trailing-update launch
+    (DESIGN.md §13).
 
-    Three phases: prepare operands for every panel, apply the trailing GEMMs
-    — panels sharing an (M, K, N) shape go through ONE stacked K4 dispatch
-    (its float64 instance, or float32 on the kernel backend) — then run
-    every diagonal factor in segment order.  Panels within a level only read
-    strictly-earlier levels and write their own block, and K4 slices are
-    bitwise K3 (on the CPU, its plain version loops over the slices), so
-    segment batching gives the per-panel factors bitwise.
+    Three phases: phase A for every panel, then the level's trailing
+    updates — its solved U rows concatenated in level order, every slice
+    updated in place by one mapped K3/K4 launch — then every diagonal
+    factor in segment order.  Panels within a level only read
+    strictly-earlier levels and write their own block, and each output's
+    operation sequence is the per-panel one, so segment batching gives the
+    per-panel factors bitwise.
 
     Returns per-panel ``(j, n_updates, flops, dropped)`` tuples.
     """
     out = []
-    operands = {}
-    groups: dict = {}
+    bs = []
     for j in seg:
         j = int(j)
-        lp, b, dropped, flops = _panel_prepare(store, schedule, j, maps[j])
+        b, dropped, flops = _panel_prepare(store, schedule, j, maps[j])
         out.append((j, len(schedule.ancestors[j]), flops, dropped))
-        if lp is None:
-            continue
-        operands[j] = (lp, b)
-        groups.setdefault(tuple(lp.shape) + (b.shape[1],), []).append(j)
-
-    obs_on = _ot.ENABLED
-    batched_calls = 0
-    batched_panels = 0
-    for (m, k, w), js in groups.items():
-        accs = [store.blocks[j][int(store.diag[j]):] for j in js]
-        if len(js) == 1:
-            # singleton shape: plain per-panel dispatch
-            lp, b = operands[js[0]]
-            accs[0].copy_(_gemm_update(accs[0], lp, b, backend))
-            continue
-        acc = torch.stack(accs)
-        lps = torch.stack([operands[j][0] for j in js])
-        bs = torch.stack([operands[j][1] for j in js])
-        upds = _gemm_update(acc, lps, bs, backend,
-                            update=kops.panel_update_batched)
-        for bi, a in enumerate(accs):
-            a.copy_(upds[bi])
-        batched_calls += 1
-        batched_panels += len(js)
-        if obs_on:
-            reg = _om.registry()
-            reg.count("gemm.batched.flops", 2 * len(js) * m * k * w)
-            reg.count("gemm.batched.bytes",
-                      8 * len(js) * (m * k + k * w + 2 * m * w))
-    if obs_on and batched_calls:
-        reg = _om.registry()
-        reg.count("gemm.batched.calls", batched_calls)
-        reg.count("gemm.batched.panels", batched_panels)
-
+        if b is not None:
+            bs.append(b.reshape(-1))
+    if bs:
+        _trailing_update(store, upd, int(upd.level_tiles[li]),
+                         int(upd.level_tiles[li + 1]), torch.cat(bs),
+                         backend, len(bs))
     for j in seg:
         _panel_finish(store, schedule, int(j))
     return out
@@ -254,16 +231,19 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
                     check_pattern: bool = True,
                     pattern_tol: Optional[float] = None,
                     maps: Optional[List[Optional[DevicePanelMaps]]] = None,
+                    update_maps: Optional[UpdateMaps] = None,
                     csr_maps=None,
                     store_is_zeroed: bool = False,
                     segment_batch: bool = True) -> NumericResult:
     """Scatter CSR-aligned ``values`` into ``store`` and run the
     level-scheduled panel sweep on the store's device.
 
-    ``maps`` are the per-panel device gather maps (``schedule.device_maps``)
-    and ``csr_maps`` the CSR scatter — ``LUPlan.factorize`` passes both from
-    its analysis; when omitted they are derived here.  ``segment_batch``
-    (default on) stacks same-shape panel GEMMs of a level into one dispatch.
+    ``maps`` are the per-panel device gather maps (``schedule.device_maps``),
+    ``update_maps`` the device tables of the trailing updates
+    (``schedule.UpdateMaps``) and ``csr_maps`` the CSR scatter —
+    ``LUPlan.factorize`` passes all three from its analysis; when omitted
+    they are derived here.  ``segment_batch`` (default on) runs a level's
+    trailing updates as one launch instead of one per panel.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
@@ -291,8 +271,13 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     scale = float(values.abs().max()) if values.numel() else 0.0
     if piv_tol is None:
         piv_tol = pivot_tolerance(scale)
-    if maps is None:
-        maps = device_maps(build_gather_maps(store, schedule), store.device)
+    if maps is None or update_maps is None:
+        host_maps = build_gather_maps(store, schedule)
+        if maps is None:
+            maps = device_maps(host_maps, store.device)
+        if update_maps is None:
+            update_maps = build_update_maps(store, schedule,
+                                            host_maps).to(store.device)
 
     n_updates = 0
     gemm_flops = 0
@@ -304,11 +289,11 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     for li, level in enumerate(schedule.levels):
         with _ot.span("factor_level"), _ot.span("factor_segment"):
             if segment_batch and len(level) > 1:
-                panel_stats = _factor_segment_batched(store, schedule, level,
-                                                      backend, maps)
+                panel_stats = _factor_segment_batched(
+                    store, schedule, li, level, backend, maps, update_maps)
             else:
                 panel_stats = [(int(j),) + _factor_panel(
-                    store, schedule, int(j), backend, maps[j])
+                    store, schedule, int(j), backend, maps[j], update_maps)
                     for j in level]
             for j, upd, flops, drop in panel_stats:
                 n_updates += upd

@@ -54,6 +54,34 @@ def _pu_tol(l_panel, u_panel):
     return 2e-6 * k * np.abs(l_panel).max() * np.abs(u_panel).max()
 
 
+def _mapped_inputs(shapes, seed, *, absent=0.3):
+    """A random store for the mapped panel update: (flat, u, lmap, tiles)
+    as numpy, slices of ``shapes`` (M, N, K) whose acc runs lie after every
+    L entry, a share ``absent`` of L entries structural zeros (-1)."""
+    rng = np.random.default_rng(seed)
+    n_l = 4096
+    slices, lmaps, acc, moff, uoff = [], [], n_l, 0, 0
+    for m, n, k in shapes:
+        idx = rng.integers(0, n_l, m * k)
+        idx[rng.random(m * k) < absent] = -1
+        lmaps.append(idx)
+        slices.append((acc, moff, uoff, m, n, k))
+        acc, moff, uoff = acc + m * n, moff + m * k, uoff + k * n
+    flat = rng.standard_normal(acc)
+    u = rng.standard_normal(uoff)
+    return (flat, u, np.concatenate(lmaps).astype(np.int32),
+            ops.mapped_tiles(slices))
+
+
+def _mapped_operands(flat, u, lmap, rec):
+    """(acc, L, U) of one slice record, gathered (L through lmap)."""
+    acc_off, map_off, u_off, m, n, k = (int(x) for x in rec[:6])
+    lm = lmap[map_off:map_off + m * k].reshape(m, k)
+    lp = np.where(lm >= 0, flat[np.maximum(lm, 0)], 0.0)
+    return (flat[acc_off:acc_off + m * n].reshape(m, n), lp,
+            u[u_off:u_off + k * n].reshape(k, n))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,u,v", [(1, 8, 16), (33, 131, 257), (64, 512, 300)])
 def test_minmax_relax_kernel_bitwise(cuda, s, u, v):
@@ -136,6 +164,68 @@ def test_panel_update_float64_kernels_on_card(cuda, m, k, n):
                            plain.panel_update_plain(acc[i], lp[i], up[i]))
         assert float((one - want[i]).abs().max()) <= 1e-14 * k * float(
             lp.abs().max() * up.abs().max())
+
+
+# ragged slices (M, N, K): the sweep's (9 x 1 x 2, a border panel's 40-deep
+# chain), every tile kind and edge, and the largest the card tests take
+MAPPED_SHAPES = [(9, 1, 2), (14, 14, 48), (200, 3, 20), (5, 64, 7),
+                 (33, 17, 512), (1, 1, 1), (130, 65, 16), (3, 5, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+def test_panel_update_mapped_kernel_matches_plain(cuda, f32):
+    """The mapped update in place on the card against its plain version:
+    ragged slices, absent rows, both element modes."""
+    flat, u, lmap, tiles = _mapped_inputs(MAPPED_SHAPES, seed=int(f32))
+    got, want = (torch.as_tensor(flat, device=cuda) for _ in range(2))
+    u_d, lmap_d, tiles_d = (torch.as_tensor(x, device=cuda)
+                            for x in (u, lmap, tiles))
+    before = ops.panel_update_mapped.launches
+    ops.panel_update_mapped(got, u_d, lmap_d, tiles_d, f32=f32)
+    assert ops.panel_update_mapped.launches == before + 1
+    plain.panel_update_mapped_plain(want, u_d, lmap_d, tiles_d, f32=f32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:4096], torch.as_tensor(flat[:4096], device=cuda))
+    eps = 2e-6 if f32 else 1e-14
+    for rec in tiles[(tiles[:, 6] == 0) & (tiles[:, 7] == 0)]:
+        acc_off, m, n, k = int(rec[0]), *(int(x) for x in rec[3:6])
+        sl = slice(acc_off, acc_off + m * n)
+        _, lp, up = _mapped_operands(flat, u, lmap, rec)
+        tol = eps * k * max(np.abs(lp).max(), 1.0) * np.abs(up).max()
+        assert float((got[sl] - want[sl]).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+def test_panel_update_mapped_kernel_is_dense_k3(cuda, f32):
+    """Every slice of one multi-slice launch is bitwise a launch over that
+    slice alone, and bitwise dense K3 on the gathered operands (float32
+    mode: on ``.float()`` operands, widened)."""
+    flat, u, lmap, tiles = _mapped_inputs(MAPPED_SHAPES, seed=7)
+    all_at_once = torch.as_tensor(flat, device=cuda)
+    u_d, lmap_d, tiles_d = (torch.as_tensor(x, device=cuda)
+                            for x in (u, lmap, tiles))
+    ops.panel_update_mapped(all_at_once, u_d, lmap_d, tiles_d, f32=f32)
+    for rec in tiles[(tiles[:, 6] == 0) & (tiles[:, 7] == 0)]:
+        acc_off, m, n, k = int(rec[0]), *(int(x) for x in rec[3:6])
+        sl = slice(acc_off, acc_off + m * n)
+        mine = (tiles[:, 0] == rec[0])
+        one = torch.as_tensor(flat, device=cuda)
+        # one slice, U handed over alone with its offset shifted away
+        u_one = u_d[int(rec[2]):int(rec[2]) + k * n].clone()
+        ops.panel_update_mapped(one, u_one, lmap_d,
+                                torch.as_tensor(tiles[mine], device=cuda),
+                                u_shift=int(rec[2]), f32=f32)
+        assert torch.equal(one[sl], all_at_once[sl])
+        acc, lp, up = (torch.as_tensor(x, device=cuda)
+                       for x in _mapped_operands(flat, u, lmap, rec))
+        if f32:
+            dense = ops.panel_update(acc.float(), lp.float(),
+                                     up.float()).double()
+        else:
+            dense = ops.panel_update(acc, lp, up)
+        assert torch.equal(all_at_once[sl].view(m, n), dense)
 
 
 # the shapes chip_smoke.py holds K5 at: the serve path's prefill and decode
@@ -269,8 +359,7 @@ def test_kernel_path_on_card_matches_cpu(cuda):
     f_card = card.factorize(values)
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ("minmax_relax", "column_fingerprints",
-                                       "panel_update",
-                                       "panel_update_batched"))
+                                       "panel_update_mapped"))
     host = repro_torch.analyze(a, opts, device="cpu")
     f_host = host.factorize(values)
     assert np.array_equal(card.sym.supernodes, host.sym.supernodes)
@@ -280,6 +369,32 @@ def test_kernel_path_on_card_matches_cpu(cuda):
                  ) <= 1e-4 * scale
     b = np.random.default_rng(0).standard_normal(a.n)
     assert f_card.solve(b).residual <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_sweep_on_card_segment_batch_bitwise(cuda, backend):
+    """On the card one mapped launch per level gives the factors of one
+    launch per panel bitwise, on both numeric backends, and launches once
+    per level with trailing updates."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.sparse import bordered_block_diagonal
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = bordered_block_diagonal(400, block=16, border=16, seed=2)
+    values = generic_values_csr(a)
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=64, numeric_backend=backend), device=cuda)
+    before = ops.panel_update_mapped.launches
+    batched = plan.factorize(values)
+    levels = sum(any(plan.gather_maps[j] is not None for j in lv)
+                 for lv in plan.schedule.levels)
+    assert ops.panel_update_mapped.launches == before + levels
+    single = dataclasses.replace(plan, options=plan.options.replace(
+        segment_batch=False)).factorize(values)
+    assert torch.equal(batched.store.flat, single.store.flat)
 
 
 def _rwkv6_inputs(b, l, h, k, seed, device, zero_state=False):

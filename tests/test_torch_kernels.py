@@ -2,6 +2,8 @@
 interpret mode) and their jnp oracles, and the dispatch rules of
 ``repro_torch.kernels.ops``.  The CUDA kernels themselves run only on a
 card: ``test_torch_cuda.py`` holds them against the plain versions there."""
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, plain
 from test_torch_cuda import (
-    I32MAX, _fp_inputs, _pu_inputs, _pu_tol, _relax_adjacency, _relax_inputs,
+    I32MAX, MAPPED_SHAPES, _fp_inputs, _mapped_inputs, _mapped_operands,
+    _pu_inputs, _pu_tol, _relax_adjacency, _relax_inputs,
 )
 
 # tiny shapes, several pytest workers: one intra-op thread each keeps
@@ -138,6 +141,44 @@ def test_panel_update_empty_returns_acc(m, k, n):
     np.testing.assert_array_equal(gotb.numpy(), accb)
 
 
+@pytest.mark.parametrize("f32", [False, True])
+def test_panel_update_mapped_plain_matches_pallas(f32):
+    """The plain mapped update in place, slice by slice, against the Pallas
+    panel update (interpret mode, float32) on the gathered operands; the
+    entries it must not touch stay as they were."""
+    shapes = [(9, 1, 2), (14, 14, 48), (33, 5, 17), (3, 20, 7)]
+    flat, u, lmap, tiles = _mapped_inputs(shapes, seed=11)
+    got = torch.as_tensor(flat.copy())
+    ops.panel_update_mapped(got, torch.as_tensor(u), torch.as_tensor(lmap),
+                            torch.as_tensor(tiles), f32=f32)
+    assert ops.panel_update_mapped.launches == 0
+    np.testing.assert_array_equal(got[:4096].numpy(), flat[:4096])
+    recs = tiles[(tiles[:, 6] == 0) & (tiles[:, 7] == 0)]
+    assert len(recs) == len(shapes)
+    for rec in recs:
+        acc, lp, up = (x.astype(np.float32)
+                       for x in _mapped_operands(flat, u, lmap, rec))
+        want = np.asarray(jops.panel_update(acc, lp, up))
+        acc_off, m, n = int(rec[0]), int(rec[3]), int(rec[4])
+        out = got[acc_off:acc_off + m * n].numpy().reshape(m, n)
+        assert np.abs(out - want).max() <= _pu_tol(lp, up)
+
+
+@pytest.mark.parametrize("m,n,k", MAPPED_SHAPES + [(1, 200, 3), (64, 1, 17)])
+def test_mapped_tiles_cover_each_output_once(m, n, k):
+    """The tile records of a slice cover its (M, N) outputs exactly once,
+    with tiles the kernel takes: TC a power of two in the kind's range,
+    ``PANEL_THREADS // TC`` rows, BK 16 up to K = 16 and 32 beyond."""
+    tiles = ops.mapped_tiles([(100, 7, 3, m, n, k)])
+    seen = np.zeros((m, n), dtype=int)
+    for *head, m0, n0, tc, bk in tiles.tolist():
+        assert head == [100, 7, 3, m, n, k]
+        assert tc & (tc - 1) == 0 and bk == (32 if k > 16 else 16)
+        assert 4 <= tc <= (32 if bk == 32 else 64)
+        seen[m0:m0 + ops.PANEL_THREADS // tc, n0:n0 + tc] += 1
+    assert (seen == 1).all()
+
+
 def test_dispatch_rules_on_the_cpu():
     """CPU tensors take the plain version and count no launch; other devices
     raise instead of falling back."""
@@ -148,3 +189,27 @@ def test_dispatch_rules_on_the_cpu():
     with pytest.raises(ValueError, match="cuda"):
         ops.minmax_relax(torch.as_tensor(prop, device="meta"),
                          torch.as_tensor(adj, device="meta"))
+    flat, u, lmap, tiles = (torch.as_tensor(x) for x in _mapped_inputs(
+        [(4, 2, 3)], seed=1))
+    with pytest.raises(ValueError, match="cuda"):
+        ops.panel_update_mapped(flat.to("meta"), u.to("meta"),
+                                lmap.to("meta"), tiles.to("meta"))
+
+
+def test_launch_signatures_match_the_sources():
+    """Every ctypes signature in ``_build.SIGNATURES`` names a function its
+    source exports with as many parameters, pointers (or a stream) where
+    the source has them (a wrong count only shows on the card)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    for name, (source, symbol, argtypes) in _build.SIGNATURES.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        decl = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+        assert decl, f"{source}.cu does not export {symbol}"
+        params = [p.strip() for p in decl.group(1).split(",")]
+        assert len(params) == len(argtypes), (name, params)
+        for p, t in zip(params, argtypes):
+            pointer = "*" in p or p.startswith("cudaStream_t")
+            assert pointer == (t is ctypes.c_void_p), (name, p, t)

@@ -11,6 +11,9 @@ import repro
 import repro_torch
 from repro.sparse import matrices as M
 from repro.sparse.numeric import generic_values_csr, lu_nopivot
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import plain as kplain
+from repro_torch.numeric.storage import RowGather
 from repro_torch.sparse.csr import CSRMatrix
 
 # tiny shapes, several pytest workers: one intra-op thread each keeps
@@ -164,3 +167,111 @@ def test_refinement_accepts_only_improvements():
     assert res.residuals[0] > 1e-10 >= res.residual
     assert res.refine_accepted >= 1
     assert all(x >= y for x, y in zip(res.residuals, res.residuals[1:]))
+
+
+def _update_tables(gen, backend="numpy"):
+    """(plan, factored CPU store, update tables) of one generator."""
+    a, _, port = plans(gen, numeric_backend=backend)
+    store = port.factorize(generic_values_csr(a)).store
+    return port, store, port._device_state(torch.device("cpu"))[2]
+
+
+def _slices(tiles):
+    """Tile records that stand for whole slices (m0 = n0 = 0)."""
+    t = tiles.numpy()
+    return t[(t[:, 6] == 0) & (t[:, 7] == 0)]
+
+
+@pytest.mark.parametrize("gen", ["bbd", "grid2d"])
+def test_update_map_reads_the_gathered_l(gen):
+    """For every panel with a trailing update, L read through ``lmap`` is
+    bitwise the concatenated below-row gathers of its ancestors."""
+    port, store, upd = _update_tables(gen)
+    sched = port.schedule
+    n_slices = 0
+    for j, pm in enumerate(port.gather_maps):
+        if pm is None:
+            assert tuple(upd.panel_tiles[j]) == (0, 0)
+            continue
+        lo, hi = upd.panel_tiles[j]
+        acc_off, map_off, _, m, n, k = upd.tiles[lo, :6].tolist()
+        d = int(store.diag[j])
+        assert acc_off == store.offsets[j] + d * n
+        assert (m, n, k) == (len(store.rows[j]) - d,
+                             int(np.diff(sched.supernodes[j])[0]),
+                             len(pm.anc_rows))
+        want = torch.cat([store.gather_rows_mapped(
+            int(anc), RowGather.build(idx, hit, "cpu"))
+            for anc, (idx, hit) in zip(sched.ancestors[j], pm.below_maps)],
+            dim=1)
+        lm = upd.lmap[map_off:map_off + m * k].view(m, k).long()
+        got = torch.where(lm >= 0, store.flat[lm.clamp(min=0)], 0.0)
+        assert torch.equal(got, want)
+        n_slices += 1
+    assert n_slices == len(_slices(upd.tiles)) > 0
+
+
+@pytest.mark.parametrize("gen", ["bbd", "grid2d"])
+@pytest.mark.parametrize("f32", [False, True])
+def test_mapped_plain_update_is_the_gathered_update(gen, f32):
+    """The plain mapped update of a level in place is, slice by slice,
+    bitwise ``panel_update_plain`` on the gathered operands (float32 mode:
+    on ``.float()`` operands, widened)."""
+    port, store, upd = _update_tables(gen)
+    rng = np.random.default_rng(3)
+    for li in range(port.schedule.n_levels):
+        lo, hi = int(upd.level_tiles[li]), int(upd.level_tiles[li + 1])
+        if lo == hi:
+            continue
+        tiles = upd.tiles[lo:hi]
+        recs = _slices(tiles)
+        u_len = int((recs[:, 5] * recs[:, 4]).sum())
+        u = torch.as_tensor(rng.standard_normal(u_len))
+        flat = store.flat.clone()
+        kplain.panel_update_mapped_plain(flat, u, upd.lmap, tiles, f32=f32)
+        for acc_off, map_off, u_off, m, n, k, *_ in recs.tolist():
+            acc = store.flat[acc_off:acc_off + m * n].view(m, n)
+            lm = upd.lmap[map_off:map_off + m * k].view(m, k).long()
+            lp = torch.where(lm >= 0, store.flat[lm.clamp(min=0)], 0.0)
+            b = u[u_off:u_off + k * n].view(k, n)
+            if f32:
+                want = kplain.panel_update_plain(
+                    acc.float(), lp.float(), b.float()).double()
+            else:
+                want = kplain.panel_update_plain(acc, lp, b)
+            assert torch.equal(flat[acc_off:acc_off + m * n].view(m, n),
+                               want)
+
+
+@pytest.mark.parametrize("gen", ["bbd", "grid2d"])
+@pytest.mark.parametrize("segment_batch", [True, False])
+def test_sweep_calls_mapped_update_per_level(gen, segment_batch,
+                                             monkeypatch):
+    """The sweep makes one mapped update per level with trailing updates
+    under ``segment_batch``, one per such panel without; each call covers
+    exactly the tile records of its level or panel."""
+    a, _, port = plans(gen)
+    upd = port._device_state(torch.device("cpu"))[2]
+    calls = []
+    real = kops.panel_update_mapped
+
+    def spy(flat, u, lmap, tiles, **kw):
+        calls.append(tiles[:, 0].tolist())
+        return real(flat, u, lmap, tiles, **kw)
+
+    monkeypatch.setattr(kops, "panel_update_mapped", spy)
+    plan = dataclasses.replace(
+        port, options=port.options.replace(segment_batch=segment_batch))
+    plan.factorize(generic_values_csr(a))
+    t = upd.tiles[:, 0].tolist()
+    if segment_batch:
+        want = [t[lo:hi] for lo, hi in zip(upd.level_tiles[:-1],
+                                           upd.level_tiles[1:]) if hi > lo]
+    else:
+        want = [t[lo:hi] for lv in port.schedule.levels for lo, hi in
+                (upd.panel_tiles[j] for j in lv) if hi > lo]
+    assert calls == want
+    levels = sum(any(port.gather_maps[j] is not None for j in lv)
+                 for lv in port.schedule.levels)
+    panels = sum(m is not None for m in port.gather_maps)
+    assert len(calls) == (levels if segment_batch else panels) > 1

@@ -4,19 +4,32 @@ commits on one card in one call.
 
     git archive <parent> | tar -x -C build/parent      # build/ is ignored
     for t in build/parent . . build/parent; do
-        python3 tools/ab_trees.py $t; done
+        python3 tools/ab_trees.py $t [serve] [analyze] [lu]; done
 
-Imports ``repro_torch`` and ``chip_smoke`` from the tree given and runs,
-each after a warm-up: smollm-135m serving 8 x 512 prompt + 32 greedy
-tokens three times (``chip_smoke.serve_run``; median prefill ms and ms
-per decode step), its prefill and one decode step under
-``torch.profiler`` (``chip_smoke.breakdown_serve``: wall, device busy,
-idle share, device calls, top kernels), the host time to enqueue one
-layer's decode attention, and bbd-20k's ``analyze`` under kernel options
-three times (wall s).  Prints one JSON line, then the
-card's name and power limit.  Run the trees in turns (parent, change,
-change, parent): host-bound stages move between calls and within one.
+Imports ``repro_torch`` (and, for ``serve``, ``chip_smoke``) from the tree
+given and runs the sections named (all three by default), each after a
+warm-up:
+
+* ``serve`` — smollm-135m serving 8 x 512 prompt + 32 greedy tokens three
+  times (``chip_smoke.serve_run``; median prefill ms and ms per decode
+  step), its prefill and one decode step under ``torch.profiler``
+  (``chip_smoke.breakdown_serve``: wall, device busy, idle share, device
+  calls, top kernels), the host time to enqueue one layer's decode
+  attention;
+* ``analyze`` — bbd-20k's ``analyze`` under kernel options three times
+  (wall s);
+* ``lu`` — bbd-20k under default and kernel options: the plan's first
+  factorize, three more factorizations and three refactorizations (wall
+  s, each ending in a synchronize), the sha256 of ``store.flat`` after
+  each (one value when they agree), and one more refactorization under
+  ``torch.profiler`` (wall ms, device busy ms, device calls), through the
+  public API only, so it runs on earlier trees too.
+
+Prints one JSON line, then the card's name and power limit.  Run the trees
+in turns (parent, change, change, parent): host-bound stages move between
+calls and within one.
 """
+import hashlib
 import json
 import statistics
 import subprocess
@@ -48,7 +61,50 @@ def decode_attention_host_us(torch, cfg, params, n=300):
     return statistics.median(runs[1:])
 
 
-def main(tree: str) -> int:
+def lu_times(torch, repro_torch, a, opts) -> dict:
+    """bbd-20k's factorize / refactorize wall times under ``opts`` and the
+    factors' sha256."""
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    values = generic_values_csr(a)
+    digests = set()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        factor = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        digests.add(hashlib.sha256(
+            factor.store.flat.cpu().numpy().tobytes()).hexdigest())
+        return factor, dt
+
+    plan = repro_torch.analyze(a, opts)
+    factor, first = timed(lambda: plan.factorize(values))
+    out = {"first_factorize_s": first, "factorize_s": [],
+           "refactorize_s": []}
+    for _ in range(3):
+        factor, dt = timed(lambda: plan.factorize(values))
+        out["factorize_s"].append(dt)
+    for _ in range(3):
+        factor, dt = timed(lambda: factor.refactorize(values))
+        out["refactorize_s"].append(dt)
+    out["flat_sha256"] = sorted(digests)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        factor, dt = timed(lambda: factor.refactorize(values))
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
+    out["profiled_refactorize"] = {
+        "wall_ms": dt * 1e3,
+        "device_busy_ms": sum(ev.device_time_total for ev in evs) / 1e3,
+        "device_calls": sum(ev.count for ev in evs)}
+    return out
+
+
+def main(tree: str, sections=("serve", "analyze", "lu")) -> int:
     tree = str(Path(tree).resolve())
     sys.path[:0] = [tree + "/src", tree]
     import torch
@@ -56,14 +112,44 @@ def main(tree: str) -> int:
     if not torch.cuda.is_available():
         print("ab_trees: needs a CUDA card", file=sys.stderr)
         return 2
-    import chip_smoke
     import repro_torch
     from repro_torch import sparse
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
 
     _build.build()
     out = {"tree": tree}
+    a = sparse.bordered_block_diagonal(20_000, block=16, border=64, seed=3)
+    kopts = repro_torch.LUOptions(concurrency=512, backend="kernel",
+                                  numeric_backend="kernel")
+    if "lu" in sections:
+        for tag, opts in (("default", repro_torch.LUOptions(
+                concurrency=512)), ("kernel", kopts)):
+            out[f"lu_{tag}"] = lu_times(torch, repro_torch, a, opts)
+    if "serve" in sections:
+        out.update(serve_sample(torch))
+    if "analyze" in sections:
+        repro_torch.analyze(a, kopts)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            repro_torch.analyze(a, kopts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["kernel_analyze_s"] = times
+    print(json.dumps(out), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    return 0
+
+
+def serve_sample(torch) -> dict:
+    """The ``serve`` section (module docstring)."""
+    import chip_smoke
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+
+    out = {}
     cfg = get_config("smollm-135m")
     runs = []
     for _ in range(3):
@@ -80,23 +166,9 @@ def main(tree: str) -> int:
                                   "device_calls", "top")}
         for stage, v in bd.items()}
     del params
-    a = sparse.bordered_block_diagonal(20_000, block=16, border=64, seed=3)
-    opts = repro_torch.LUOptions(concurrency=512, backend="kernel",
-                                 numeric_backend="kernel")
-    repro_torch.analyze(a, opts)
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        repro_torch.analyze(a, opts)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    out["kernel_analyze_s"] = times
-    print(json.dumps(out), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    return 0
+    return out
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], tuple(sys.argv[2:]) or ("serve", "analyze",
+                                                      "lu")))

@@ -3,7 +3,7 @@
 in one process on one card.
 
     python3 tools/kernel_variants.py            # every experiment
-    python3 tools/kernel_variants.py k5         # K5's only (or k1)
+    python3 tools/kernel_variants.py k5         # K5's only (or k1, k34)
 
 Each variant is the committed source in ``src/repro_torch/kernels/csrc/``
 with the text replacements of its entry in ``EXPERIMENTS`` applied.  A
@@ -15,8 +15,12 @@ compiled with the port's ``nvcc`` flags into ``build/variants/``
 device alone (calls queued behind a spin kernel, as ``chip_smoke.py``'s
 ``device_ms``): K1 on the bbd-20k adjacency (the kernel path's shape) and
 on a random 1 % 4096^2 one, K5 at the standing prefill shape
-(8, 16, 512, 512, 64) and at smollm-135m's grouped prefill.  Prints one
-JSON line per variant, then the card's name and power limit.
+(8, 16, 512, 512, 64) and at smollm-135m's grouped prefill, K3/K4 (k34)
+mapped over each of bbd-20k's four largest levels in float64 and float32
+and dense at K4 float64's (243, 8, 1, 1) and K3 float64's (8, 1, 1).  A
+K3/K4 variant that changes the tile kinds names its rule in ``RULES``;
+the tile records are rebuilt with it.  Prints one JSON line per variant,
+then the card's name and power limit.
 """
 import ctypes
 import json
@@ -80,8 +84,41 @@ EXPERIMENTS = {
         """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));""")],
+    ("k34", "committed"): [],
+    # up to 128 rows for the small tiles (TC >= 1): 16 staged L loads a
+    # thread, not 4
+    ("k34", "small_rows_128"): [(
+        "constexpr int SMALL_BK = 16, SMALL_TC_MIN = 4,",
+        "constexpr int SMALL_BK = 16, SMALL_TC_MIN = 1,")],
+    # 64-deep chunks for the large tiles: 16 + 16 staged loads, not 8 + 8
+    ("k34", "large_bk_64"): [(
+        "constexpr int LARGE_BK = 32,", "constexpr int LARGE_BK = 64,")],
+    # both: the tiles of this kernel's first version on the card
+    ("k34", "small_rows_128_large_bk_64"): [
+        ("constexpr int SMALL_BK = 16, SMALL_TC_MIN = 4,",
+         "constexpr int SMALL_BK = 16, SMALL_TC_MIN = 1,"),
+        ("constexpr int LARGE_BK = 32,", "constexpr int LARGE_BK = 64,")],
+    # the mapped kernel held to 4 or 8 resident blocks per SM
+    ("k34", "bounds_4"): [(
+        "__global__ void __launch_bounds__(THREADS)\n"
+        "panel_update_mapped_kernel",
+        "__global__ void __launch_bounds__(THREADS, 4)\n"
+        "panel_update_mapped_kernel")],
+    ("k34", "bounds_8"): [(
+        "__global__ void __launch_bounds__(THREADS)\n"
+        "panel_update_mapped_kernel",
+        "__global__ void __launch_bounds__(THREADS, 8)\n"
+        "panel_update_mapped_kernel")],
 }
-SOURCE = {"k1": "minmax_relax", "k5": "flash_attention"}
+SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
+          "k34": "panel_update"}
+# K3/K4 variants' tile kinds, ((small TC range, BK), (large TC range, BK)),
+# where they differ from ops.panel_tile's
+RULES = {
+    ("k34", "small_rows_128"): (((1, 64), 16), ((4, 32), 32)),
+    ("k34", "large_bk_64"): (((4, 64), 16), ((4, 32), 64)),
+    ("k34", "small_rows_128_large_bk_64"): (((1, 64), 16), ((4, 32), 64)),
+}
 
 
 def build(todo):
@@ -108,18 +145,46 @@ def build(todo):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{key} did not build:\n{log}")
+        so.with_suffix(".log").write_text(log)    # the -Xptxas -v report
         libs[key] = so
     return libs
 
 
 def swap_in(kern, so):
+    """Every launcher of the kernel's source from library ``so``."""
     from repro_torch.kernels import _build
 
-    symbol, argtypes = _build.SIGNATURES[SOURCE[kern]]
-    fn = getattr(ctypes.CDLL(str(so)), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    _build._FUNCS[SOURCE[kern]] = fn
+    lib = ctypes.CDLL(str(so))
+    for name, (source, symbol, argtypes) in _build.SIGNATURES.items():
+        if source == SOURCE[kern]:
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _build._FUNCS[name] = fn
+
+
+def use_rule(ops, rule):
+    """Point ``ops._tile_shapes`` at a variant's tile kinds (None: the
+    committed ones)."""
+    import numpy as np
+
+    if not hasattr(ops, "_committed_tile_shapes"):
+        ops._committed_tile_shapes = ops._tile_shapes
+    if rule is None:
+        ops._tile_shapes = ops._committed_tile_shapes
+        return
+    ((s_lo, s_hi), s_bk), ((l_lo, l_hi), l_bk) = rule
+
+    def shapes(n, k):
+        large = k > 16
+        tc = np.ones_like(n)
+        while (tc < n).any():
+            tc = np.where(tc < n, 2 * tc, tc)
+        return (np.clip(tc, np.where(large, l_lo, s_lo),
+                        np.where(large, l_hi, s_hi)),
+                np.where(large, l_bk, s_bk))
+
+    ops._tile_shapes = shapes
 
 
 def device_ms(torch, fn, n=20, reps=3):
@@ -175,6 +240,71 @@ def k5_cases(torch, np, rng):
     return out
 
 
+def k34_cases(torch, np, rng):
+    """{tag: (fn(), check())}: the mapped update over each of bbd-20k's four
+    largest levels (float64 and float32, tile records rebuilt at each call
+    of ``prepare``) on a store of its factors with random U rows, and dense
+    K4 / K3 float64 at the sweep's commonest shapes; ``check`` says whether
+    the kernel matched its plain version (dense: K4 bitwise K3 per slice;
+    mapped: within 1e-14 / 2e-6 x K x max|L| x max|U|)."""
+    import repro_torch
+    from repro_torch import sparse
+    from repro_torch.kernels import ops, plain
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = sparse.bordered_block_diagonal(20_000, block=16, border=64, seed=3)
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(concurrency=512))
+    flat = plan.factorize(generic_values_csr(a)).store.flat
+    upd = plan._device_state(torch.device("cuda"))[2]
+    bounds = [int(x) for x in upd.level_tiles]
+    t_all = upd.tiles.cpu().numpy()
+    levels = []
+    for li, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        t = t_all[lo:hi]
+        levels.append((int(((t[:, 6] == 0) & (t[:, 7] == 0)).sum()), li,
+                       t[(t[:, 6] == 0) & (t[:, 7] == 0), :6]))
+    cases = {}
+    for _, li, recs in sorted(levels, reverse=True)[:4]:
+        u = torch.as_tensor(rng.standard_normal(
+            int((recs[:, 4] * recs[:, 5]).sum())), device="cuda")
+        for f32 in (False, True):
+            def make(recs=recs, u=u, f32=f32):
+                tiles = torch.as_tensor(ops.mapped_tiles(recs), device="cuda")
+                work = flat.clone()
+
+                def check():
+                    got, want = flat.clone(), flat.clone()
+                    ops.panel_update_mapped(got, u, upd.lmap, tiles, f32=f32)
+                    plain.panel_update_mapped_plain(want, u, upd.lmap, tiles,
+                                                    f32=f32)
+                    tol = ((2e-6 if f32 else 1e-14) * int(recs[:, 5].max())
+                           * float(flat.abs().max()) * float(u.abs().max()))
+                    return float((got - want).abs().max()) <= tol
+
+                return (lambda: ops.panel_update_mapped(
+                    work, u, upd.lmap, tiles, f32=f32)), check
+            cases[f"mapped_level{li}_{'f32' if f32 else 'f64'}"] = make
+    for tag, (b, m, k, n) in {"dense_k4_243x8x1x1": (243, 8, 1, 1),
+                              "dense_k3_8x1x1": (1, 8, 1, 1)}.items():
+        acc, lp, up = (torch.as_tensor(rng.standard_normal(sh),
+                                       device="cuda")
+                       for sh in ((b, m, n), (b, m, k), (b, k, n)))
+
+        def make(acc=acc, lp=lp, up=up, b=b):
+            if b == 1:
+                return ((lambda: ops.panel_update(acc[0], lp[0], up[0])),
+                        lambda: True)
+            return ((lambda: ops.panel_update_batched(acc, lp, up)),
+                    lambda: all(torch.equal(
+                        ops.panel_update_batched(acc, lp, up)[i],
+                        ops.panel_update(acc[i], lp[i], up[i]))
+                        for i in range(b)))
+        cases[tag] = make
+    cases["empty_243_blocks"] = lambda: (
+        (lambda: ops.panel_update_empty(243, "cuda")), lambda: True)
+    return cases
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -184,16 +314,26 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    kernels = argv or ["k1", "k5"]
+    kernels = argv or ["k1", "k5", "k34"]
     todo = [key for key in EXPERIMENTS if key[0] in kernels]
     libs = build(todo)
     rng = np.random.default_rng(0)
     cases = {"k1": k1_cases(torch, np, rng) if "k1" in kernels else {},
-             "k5": k5_cases(torch, np, rng) if "k5" in kernels else {}}
+             "k5": k5_cases(torch, np, rng) if "k5" in kernels else {},
+             "k34": k34_cases(torch, np, rng) if "k34" in kernels else {}}
     for key in todo:
         kern, name = key
         swap_in(kern, libs[key])
         line = {"kernel": kern, "variant": name}
+        if kern == "k34":
+            use_rule(ops, RULES.get(key))
+            for tag, make in cases["k34"].items():
+                fn, check = make()
+                line[tag] = {"ms": device_ms(torch, fn),
+                             "matches_plain": bool(check())}
+            use_rule(ops, None)
+            print(json.dumps(line), flush=True)
+            continue
         for tag, (args, want) in cases[kern].items():
             if kern == "k1":
                 fn = lambda: ops.minmax_relax(*args)
