@@ -166,7 +166,12 @@ class UpdateMaps:
     * ``level_tiles`` — (n_levels + 1,) bounds of each level's records;
     * ``panel_tiles`` — (n_panels, 2) bounds of each panel's records
       ((0, 0) for a panel without ancestors); ``u_off`` — (n_panels,) each
-      panel's U offset in its level's buffer.
+      panel's U offset in its level's buffer;
+    * ``batched`` — (n_levels, 4) int64 ``gemm.batched.{calls, panels,
+      flops, bytes}`` of each level under segment batching, in the
+      reference's meaning: its slices grouped by (m, k, w), one call per
+      group of more than one slice, ``2·len·m·k·w`` flops and
+      ``8·len·(m·k + k·w + 2·m·w)`` bytes each.
 
     Offsets, never pointers: a factorization on a fresh store of the same
     structure reuses the tables.  Value-independent, so built once per
@@ -177,6 +182,7 @@ class UpdateMaps:
     level_tiles: np.ndarray
     panel_tiles: np.ndarray
     u_off: np.ndarray
+    batched: np.ndarray
 
     def to(self, device) -> "UpdateMaps":
         """The same tables with ``lmap`` and ``tiles`` on ``device``."""
@@ -198,9 +204,11 @@ def build_update_maps(store, schedule: PanelSchedule,
     lmaps, slices = [], []
     level_slices = [0]
     u_off = np.zeros(schedule.n_panels, dtype=np.int64)
+    batched = np.zeros((schedule.n_levels, 4), dtype=np.int64)
     map_off = u_max = 0
-    for level in schedule.levels:
+    for li, level in enumerate(schedule.levels):
         u_level = 0
+        groups: dict = {}
         for j in level:
             pm = maps[j]
             if pm is None:
@@ -220,6 +228,11 @@ def build_update_maps(store, schedule: PanelSchedule,
             u_off[j] = u_level
             map_off += m * k
             u_level += k * n
+            groups[m, k, n] = groups.get((m, k, n), 0) + 1
+        for (m, k, n), cnt in groups.items():
+            if cnt > 1:
+                batched[li] += (1, cnt, 2 * cnt * m * k * n,
+                                8 * cnt * (m * k + k * n + 2 * m * n))
         level_slices.append(len(slices))
         u_max = max(u_max, u_level)
     if map_off >= 2 ** 31 or u_max >= 2 ** 31:
@@ -237,7 +250,7 @@ def build_update_maps(store, schedule: PanelSchedule,
             else np.zeros(0, dtype=np.int32))
     return UpdateMaps(lmap=lmap, tiles=tiles,
                       level_tiles=ptr[np.asarray(level_slices)],
-                      panel_tiles=panel_tiles, u_off=u_off)
+                      panel_tiles=panel_tiles, u_off=u_off, batched=batched)
 
 
 def _validate_supernodes(supernodes: np.ndarray, n: int) -> np.ndarray:

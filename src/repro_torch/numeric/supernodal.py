@@ -161,18 +161,13 @@ def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
 
 
 def _trailing_update(store: PanelStore, upd: UpdateMaps, lo: int, hi: int,
-                     u: torch.Tensor, backend: str, n_panels: int,
-                     u_shift: int = 0) -> None:
-    """``acc -= L @ U`` in place for the ``n_panels`` slices of tile
-    records [lo, hi): the mapped panel update (K3/K4), L read in place
-    through ``upd.lmap``, in float64, or in float32 on the kernel backend.
-    On the CPU its plain version, slice by slice."""
+                     u: torch.Tensor, backend: str, u_shift: int = 0) -> None:
+    """``acc -= L @ U`` in place for the slices of tile records [lo, hi):
+    the mapped panel update (K3/K4), L read in place through ``upd.lmap``,
+    in float64, or in float32 on the kernel backend.  On the CPU its plain
+    version, slice by slice."""
     kops.panel_update_mapped(store.flat, u, upd.lmap, upd.tiles[lo:hi],
                              u_shift=u_shift, f32=backend == "kernel")
-    if _ot.ENABLED:
-        reg = _om.registry()
-        reg.count("gemm.batched.calls", 1)
-        reg.count("gemm.batched.panels", n_panels)
 
 
 def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
@@ -184,7 +179,7 @@ def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
     b, dropped, flops = _panel_prepare(store, schedule, j, maps)
     if b is not None:
         lo, hi = (int(x) for x in upd.panel_tiles[j])
-        _trailing_update(store, upd, lo, hi, b.reshape(-1), backend, 1,
+        _trailing_update(store, upd, lo, hi, b.reshape(-1), backend,
                          u_shift=int(upd.u_off[j]))
     _panel_finish(store, schedule, j)
     return len(schedule.ancestors[j]), flops, dropped
@@ -218,7 +213,16 @@ def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
     if bs:
         _trailing_update(store, upd, int(upd.level_tiles[li]),
                          int(upd.level_tiles[li + 1]), torch.cat(bs),
-                         backend, len(bs))
+                         backend)
+    if _ot.ENABLED and upd.batched[li, 0]:
+        # the reference's stacked same-shape groups of this level (static
+        # per plan, tallied in ``UpdateMaps.batched``)
+        calls, panels, flops, nbytes = (int(x) for x in upd.batched[li])
+        reg = _om.registry()
+        reg.count("gemm.batched.calls", calls)
+        reg.count("gemm.batched.panels", panels)
+        reg.count("gemm.batched.flops", flops)
+        reg.count("gemm.batched.bytes", nbytes)
     for j in seg:
         _panel_finish(store, schedule, int(j))
     return out

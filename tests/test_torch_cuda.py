@@ -432,11 +432,14 @@ def _scan_err(got, want):
 
 
 # K7 at rwkv6-7b's serve shapes (8 requests, 64 heads of 64; prefill 512,
-# decode 1) and at the reduced configurations' head size 16 with ragged L
+# decode 1), at the reduced configurations' head size 16 with ragged L, and
+# at the edges of its layout: L one past and one short of a 32-step tile,
+# one (b, h) block, K = 16 with an odd head count
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,k,zero", [
     (8, 512, 64, 64, True), (8, 1, 64, 64, False), (2, 77, 3, 64, False),
-    (2, 45, 4, 16, False), (1, 1, 4, 16, True)])
+    (2, 45, 4, 16, False), (1, 1, 4, 16, True), (2, 33, 3, 64, False),
+    (2, 31, 2, 64, True), (1, 40, 1, 64, False), (2, 33, 3, 16, False)])
 def test_rwkv6_scan_kernel_matches_plain(cuda, b, l, h, k, zero):
     args = _rwkv6_inputs(b, l, h, k, seed=l + h + k, device=cuda,
                          zero_state=zero)
@@ -452,11 +455,14 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, b, l, h, k, zero):
 
 
 # K6 at the jamba period's serve shapes (8 requests, di = 16384, N = 16;
-# prefill 512, decode 1) and at the reduced configurations' N = 4
+# prefill 512, decode 1), at the reduced configurations' N = 4, and with a
+# partial last block of channels (di = 300, 130) at N = 4 and 16
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,di,n,zero", [
     (8, 512, 16384, 16, True), (8, 1, 16384, 16, False),
-    (2, 77, 300, 16, False), (2, 45, 128, 4, False), (1, 1, 128, 4, True)])
+    (2, 77, 300, 16, False), (2, 45, 128, 4, False), (1, 1, 128, 4, True),
+    (2, 17, 300, 4, False), (2, 17, 130, 4, False),
+    (3, 33, 130, 16, True)])
 def test_mamba_scan_kernel_matches_plain(cuda, b, l, di, n, zero):
     args = _mamba_inputs(b, l, di, n, seed=l + di + n, device=cuda,
                          zero_state=zero)
@@ -468,6 +474,57 @@ def test_mamba_scan_kernel_matches_plain(cuda, b, l, di, n, zero):
     torch.cuda.synchronize()
     assert got[0].shape == (b, l, di) and got[1].shape == (b, di, n)
     assert torch.equal(args[-1], state)
+    assert _scan_err(got, want) <= 1e-4
+
+
+# one call over L steps against L - 1 steps and then one decode step from
+# the state they returned
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("rwkv6", (2, 40, 3, 64)), ("rwkv6", (2, 33, 3, 16)),
+    ("mamba", (2, 40, 300, 16)), ("mamba", (2, 33, 130, 4))])
+def test_scan_kernels_chain_prefill_and_decode(cuda, kernel, shape):
+    inputs, scan = ((_rwkv6_inputs, ops.rwkv6_scan) if kernel == "rwkv6"
+                    else (_mamba_inputs, ops.mamba_scan))
+    args = inputs(*shape, seed=7, device=cuda)
+    seqs, fixed = args[:4], args[4:-1]     # (B, L, ...) inputs, the weights
+    whole, s_whole = scan(*args)
+    head, s_head = scan(*(x[:, :-1].contiguous() for x in seqs), *fixed,
+                        args[-1])
+    last, s_last = scan(*(x[:, -1:].contiguous() for x in seqs), *fixed,
+                        s_head)
+    torch.cuda.synchronize()
+    assert _scan_err((torch.cat([head, last], 1), s_last),
+                     (whole, s_whole)) <= 1e-4
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer, as a slice of a fused
+    projection would be)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# the sequences as views that are not 16-byte aligned: the kernels copy
+# them 4 bytes at a time
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("rwkv6", (2, 37, 3, 64)), ("rwkv6", (2, 20, 3, 16)),
+    ("mamba", (2, 37, 300, 16)), ("mamba", (2, 20, 128, 4))])
+def test_scan_kernels_take_unaligned_views(cuda, kernel, shape):
+    inputs, scan, ref = (
+        (_rwkv6_inputs, ops.rwkv6_scan, plain.rwkv6_scan_plain)
+        if kernel == "rwkv6" else
+        (_mamba_inputs, ops.mamba_scan, plain.mamba_scan_plain))
+    args = inputs(*shape, seed=11, device=cuda)
+    args = tuple(_unaligned(x) for x in args[:4]) + args[4:]
+    got = scan(*args)
+    want = ref(*args)
+    torch.cuda.synchronize()
     assert _scan_err(got, want) <= 1e-4
 
 

@@ -275,3 +275,45 @@ def test_sweep_calls_mapped_update_per_level(gen, segment_batch,
                  for lv in port.schedule.levels)
     panels = sum(m is not None for m in port.gather_maps)
     assert len(calls) == (levels if segment_batch else panels) > 1
+
+
+@pytest.mark.parametrize("segment_batch", [True, False])
+def test_batched_gemm_counters_match_reference(segment_batch):
+    """``gemm.batched.{calls, panels, flops, bytes}`` under tracing equal
+    the reference's: its stacked same-shape groups of more than one panel
+    with segment batching on, nothing with it off."""
+    from repro.obs import metrics as ref_metrics
+    from repro.obs import trace as ref_trace
+    from repro_torch.obs import metrics as port_metrics
+    from repro_torch.obs import trace as port_trace
+
+    a = M.bordered_block_diagonal(320, block=16, border=32, seed=6)
+    kw = dict(concurrency=48, supernode_relax=2, segment_batch=segment_batch)
+    ref = repro.analyze(a, repro.LUOptions(backend="dense", **kw))
+    port = repro_torch.analyze(to_port(a), repro_torch.LUOptions(**kw),
+                               device="cpu")
+    values = generic_values_csr(a)
+    got = {}
+    for name, plan, trace, metrics in (
+            ("ref", ref, ref_trace, ref_metrics),
+            ("port", port, port_trace, port_metrics)):
+        trace.disable()
+        metrics.registry().reset()
+        try:
+            trace.enable()
+            plan.factorize(values)
+            got[name] = {key: value for key, value in
+                         metrics.registry().snapshot()["counters"].items()
+                         if key.startswith("gemm.batched.")}
+        finally:
+            trace.disable()
+            metrics.registry().reset()
+    keys = {f"gemm.batched.{k}" for k in ("calls", "panels", "flops",
+                                          "bytes")}
+    assert got["port"] == got["ref"]
+    if segment_batch:
+        assert set(got["port"]) == keys
+        assert (got["port"]["gemm.batched.panels"]
+                > got["port"]["gemm.batched.calls"] >= 1)
+    else:
+        assert got["port"] == {}

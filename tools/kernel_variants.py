@@ -3,24 +3,29 @@
 in one process on one card.
 
     python3 tools/kernel_variants.py            # every experiment
-    python3 tools/kernel_variants.py k5         # K5's only (or k1, k34)
+    python3 tools/kernel_variants.py k5         # K5's only (or k1, k34, k6,
+                                                # k7, or several)
 
 Each variant is the committed source in ``src/repro_torch/kernels/csrc/``
-with the text replacements of its entry in ``EXPERIMENTS`` applied.  A
-variant is a measurement, not a fix: some compute wrong results on
-purpose (to find what a part of a kernel costs), and the script reports
-whether each one still matches the plain version.  The variants are
-compiled with the port's ``nvcc`` flags into ``build/variants/``
+with the text replacements of its entry in ``EXPERIMENTS`` applied, or a
+whole earlier source kept under ``tools/variant_sources/`` (an entry that
+names a file).  A variant is a measurement, not a fix: some compute wrong
+results on purpose (to find what a part of a kernel costs), and the script
+reports whether each one still matches the plain version.  The variants
+are compiled with the port's ``nvcc`` flags into ``build/variants/``
 (gitignored), swapped in for the committed library, and timed on the
 device alone (calls queued behind a spin kernel, as ``chip_smoke.py``'s
 ``device_ms``): K1 on the bbd-20k adjacency (the kernel path's shape) and
 on a random 1 % 4096^2 one, K5 at the standing prefill shape
 (8, 16, 512, 512, 64) and at smollm-135m's grouped prefill, K3/K4 (k34)
 mapped over each of bbd-20k's four largest levels in float64 and float32
-and dense at K4 float64's (243, 8, 1, 1) and K3 float64's (8, 1, 1).  A
-K3/K4 variant that changes the tile kinds names its rule in ``RULES``;
-the tile records are rebuilt with it.  Prints one JSON line per variant,
-then the card's name and power limit.
+and dense at K4 float64's (243, 8, 1, 1) and K3 float64's (8, 1, 1), K6
+and K7 at ``chip_smoke.py``'s prefill shapes (zero state) and decode
+shapes (a state), held to its ``SCAN_TOL`` on the output and the final
+state.  A K3/K4 variant that changes the tile kinds names its rule in
+``RULES``; the tile records are rebuilt with it.  Prints one JSON line per
+variant (or its build log, when it does not build), then the card's name
+and power limit.
 """
 import ctypes
 import json
@@ -109,9 +114,129 @@ EXPERIMENTS = {
         "panel_update_mapped_kernel",
         "__global__ void __launch_bounds__(THREADS, 8)\n"
         "panel_update_mapped_kernel")],
+    ("k6", "committed"): [],
+    # the kernel before its redesign: one thread per channel, x and dt
+    # loaded 16 steps ahead into registers, the accurate expf, scalar B_t /
+    # C_t reads, each thread's state row and A row read and written
+    # straight from device memory
+    ("k6", "first_version"): "mamba_scan_state_per_thread.cu",
+    # one channel a thread: every B_t / C_t float read from shared memory
+    # serves one element, not two
+    ("k6", "one_channel_per_thread"): [
+        ("constexpr int CH = 2; ", "constexpr int CH = 1; ")],
+    # no exponential (wrong results): what the EX2s cost
+    ("k6", "no_exp"): [(
+        'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")],
+    # the accurate expf of the unscaled argument in place of one EX2
+    ("k6", "accurate_expf"): [
+        ("an[c][n] = sa[row * HP + n] * LOG2E;",
+         "an[c][n] = sa[row * HP + n];"),
+        ('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+         "y = expf(x);")],
+    # B_t and C_t read as 4 scalars (volatile: no merged load)
+    ("k6", "scalar_shared_reads"): [(
+        "  return *reinterpret_cast<const float4*>(p);",
+        "  const volatile float* q = p;\n"
+        "  return make_float4(q[0], q[1], q[2], q[3]);")],
+    # each thread's state rows and A rows straight from device memory
+    ("k6", "state_per_thread"): [
+        ("""  for (int e = threadIdx.x; e < BLOCK * N; e += THREADS) {
+    const bool on = e < nlive;
+    sh[(e / N) * HP + e % N] = on ? h_in[hoff + e] : 0.f;
+    sa[(e / N) * HP + e % N] = on ? a[(size_t)d0 * N + e] : 0.f;
+  }
+  __syncthreads();
+""", ""),
+        ("""      h[c][n] = sh[row * HP + n];
+      an[c][n] = sa[row * HP + n] * LOG2E;""",
+         """      h[c][n] = live[c] ? h_in[hoff + row * N + n] : 0.f;
+      an[c][n] = live[c] ? a[(size_t)(d0 + row) * N + n] * LOG2E : 0.f;"""),
+        ("""      sh[(threadIdx.x + THREADS * c) * HP + n] = h[c][n];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nlive; e += THREADS) {
+    h_out[hoff + e] = sh[(e / N) * HP + e % N];
+  }""", """      if (live[c]) {
+        h_out[hoff + (threadIdx.x + THREADS * c) * N + n] = h[c][n];
+      }
+    }
+  }""")],
+    # y not stored, or x, dt, B_t, C_t not copied (wrong results): what
+    # the stores and the copies cost
+    ("k6", "no_y_stores"): [("        if (live[c]) {\n          y[xb",
+                             "        if (acc[c] == 1.2345f) {\n          y[xb")],
+    ("k6", "no_copies"): [("        if (t0 + tt < L && j4 < live_ch) {",
+                           "        if (t0 + tt < 0 && j4 < live_ch) {")],
+    # x and dt copied 4 bytes at a time, not 16
+    ("k6", "copies_4_bytes"): [(
+        "const bool wide = aligned16(x, dt) && DI % 4 == 0;",
+        "const bool wide = false;")],
+    # each tile copied only when it is needed, not under the one before
+    ("k6", "no_prefetch"): [(
+        """    if (tile + 1 < tiles) {  // the next tile streams in under this one
+      stage(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }""", """    if (tile > 0) stage(tile);
+    cp_async_wait<0>();""")],
+    ("k7", "committed"): [],
+    # the kernel before its redesign: one thread per value column, the
+    # bonus term inside every (i, j), scalar shared reads
+    ("k7", "first_version"): "rwkv6_scan_column_per_thread.cu",
+    # keys split in 4 groups, one column per thread (256 threads a head),
+    # r, k, w as float4: every (i, j) pair still takes 3 shared floats
+    ("k7", "one_column_per_thread"): "rwkv6_scan_one_column_per_thread.cu",
+    # 8 key groups x 8 columns a thread in place of 4 x 4 (K = 64 only:
+    # the K = 16 instance would have 2 keys a thread)
+    ("k7", "groups_8_columns_8"): [
+        ("constexpr int G = 4;", "constexpr int G = 8;"),
+        ("constexpr int J = 4;", "constexpr int J = 8;"),
+        ("""    case 16:
+      return launch<16>(r, k, v, w, u, s_in, o, s_out, B, L, H, stream);
+""", "")],
+    # one step at a time, not two in flight
+    ("k7", "no_unroll"): [(
+        "#pragma unroll 2\n"
+        "    for (int tt = 0; tt < n; ++tt) {  // n is uniform across the block",
+        "    for (int tt = 0; tt < n; ++tt) {  // n is uniform across the block")],
+    # r, k, v, w copied 4 bytes at a time, not 16
+    ("k7", "copies_4_bytes"): [(
+        "const bool wide = aligned16(r, k, v, w);",
+        "const bool wide = false;")],
+    # r, k and w read as 4 scalars (volatile: no merged load)
+    ("k7", "scalar_shared_reads"): [(
+        "  return *reinterpret_cast<const float4*>(p);",
+        "  const volatile float* q = p;\n"
+        "  return make_float4(q[0], q[1], q[2], q[3]);")],
+    # the key groups' rows not padded: the groups' float4 reads share banks
+    ("k7", "unpadded_rows"): [(
+        "constexpr int GROW = KG + 4;", "constexpr int GROW = KG;")],
+    # the exchanges, the bonus sums or the copies left out (wrong
+    # results): what each costs
+    ("k7", "no_exchanges"): [(
+        "acc[c] = keep + __shfl_xor_sync(MASK, send, m);",
+        "acc[c] = keep + send;")],
+    ("k7", "no_bonus_sums"): [(
+        "    for (int tt = tid / G; tt < TT; tt += THREADS / G) {",
+        "    for (int tt = tid / G; tt < 0; tt += THREADS / G) {")],
+    ("k7", "no_copies"): [(
+        "      if (t0 + tt < L) {\n        const size_t off = base",
+        "      if (t0 + tt < 0) {\n        const size_t off = base")],
+    # each tile copied only when it is needed, not under the one before
+    ("k7", "no_prefetch"): [(
+        """    if (tile + 1 < tiles) {  // the next tile streams in under this one
+      stage(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }""", """    if (tile > 0) stage(tile);
+    cp_async_wait<0>();""")],
 }
 SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
-          "k34": "panel_update"}
+          "k34": "panel_update", "k6": "mamba_scan", "k7": "rwkv6_scan"}
+VARIANT_SOURCES = ROOT / "tools" / "variant_sources"
 # K3/K4 variants' tile kinds, ((small TC range, BK), (large TC range, BK)),
 # where they differ from ops.panel_tile's
 RULES = {
@@ -122,15 +247,20 @@ RULES = {
 
 
 def build(todo):
-    """Compile every variant in parallel; {key: library path}."""
+    """Compile every variant in parallel; {key: library path} of those
+    that built (a failed build prints its log and is left out)."""
     from repro_torch.kernels import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for key in todo:
         kern, name = key
-        text = (CSRC / f"{SOURCE[kern]}.cu").read_text()
-        for old, new in EXPERIMENTS[key]:
+        spec = EXPERIMENTS[key]
+        if isinstance(spec, str):
+            text, spec = (VARIANT_SOURCES / spec).read_text(), []
+        else:
+            text = (CSRC / f"{SOURCE[kern]}.cu").read_text()
+        for old, new in spec:
             if old not in text:
                 raise SystemExit(f"{key}: the source no longer has {old!r}")
             text = text.replace(old, new)
@@ -143,8 +273,10 @@ def build(todo):
     libs = {}
     for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{key} did not build:\n{log}")
+        if proc.returncode:     # reported, and the other variants still run
+            print(json.dumps({"kernel": key[0], "variant": key[1],
+                              "build_failed": log[-2000:]}), flush=True)
+            continue
         so.with_suffix(".log").write_text(log)    # the -Xptxas -v report
         libs[key] = so
     return libs
@@ -305,6 +437,24 @@ def k34_cases(torch, np, rng):
     return cases
 
 
+def scan_cases(torch, kern, rng):
+    """{tag: (args, want)} for K6 or K7 at ``chip_smoke.py``'s shapes:
+    prefill from a zero state, decode from a non-zero one."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import plain
+
+    shapes, inputs, ref = (
+        (cs.K6_SHAPES, cs.mamba_inputs, plain.mamba_scan_plain)
+        if kern == "k6" else
+        (cs.K7_SHAPES, cs.rwkv6_inputs, plain.rwkv6_scan_plain))
+    out = {}
+    for tag in ("prefill", "decode"):
+        args = inputs(torch, rng, *shapes[tag], zero_state=tag == "prefill")
+        out[tag] = (args, ref(*args))
+    return out
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -314,13 +464,15 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    kernels = argv or ["k1", "k5", "k34"]
-    todo = [key for key in EXPERIMENTS if key[0] in kernels]
-    libs = build(todo)
+    kernels = argv or ["k1", "k5", "k34", "k6", "k7"]
+    libs = build([key for key in EXPERIMENTS if key[0] in kernels])
+    todo = list(libs)
     rng = np.random.default_rng(0)
     cases = {"k1": k1_cases(torch, np, rng) if "k1" in kernels else {},
              "k5": k5_cases(torch, np, rng) if "k5" in kernels else {},
-             "k34": k34_cases(torch, np, rng) if "k34" in kernels else {}}
+             "k34": k34_cases(torch, np, rng) if "k34" in kernels else {},
+             **{kern: scan_cases(torch, kern, rng) for kern in ("k6", "k7")
+                if kern in kernels}}
     for key in todo:
         kern, name = key
         swap_in(kern, libs[key])
@@ -340,6 +492,13 @@ def main(argv) -> int:
                 got = fn()
                 right = bool(torch.equal(got, want))
                 err = None
+            elif kern in ("k6", "k7"):
+                import chip_smoke as cs
+
+                scan = ops.mamba_scan if kern == "k6" else ops.rwkv6_scan
+                fn = lambda: scan(*args)
+                err, rel = cs.scan_error(torch, fn(), want)
+                right = rel <= cs.SCAN_TOL
             else:
                 q, k, v, kw = args
                 fn = lambda: ops.flash_attention(q, k, v, **kw)
