@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   bitwise against K3 per slice, in float32 and float64; the
                   mapped K3/K4 in place on ragged slices with absent rows
                   within tolerance of its plain version and bitwise dense
-                  K3 per slice, both element modes; K5
+                  K3 per slice, both element modes, and over 8 systems in
+                  one launch (padded system strides), each system bitwise
+                  its own one-system launch; K5
                   at the standing prefill and decode shapes, at D = 128 and
                   at the serve paths' grouped shapes over caches whose
                   unused slots hold NaN, within 2e-5, and in bfloat16).
@@ -31,6 +33,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   ``torch.profiler`` (over analyze and the first
                   factorize) and by the launch counters; segment batching
                   bitwise on both numeric backends.
+   ``bubble``   — bubble removal on the same matrix: analyze with
+                  ``bubble=True`` on the default backends (K1 never runs)
+                  and with ``backend="kernel"`` (K1 only on the one
+                  full-width chunk): chunk widths, ``analyze_s``,
+                  supersteps, K1/K2 launches, structure bitwise phase 3's.
+   ``batched``  — the batched tier on phase 3's plan: ``factorize_batch``
+                  of 8 value sets (``generic_values_csr`` seeds 0..7), each
+                  system's factors' sha256 equal to a sequential
+                  ``factorize`` of it, the mapped K3/K4 once per level for
+                  all 8 (12 launches, as one sequential sweep), walls
+                  against the 8 sequential ones; ``solve_batch`` on (8, n)
+                  and (8, n, 4) bitwise the sequential solves (x, residual
+                  history, accepted count), residuals <= 1e-10; systems 0
+                  and 7 again on phase 4's plan (float32 updates); one
+                  batched sweep under ``torch.profiler``; whether batched
+                  cuBLAS products and triangular solves are bitwise per
+                  slice at the sweep's shapes (reported, not required: the
+                  tier makes one call per system); a zero pivot in system 3
+                  of a small batch named as system 3 at the sequential
+                  factorization's column.
 5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
                   refactorize and a (n, 4) solve (default options), once
                   more under ``torch.profiler``: wall time, device busy
@@ -67,16 +89,20 @@ at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
 serve paths' grouped shapes with SDPA's beside them, an empty kernel's
 device time, and dense K4 float64 against ``baddbmm`` in turns), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
-mapped, once per element type; ``ms`` and ``library_ms`` are the device
+mapped, once per element type, and the mapped one over 8 systems in
+float64; ``ms`` and ``library_ms`` are the device
 time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9 and
-11 and read just after it, so each path reports its own launches (phase 3:
+11, each ``bubble`` analyze and the ``batched`` phase's batched sweeps,
+and read just after it, so each path reports its own launches (phase 3:
 K2 and the float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped
-K3/K4; phase 7: K5; phase 9: K7; phase 11: K6 and K5; the dense K3/K4
+K3/K4; ``bubble``: K2, and K1 on the kernel backend; ``batched``: the
+float64 mapped K3/K4 over 8 systems; phase 7: K5; phase 9: K7; phase 11:
+K6 and K5; the dense K3/K4
 entry points are off the paths since the sweep runs the mapped form),
 split by stage in ``launches_by_stage`` for
 the LU paths; the ``kernels`` line takes each row's launches from the path
@@ -117,6 +143,9 @@ PEAK_SFU_S = 132 * 16 * 1.98e9
 # device_ms's spin: 1e8 cycles, >= 50 ms at the H100's <= 1.98 GHz clock
 SPIN_CYCLES = 100_000_000
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
+# value sets of the batched phase (and systems of the mapped update's
+# system-stride check)
+BATCH = 8
 # the card-vs-CPU check of the SSM serve phases: a prompt, then teacher-
 # forced decode steps, each step's logits gated at max |card - CPU| /
 # max |CPU logit| (float32 sums in another order give ~1e-6; TF32 anywhere
@@ -146,7 +175,7 @@ SOURCES = {
 PROFILED_PATH = ("minmax_relax", "column_fingerprints",
                  "panel_update_mapped")
 PROFILED = ("minmax_relax_kernel", "column_fingerprints_kernel",
-            "panel_update_mapped_kernel<float>")
+            "panel_update_mapped_kernel<float")
 
 
 def emit(obj) -> None:
@@ -312,6 +341,14 @@ def kernel_checks(torch, ops, plain, adj_real):
         out[f"mapped_{'f32' if f32 else 'f64'}_err"] = err
         out[f"mapped_{'f32' if f32 else 'f64'}_tol"] = tol
     out["mapped_bitwise_vs_K3"] = True
+    # the same records over BATCH systems in one launch (the batched
+    # tier's form)
+    for f32 in (False, True):
+        err, tol = mapped_systems_check(torch, ops, plain, rng, flat, u,
+                                        lmap, tiles, f32)
+        out[f"mapped_{BATCH}_systems_{'f32' if f32 else 'f64'}_err"] = err
+        out[f"mapped_{BATCH}_systems_{'f32' if f32 else 'f64'}_tol"] = tol
+    out[f"mapped_{BATCH}_systems_bitwise_vs_one_system"] = True
 
     # K5 at the serve path's shapes and at D = 128, and in bfloat16
     for tag, shape in K5_SHAPES.items():
@@ -569,6 +606,49 @@ def mapped_check(torch, ops, plain, flat, u, lmap, tiles, f32):
     return err, tol
 
 
+def mapped_systems_check(torch, ops, plain, rng, flat, u, lmap, tiles, f32,
+                         systems=None):
+    """The mapped K3/K4 over ``systems`` (default ``BATCH``) stores in one
+    launch: system 0 holds ``flat``/``u``, the others random values, each
+    system's run padded by a few entries.  Every system must be bitwise
+    the one-system launch on a copy of its own, nothing between systems
+    may change, and the whole must lie within ``mapped_check``'s tolerance
+    of the plain version; fails otherwise.  Returns (max abs error,
+    tolerance)."""
+    systems = systems or BATCH
+    dev = flat.device
+    n_f, n_u = flat.numel(), u.numel()
+    fs, us = n_f + 5, n_u + 3
+    big = torch.as_tensor(rng.standard_normal(systems * fs), device=dev)
+    big.view(systems, fs)[0, :n_f] = flat
+    ub = torch.as_tensor(rng.standard_normal(systems * us), device=dev)
+    ub.view(systems, us)[0, :n_u] = u
+    got, want = big.clone(), big.clone()
+    kw = dict(f32=f32, systems=systems, flat_stride=fs, u_stride=us)
+    ops.panel_update_mapped(got, ub, lmap, tiles, **kw)
+    plain.panel_update_mapped_plain(want, ub, lmap, tiles, **kw)
+    for sy in range(systems):
+        one = big[sy * fs:sy * fs + n_f].clone()
+        ops.panel_update_mapped(one, ub[sy * us:(sy + 1) * us].clone(),
+                                lmap, tiles, f32=f32)
+        check(torch.equal(got[sy * fs:sy * fs + n_f].view(torch.int64),
+                          one.view(torch.int64)),
+              f"mapped update over {systems} systems (f32={f32}): system "
+              f"{sy} is not bitwise its one-system launch")
+        gap = slice(sy * fs + n_f, (sy + 1) * fs)
+        check(torch.equal(got[gap].view(torch.int64),
+                          big[gap].view(torch.int64)),
+              f"mapped update over {systems} systems wrote between systems")
+    torch.cuda.synchronize()
+    eps = 2e-6 if f32 else 1e-14
+    tol = (eps * int(slice_records(tiles)[:, 5].max())
+           * float(big.abs().max()) * float(ub.abs().max()))
+    err = float((got - want).abs().max())
+    check(err <= tol, f"mapped update over {systems} systems (f32={f32}): "
+          f"err {err} > tol {tol}")
+    return err, tol
+
+
 def gemm_levels(plan) -> int:
     """Levels of the plan's sweep with at least one trailing update."""
     return sum(any(plan.gather_maps[j] is not None for j in level)
@@ -674,6 +754,219 @@ def flat_sha256(flat) -> str:
     import hashlib
 
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def structure_sha256(plan) -> dict:
+    """sha256 of a plan's structure: per-row counts, supernodes, CSC
+    pattern."""
+    import hashlib
+
+    import numpy as np
+
+    def sha(x):
+        return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+    return {"l_counts": sha(plan.sym.l_counts),
+            "u_counts": sha(plan.sym.u_counts),
+            "supernodes": sha(plan.sym.supernodes),
+            "indptr": sha(plan.pattern.indptr),
+            "rowind": sha(plan.pattern.rowind)}
+
+
+def bubble_phase(torch, repro_torch, ops, a, opts, plan):
+    """Bubble removal on the main matrix: ``analyze`` with ``bubble=True``
+    on the default backends and with ``backend="kernel"``, each with the
+    launch counters reset just before and read just after; its structure
+    must equal ``plan``'s bitwise; K1 must not run on the default
+    backends (every chunk relaxes by ELL) and must run with the kernel
+    backend (on the full-width chunk)."""
+    from repro_torch.core.multisource import plan_chunks
+
+    chunks = plan_chunks(a.n, opts.concurrency, bubble=True)
+    want = structure_sha256(plan)
+    out = {"n_chunks": len(chunks),
+           "narrow_chunks": sum(ch.width < a.n for ch in chunks),
+           "sum_widths": sum(ch.width for ch in chunks),
+           "n_chunks_x_n": len(chunks) * a.n,
+           "structure_sha256": want}
+    for tag, o in (("default", opts.replace(bubble=True)),
+                   ("kernel", opts.replace(bubble=True, backend="kernel"))):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        p = repro_torch.analyze(a, o)
+        torch.cuda.synchronize()
+        t_an = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(structure_sha256(p) == want,
+              f"bubble ({tag}): structure differs from the default plan's")
+        k1, k2 = counts["minmax_relax"], counts["column_fingerprints"]
+        check(k2 > 0, f"bubble ({tag}): K2 was not launched")
+        check(k1 == 0 if tag == "default" else k1 > 0,
+              f"bubble ({tag}): K1 launched {k1} times")
+        out[tag] = {"analyze_s": t_an, "supersteps": p.sym.supersteps,
+                    "reinits": p.sym.reinits,
+                    "launches": {"minmax_relax": k1,
+                                 "column_fingerprints": k2}}
+    return out
+
+
+def batched_library_probe(torch, rng):
+    """Whether cuBLAS's batched product and batched triangular solve are
+    bitwise their per-matrix calls at phase A's shapes on the card (the
+    batched tier does not rely on it: it makes one call per system)."""
+    dev = torch.device("cuda")
+    out = {}
+    for m, k, w in ((30, 16, 16), (14, 2, 1), (64, 16, 16), (500, 16, 16)):
+        x = torch.as_tensor(rng.standard_normal((BATCH, m, k)), device=dev)
+        y = torch.as_tensor(rng.standard_normal((BATCH, k, w)), device=dev)
+        both = x @ y
+        out[f"bmm_{m}x{k}x{w}"] = all(torch.equal(both[i], x[i] @ y[i])
+                                      for i in range(BATCH))
+    for w in (2, 16):
+        t = torch.as_tensor(rng.standard_normal((BATCH, w, w)), device=dev)
+        t = t + w * torch.eye(w, dtype=t.dtype, device=dev)
+        rhs = torch.as_tensor(rng.standard_normal((BATCH, w, 16)),
+                              device=dev)
+        both = torch.linalg.solve_triangular(t, rhs, upper=False,
+                                             unitriangular=True)
+        out[f"trsm_{w}x16"] = all(torch.equal(
+            both[i], torch.linalg.solve_triangular(
+                t[i], rhs[i], upper=False, unitriangular=True))
+            for i in range(BATCH))
+    return out
+
+
+def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
+                  generic_values_csr):
+    """The batched tier on the main plan: ``factorize_batch`` of BATCH
+    value sets against BATCH sequential ``factorize`` calls (factors'
+    sha256, walls), the mapped K3/K4 once per level for all systems (the
+    counters reset just before the batched sweep and read just after),
+    ``solve_batch`` on (B, n) and (B, n, 4) against the sequential
+    solves, bitwise; systems 0 and 7 again on the kernel plan; one
+    batched sweep under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    vals = [generic_values_csr(a, seed=s) for s in range(BATCH)]
+    vb = np.stack(vals)
+    rng = np.random.default_rng(5)
+    rhs = {"n": rng.standard_normal((BATCH, a.n)),
+           "n4": rng.standard_normal((BATCH, a.n, 4))}
+    out = {"batch": BATCH,
+           "store_bytes": plan.store_template.total_entries * 8 * BATCH}
+
+    def sequential(p, systems):
+        """{system: (factors' sha256, {rhs tag: SolveResult})}, the
+        factorize walls and the solves' walls."""
+        res, walls, solve_walls = {}, [], []
+        for s in systems:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = p.factorize(vals[s])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            solves = {tag: f.solve(b[s]) for tag, b in rhs.items()}
+            torch.cuda.synchronize()
+            solve_walls.append(time.perf_counter() - t0)
+            res[s] = (flat_sha256(f.store.flat), solves)
+            again = f.solve(rhs["n"][s])
+            check(torch.equal(again.x, res[s][1]["n"].x),
+                  f"the sequential solve of system {s} does not repeat "
+                  f"bitwise")
+        return res, walls, solve_walls
+
+    def batched(p, systems):
+        """The batched sweep of ``systems`` and its solves; checks every
+        system against ``sequential``; returns its numbers."""
+        vbs = vb[list(systems)]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf = p.factorize_batch(vbs)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = gemm_levels(p)
+        check(counts["panel_update_mapped"] == want,
+              f"the batched sweep launched the mapped update "
+              f"{counts['panel_update_mapped']} times, not once per level "
+              f"({want})")
+        t0 = time.perf_counter()
+        solved = {tag: bf.solve_batch(b[list(systems)])
+                  for tag, b in rhs.items()}
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        seq, walls, solve_walls = sequential(p, systems)
+        for i, s in enumerate(systems):
+            digest, seq_solves = seq[s]
+            check(flat_sha256(bf.store.flat[i]) == digest,
+                  f"batched factors of system {s} differ from sequential")
+            for tag, r in solved.items():
+                sq = seq_solves[tag]
+                check(torch.equal(r.x[i], sq.x)
+                      and r.residuals[i] == sq.residuals
+                      and int(r.refine_accepted[i]) == sq.refine_accepted,
+                      f"solve_batch {tag} of system {s} differs from the "
+                      f"sequential solve")
+                check(r.residuals[i][-1] <= 1e-10,
+                      f"system {s} {tag}: residual {r.residuals[i][-1]}")
+        return {"systems": list(systems), "factorize_batch_s": t_b,
+                "sequential_factorize_s": walls,
+                "sequential_factorize_sum_s": sum(walls),
+                "solve_batch_s": t_s,
+                "sequential_solve_sum_s": sum(solve_walls),
+                "mapped_launches": counts["panel_update_mapped"],
+                "launches": counts,
+                "residual_max": {tag: float(r.residual.max())
+                                 for tag, r in solved.items()},
+                "refine_accepted": {tag: r.refine_accepted.tolist()
+                                    for tag, r in solved.items()},
+                "factors_bitwise": True, "solves_bitwise": True}
+
+    out["default"] = batched(plan, range(BATCH))
+    counts = out["default"]["launches"]
+    out["kernel"] = batched(plan_k, (0, BATCH - 1))
+    out["library_bitwise_per_slice"] = batched_library_probe(torch, rng)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plan.factorize_batch(vb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof)
+    out["profiled_factorize_batch"] = {
+        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+        "device_calls": device_calls(prof), "top": top_kernels(prof)}
+    return out, counts
+
+
+def zero_pivot_check(torch, repro_torch, sparse, generic_values_csr):
+    """System 3 of a batch of 4 made singular (row n // 2 zero): the
+    batched sweep must name system 3 and the column the sequential
+    factorization of that system names."""
+    import numpy as np
+
+    a = sparse.bordered_block_diagonal(600, block=16, border=16, seed=1)
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(concurrency=128))
+    vb = np.stack([generic_values_csr(a, seed=s) for s in range(4)])
+    col = a.n // 2
+    vb[3, a.indptr[col]:a.indptr[col + 1]] = 0.0
+    found = []
+    for run in (lambda: plan.factorize_batch(vb),
+                lambda: plan.factorize(vb[3])):
+        try:
+            run()
+        except repro_torch.ZeroPivotError as e:
+            found.append({"k": e.k, "system": e.system, "panel": e.panel,
+                          "level": e.level, "message": str(e)})
+        else:
+            fail("a singular system factored without a ZeroPivotError")
+    got, seq = found
+    check(got["system"] == 3 and got["k"] == seq["k"] == col
+          and (got["panel"], got["level"]) == (seq["panel"], seq["level"]),
+          f"zero pivot: batched {got}, sequential {seq}")
+    return {"batched": got, "sequential": seq}
 
 
 def reference_check(torch, repro_torch, sparse, generic_values_csr):
@@ -1099,6 +1392,14 @@ def main() -> int:
           "segment_batch_bitwise_kernel": True,
           "segment_batch_bitwise_float64": seg_equal, **res_k})
 
+    emit({"phase": "bubble", "default_analyze_s": res["analyze_s"],
+          **bubble_phase(torch, repro_torch, ops, a, opts, plan)})
+    batched_res, counts_batched = batched_phase(
+        torch, repro_torch, ops, a, plan, plan_k, generic_values_csr)
+    emit({"phase": "batched", **batched_res,
+          "zero_pivot": zero_pivot_check(torch, repro_torch, sparse,
+                                         generic_values_csr)})
+
     emit({"phase": "breakdown_default",
           **breakdown(torch, repro_torch, a, values, opts, sweep=True)})
     emit({"phase": "breakdown_kernel",
@@ -1275,6 +1576,27 @@ def main() -> int:
             sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4])),
             kernel="panel_update_mapped", peak_ops=peak,
             plain_kw={"reps": 3})
+    # the same level over BATCH systems in one launch (the batched
+    # default sweep's form, float64): the factored store repeated, random
+    # U rows per system; the bound is BATCH times the one-system work
+    flat_b = factor.store.flat.repeat(BATCH)
+    u_b = torch.as_tensor(rng.standard_normal(BATCH * u_len), device=dev)
+    kw_b = dict(systems=BATCH, flat_stride=factor.store.flat.numel(),
+                u_stride=u_len)
+    got_b, want_b = flat_b.clone(), flat_b.clone()
+    ops.panel_update_mapped(got_b, u_b, upd.lmap, tiles, **kw_b)
+    plain.panel_update_mapped_plain(want_b, u_b, upd.lmap, tiles, **kw_b)
+    err = float((got_b - want_b).abs().max())
+    del got_b, want_b
+    row(f"panel_update_mapped ({BATCH} systems, float64)",
+        counts_batched["panel_update_mapped"], err,
+        lambda: ops.panel_update_mapped(flat_b, u_b, upd.lmap, tiles, **kw_b),
+        lambda: plain.panel_update_mapped_plain(flat_b, u_b, upd.lmap, tiles,
+                                                **kw_b),
+        BATCH * 8 * (sum(hits) + u_len + 2 * outs),
+        BATCH * sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4])),
+        kernel="panel_update_mapped", peak_ops=PEAK_F64_OPS_S,
+        plain_kw={"reps": 1})
 
     # K5 at the standing prefill shape (its row; the bound counts 3 TF32
     # products per float32 one on the tensor cores, the CUDA-core bound

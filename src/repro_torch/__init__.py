@@ -9,6 +9,7 @@ CUDA C++ for Hopper (``kernels/csrc``).  The default device is the card::
     plan = repro_torch.analyze(a, repro_torch.LUOptions(concurrency=512))
     factor = plan.factorize(values)        # numeric sweep on the card
     result = factor.solve(b)               # b: (n,) or (n, k)
+    batch = plan.factorize_batch(values_batch)   # B value sets, one sweep
 
 It imports torch, numpy and scipy — never jax and never ``repro``.
 """
@@ -19,10 +20,14 @@ _LAZY_EXPORTS = {
     "LUOptions": "repro_torch.api",
     "LUPlan": "repro_torch.api",
     "LUFactorization": "repro_torch.api",
+    "BatchedLUFactorization": "repro_torch.api",
     "SymbolicResult": "repro_torch.core.symbolic",
     "NumericResult": "repro_torch.numeric",
+    "BatchedNumericResult": "repro_torch.numeric",
     "SolveResult": "repro_torch.numeric",
+    "BatchedSolveResult": "repro_torch.numeric",
     "PanelStore": "repro_torch.numeric",
+    "BatchedPanelStore": "repro_torch.numeric",
     "CSCPattern": "repro_torch.numeric",
     "ZeroPivotError": "repro_torch.sparse.numeric",
     "CSRMatrix": "repro_torch.sparse",

@@ -8,6 +8,9 @@ multi-RHS — on one CUDA device by default::
         factor = plan.factorize(values)    # numeric sweep only, on the card
         result = factor.solve(b)           # b is (n,) or multi-RHS (n, k)
 
+    batch = plan.factorize_batch(values_batch)   # (B, nnz): one sweep
+    results = batch.solve_batch(b_batch)         # (B, n) or (B, n, k)
+
 ``analyze`` runs the symbolic fixpoint + streamed supernode detection on the
 device and precomputes everything value-independent: the sparse
 ``CSCPattern`` of L+U, the supernode panel partition, the level schedule,
@@ -15,6 +18,9 @@ the per-panel gather maps, the CSR scatter maps, the solve-level DAGs and a
 structure-only ``PanelStore`` template.  ``LUPlan.factorize`` runs only the
 value-dependent panel sweep on the plan's device;
 ``LUFactorization.refactorize`` reuses the same device buffers in place.
+``LUPlan.factorize_batch`` factors B value sets of the pattern in one
+sweep (the many-matrix tier: Newton iterations, transient sweeps, Monte
+Carlo corners), each system bitwise its sequential factorization.
 
 The default device is the card (``device=None`` -> ``"cuda"``); without
 CUDA ``analyze`` raises instead of running on the CPU.  Pass
@@ -44,11 +50,17 @@ from repro_torch.numeric.schedule import (
     device_maps,
 )
 from repro_torch.numeric.solve import (
-    SolveResult, SolveSchedule, build_solve_schedule,
+    BatchedSolveResult, SolveResult, SolveSchedule, build_solve_schedule,
 )
 from repro_torch.numeric.solve import solve as _solve
-from repro_torch.numeric.storage import CSCPattern, CsrScatterMaps, PanelStore
-from repro_torch.numeric.supernodal import NumericResult, factor_on_store
+from repro_torch.numeric.solve import solve_batch as _solve_batch
+from repro_torch.numeric.storage import (
+    BatchedPanelStore, CSCPattern, CsrScatterMaps, PanelStore,
+)
+from repro_torch.numeric.supernodal import (
+    BatchedNumericResult, NumericResult, factor_batch_on_store,
+    factor_on_store,
+)
 from repro_torch.obs import trace as _ot
 from repro_torch.obs.trace import SpanSummary
 from repro_torch.sparse.csr import CSRMatrix
@@ -62,7 +74,6 @@ _PIVOTS = ("none", "static")
 
 # options of later slices: (is it requested?, what it is, ROADMAP.md item)
 _LATER_SLICES = (
-    (lambda o: o.bubble, "bubble=True (bubble removal)", 7),
     (lambda o: o.pivot == "static", "pivot='static' (static pivoting)", 9),
     (lambda o: o.perturb, "perturb=True (tiny-pivot perturbation)", 9),
     (lambda o: o.blocking, "blocking=True (structure-aware blocking)", 9),
@@ -80,8 +91,11 @@ class LUOptions:
 
     Symbolic fixpoint: ``concurrency`` (#C source chunk size), ``backend``
     ("ell" gather, "dense" plain masked min, "kernel" = K1 on the card),
-    ``combined`` (one batched fixpoint per chunk), ``use_arena`` (label
-    re-init elision), ``budget_bytes`` (memory envelope -> effective #C),
+    ``combined`` (one batched fixpoint per chunk), ``bubble`` (bubble
+    removal: each chunk's labels only as wide as its sources need; the
+    narrowed chunks relax by ELL whatever ``backend`` is),
+    ``use_arena`` (label re-init elision; off under ``bubble``),
+    ``budget_bytes`` (memory envelope -> effective #C),
     ``checkpoint_path`` (per-chunk durable progress).
 
     Supernodes: ``supernode_relax`` (T3 merge tolerance, 0 = exact T2),
@@ -95,9 +109,9 @@ class LUOptions:
 
     Solve: ``refine_iters``/``refine_tol``.  Observability: ``trace``.
 
-    ``bubble``, ``pivot="static"``, ``perturb``, ``blocking``,
-    ``autotune``, ``distribute`` and ``runtime="dynamic"`` are later slices
-    of the port and raise ``NotImplementedError``.
+    ``pivot="static"``, ``perturb``, ``blocking``, ``autotune``,
+    ``distribute`` and ``runtime="dynamic"`` are later slices of the port
+    and raise ``NotImplementedError``.
     """
 
     # -- symbolic fixpoint
@@ -266,6 +280,61 @@ class LUFactorization:
 
 
 @dataclasses.dataclass
+class BatchedLUFactorization:
+    """Factors of B same-pattern value sets from one batched sweep on the
+    plan's device — the many-matrix tier of the session API.
+
+    ``solve_batch`` solves every system on its factors with per-system
+    refinement; ``system(i)`` is system i as an ordinary
+    ``LUFactorization`` over zero-copy views of the batched buffers.  Every
+    per-system result is bitwise the sequential ``plan.factorize(values[i])``
+    / ``.solve(b[i])``."""
+
+    plan: "LUPlan"
+    num: BatchedNumericResult
+    values: torch.Tensor         # (B, nnz) float64 on the device
+    factor_s: float              # scatter + batched panel-sweep wall time
+    stats: Optional[SpanSummary] = None
+    _matvecs: Optional[List[CsrOperator]] = dataclasses.field(default=None,
+                                                              repr=False)
+
+    @property
+    def batch(self) -> int:
+        return self.num.batch
+
+    @property
+    def n(self) -> int:
+        return self.num.n
+
+    @property
+    def store(self) -> BatchedPanelStore:
+        return self.num.store
+
+    def system(self, i: int) -> LUFactorization:
+        """System i as a sequential ``LUFactorization`` (zero-copy factor
+        views; its ``factor_s`` is 0.0 — the batch owns the timing)."""
+        return LUFactorization(plan=self.plan, num=self.num.system(i),
+                               values=self.values[i], factor_s=0.0)
+
+    def solve_batch(self, b, *, refine_iters: Optional[int] = None,
+                    refine_tol: Optional[float] = None
+                    ) -> BatchedSolveResult:
+        """Solve A_i x_i = b_i for every system on the existing factors.
+        ``b`` is (B, n) or (B, n, k); refinement knobs default to the
+        plan's ``LUOptions``."""
+        opts = self.plan.options
+        if self._matvecs is None:
+            self._matvecs = [CsrOperator(self.plan.a, self.values[i])
+                             for i in range(self.batch)]
+        return _solve_batch(
+            self.plan.a, b, self.values, self.num,
+            refine_iters=(opts.refine_iters if refine_iters is None
+                          else refine_iters),
+            refine_tol=opts.refine_tol if refine_tol is None else refine_tol,
+            matvecs=self._matvecs)
+
+
+@dataclasses.dataclass
 class LUPlan:
     """One matrix structure, analyzed once on ``device``: the symbolic
     prediction plus every value-independent precomputation of the numeric
@@ -355,6 +424,44 @@ class LUPlan:
                                factor_s=time.perf_counter() - t0,
                                stats=stats)
 
+    def factorize_batch(self, values_batch) -> BatchedLUFactorization:
+        """Numeric factorization of B same-pattern value sets in ONE
+        batched level sweep on the plan's device: ``values_batch`` is a
+        (B, nnz) CSR-aligned stack (numpy or tensor).  The index, gather
+        maps and update tables are the plan's (``_device_state``); the
+        trailing updates are one mapped K3/K4 launch per level for all B
+        systems.  System i's factors are bitwise
+        ``self.factorize(values_batch[i])``'s."""
+        t0 = time.perf_counter()
+        dev = resolve_device(self.device)
+        values_batch = torch.as_tensor(values_batch, dtype=torch.float64,
+                                       device=dev)
+        if values_batch.dim() != 2:
+            raise ValueError(
+                f"values_batch must be a (B, {self.a.nnz}) CSR-aligned "
+                f"stack, got shape {tuple(values_batch.shape)}")
+        index, maps, update_maps = self._device_state(dev)
+        bstore = BatchedPanelStore(self.store_template,
+                                   values_batch.shape[0], dev, index)
+        bstore._solve_schedule = self.solve_schedule
+        with _ot.ensure(self.options.trace) as tr:
+            mark = tr.mark() if tr is not None else 0
+            with _ot.span("factorize_batch"):
+                num = factor_batch_on_store(
+                    self.a, values_batch, bstore, self.schedule,
+                    backend=self.options.numeric_backend,
+                    piv_tol=self.options.piv_tol,
+                    check_pattern=self.options.check_pattern,
+                    pattern_tol=self.options.pattern_tol,
+                    maps=maps, update_maps=update_maps,
+                    csr_maps=self.csr_maps, store_is_zeroed=True,
+                    segment_batch=self.options.segment_batch)
+            stats = tr.summary(mark) if tr is not None else None
+        return BatchedLUFactorization(plan=self, num=num,
+                                      values=values_batch,
+                                      factor_s=time.perf_counter() - t0,
+                                      stats=stats)
+
     def solve(self, b, values=None) -> SolveResult:
         """Convenience: factorize ``values`` and solve in one call."""
         factor = self.factorize(values)
@@ -385,8 +492,8 @@ def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
         with _ot.span("analyze"):
             sym = _symbolic_factorize(
                 a, concurrency=opts.concurrency, backend=opts.backend,
-                combined=opts.combined, use_arena=opts.use_arena,
-                budget_bytes=opts.budget_bytes,
+                combined=opts.combined, bubble=opts.bubble,
+                use_arena=opts.use_arena, budget_bytes=opts.budget_bytes,
                 checkpoint_path=opts.checkpoint_path,
                 detect_supernodes=True,
                 supernode_relax=opts.supernode_relax,

@@ -1,14 +1,14 @@
 """Symbolic factorization: CSR in, L/U structure out.
 
 ``symbolic_factorize`` runs the multi-source fixpoint on one device with the
-paper's knobs (concurrency, combined traversal, memory envelope) and chunk
-checkpointing for restart.  The converged chunks stream into the supernode
-fingerprints and the sparse pattern collector, so no dense (n, n) pattern is
-ever gathered.  Every output — counts, fill ratio, supernodes, CSC pattern —
+paper's knobs (concurrency, combined traversal, bubble removal, memory
+envelope) and chunk checkpointing for restart.  The converged chunks stream
+into the supernode fingerprints and the sparse pattern collector, so no
+dense (n, n) pattern is ever gathered.  Every output — counts, fill ratio, supernodes, CSC pattern —
 is bitwise that of ``repro.core.symbolic.symbolic_factorize``.
 
 The sharded (mesh) and work-stealing (``runtime="dynamic"``) drivers are a
-later slice of the port (``ROADMAP.md`` Queue A).
+later slice of the port (``ROADMAP.md`` Queue A item 10).
 """
 from __future__ import annotations
 
@@ -180,7 +180,7 @@ def _record_fill_metrics(res: SymbolicResult, a: CSRMatrix) -> None:
 
 def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
                        backend: str = "ell", combined: bool = True,
-                       use_arena: bool = True,
+                       bubble: bool = False, use_arena: bool = True,
                        budget_bytes: Optional[int] = None,
                        checkpoint_path: Optional[str] = None,
                        graph: Optional[SymbolicGraph] = None,
@@ -206,6 +206,10 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
 
     ``checkpoint_path`` records each chunk's counts durably; a restart runs
     only the sources no record covers.
+
+    ``bubble`` narrows each chunk's labels to its sources' window
+    (``multisource.plan_chunks``); every output stays bitwise that of the
+    full-width run.
     """
     t0 = time.perf_counter()
     if graph is None:
@@ -237,7 +241,7 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
                 srcs = pending[start:start + eff_c].astype(np.int32)
                 res = run_multisource(graph, concurrency=eff_c,
                                       backend=backend, combined=combined,
-                                      use_arena=use_arena,
+                                      bubble=bubble, use_arena=use_arena,
                                       sources=srcs, on_chunk=on_chunk,
                                       on_mask=on_mask)
                 l_counts[srcs] = res.l_counts[srcs]
@@ -256,7 +260,8 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
     else:
         with _ot.span("fixpoint"):
             ms = run_multisource(graph, concurrency=eff_c, backend=backend,
-                                 combined=combined, use_arena=use_arena,
+                                 combined=combined, bubble=bubble,
+                                 use_arena=use_arena,
                                  budget_bytes=budget_bytes,
                                  on_chunk=on_chunk, on_mask=on_mask,
                                  on_progress=on_progress)
@@ -275,7 +280,8 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
         missing |= ~collector.seen
     if missing.any():
         run_multisource(graph, concurrency=eff_c, backend=backend,
-                        combined=combined, use_arena=use_arena,
+                        combined=combined, bubble=bubble,
+                        use_arena=use_arena,
                         sources=np.flatnonzero(missing).astype(np.int32),
                         on_chunk=on_chunk, on_mask=on_mask)
 

@@ -41,7 +41,7 @@ SIGNATURES = {
     "panel_update": ("panel_update", "panel_update_launch",
                      (_P, _P, _P, _P) + (_I,) * 8 + (_P,)),
     "panel_update_mapped": ("panel_update", "panel_update_mapped_launch",
-                            (_P, _P, _P, _P, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P)),
     "panel_update_empty": ("panel_update", "panel_update_empty_launch",
                            (_I, _P)),
     "flash_attention": ("flash_attention", "flash_attention_launch",

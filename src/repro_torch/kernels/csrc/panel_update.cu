@@ -16,7 +16,14 @@
 //     read in place from the ancestor panels' blocks, -1 reading as an
 //     exact 0.0 (a structural zero), so L is never assembled; U is the
 //     (K, N) row-major run at u + u_off - u_shift (the solved U rows of the
-//     level, one buffer).  A launch over one slice is K3's role.
+//     level, one buffer).  A launch over one slice is K3's role.  The
+//     batched tier (many value sets on one plan) launches it over a system
+//     axis: grid (n_tiles, systems), block (t, s) runs tile record t of
+//     system s with flat + s * flat_stride as that system's store and
+//     u + s * u_stride as its U buffer.  The tile records and lmap are the
+//     plan's and shared by every system; offsets stay int32 within a
+//     system (flat_stride < 2^31) and only the system offset is 64-bit.
+//     A one-system launch is the grid (n_tiles, 1).
 //
 // Arithmetic, identical in every form and instance: each output element is
 // owned by one thread, which reads acc once, runs sum = 0, then one
@@ -24,8 +31,10 @@
 // rounded up to a multiple of 16 (zero terms past K, as the 16-deep steps
 // of the first version of this kernel did: a -0 sum becomes +0 there), and
 // writes acc - sum (__dsub_rn / __fsub_rn).  So every K4 slice is bitwise
-// K3, the mapped update is bitwise the dense one on gathered operands, and
-// the tile shape never changes a result.  The float32 instance of the
+// K3, the mapped update is bitwise the dense one on gathered operands, the
+// tile shape never changes a result, and each system of a multi-system
+// launch is bitwise the one-system launch on that system alone (the same
+// per-tile code on the system's own base pointers).  The float32 instance of the
 // mapped form loads float64, rounds each of acc, L and U once with
 // __double2float_rn (what `.float()` does), runs the float32 chain and
 // stores the widened result.  No TF32: the contract is true fp32 / fp64.
@@ -242,14 +251,18 @@ panel_update_kernel(const T* __restrict__ acc, const T* __restrict__ L,
               bk, smem);
 }
 
-// the sweep's form: one block per tile record, in place in flat
+// the sweep's form: one block per (tile record, system), in place in the
+// system's run of flat
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 panel_update_mapped_kernel(double* flat, const double* U,
                            const int* __restrict__ lmap,
-                           const int* __restrict__ tiles, int u_shift) {
+                           const int* __restrict__ tiles, int u_shift,
+                           long long flat_stride, long long u_stride) {
   __shared__ T smem[SMEM];
   const int* t = tiles + static_cast<size_t>(blockIdx.x) * TILE_INTS;
+  flat += static_cast<long long>(blockIdx.y) * flat_stride;
+  U += static_cast<long long>(blockIdx.y) * u_stride;
   const Mapped<T> src{flat, flat + t[0], lmap + t[1], U + (t[2] - u_shift),
                       t[3], t[4], t[5]};
   run_tile<T>(src, t[6], t[7], t[8], t[9], smem);
@@ -310,25 +323,33 @@ extern "C" int panel_update_launch(const void* acc, const void* L,
   return launch<float>(acc, L, U, out, B, M, N, K, tc, bk, batched, st);
 }
 
-// Mapped K3/K4 in place: flat the float64 store (< 2^31 entries), u the
-// float64 U buffer, lmap the int32 L map, tiles n_tiles int32 records of
-// TILE_INTS; f32 = 1 computes in float32 (the kernel backend).
+// Mapped K3/K4 in place over `systems` stores: system s's float64 store is
+// the run of flat_stride (< 2^31) entries at flat + s * flat_stride, its
+// float64 U buffer the run at u + s * u_stride; lmap the int32 L map and
+// tiles n_tiles int32 records of TILE_INTS, shared by every system;
+// 1 <= systems <= 65535 (gridDim.y); f32 = 1 computes in float32 (the
+// kernel backend).
 extern "C" int panel_update_mapped_launch(void* flat, const void* u,
                                           const void* lmap, const void* tiles,
                                           int n_tiles, int u_shift, int f32,
-                                          void* stream) {
+                                          int systems, long long flat_stride,
+                                          long long u_stride, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles < 1 || systems < 1 || systems > 65535 || flat_stride < 0 ||
+      flat_stride > 0x7fffffffLL || u_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   double* f = static_cast<double*>(flat);
   const double* uu = static_cast<const double*>(u);
   const int* lm = static_cast<const int*>(lmap);
   const int* t = static_cast<const int*>(tiles);
+  const dim3 grid(static_cast<unsigned>(n_tiles),
+                  static_cast<unsigned>(systems));
   if (f32)
-    panel_update_mapped_kernel<float><<<n_tiles, THREADS, 0, st>>>(
-        f, uu, lm, t, u_shift);
+    panel_update_mapped_kernel<float><<<grid, THREADS, 0, st>>>(
+        f, uu, lm, t, u_shift, flat_stride, u_stride);
   else
-    panel_update_mapped_kernel<double><<<n_tiles, THREADS, 0, st>>>(
-        f, uu, lm, t, u_shift);
+    panel_update_mapped_kernel<double><<<grid, THREADS, 0, st>>>(
+        f, uu, lm, t, u_shift, flat_stride, u_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -244,9 +244,37 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
     return out
 
 
+PANEL_MAX_SYSTEMS = 65535      # the mapped update's system axis (gridDim.y)
+
+
+def _system_strides(flat: torch.Tensor, u: torch.Tensor, systems: int,
+                    flat_stride, u_stride):
+    """(flat_stride, u_stride) with their defaults (an equal share of
+    ``flat`` / ``u`` per system), checked against the mapped update's
+    limits: 1 <= systems <= ``PANEL_MAX_SYSTEMS``, every system's run
+    inside its buffer, and int32 offsets within a system."""
+    if not 1 <= systems <= PANEL_MAX_SYSTEMS:
+        raise ValueError(f"systems must lie in [1, {PANEL_MAX_SYSTEMS}], got "
+                         f"{systems}")
+    fs = flat.numel() // systems if flat_stride is None else int(flat_stride)
+    us = u.numel() // systems if u_stride is None else int(u_stride)
+    if fs < 0 or us < 0 or systems * fs > flat.numel() \
+            or systems * us > u.numel():
+        raise ValueError(f"{systems} systems of flat_stride {fs} and "
+                         f"u_stride {us} do not fit flat ({flat.numel()}) "
+                         f"and u ({u.numel()})")
+    if fs >= 2 ** 31:
+        raise ValueError(f"the mapped panel update addresses each system's "
+                         f"store with int32 offsets; this store has {fs} "
+                         f"entries a system")
+    return fs, us
+
+
 def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
                         lmap: torch.Tensor, tiles: torch.Tensor, *,
-                        u_shift: int = 0, f32: bool = False) -> None:
+                        u_shift: int = 0, f32: bool = False,
+                        systems: int = 1, flat_stride=None,
+                        u_stride=None) -> None:
     """K3/K4 in place in a packed store: for every slice of the tile
     records ``tiles`` (``mapped_tiles``), ``acc -= L @ U`` where acc is the
     (M, N) row-major run of ``flat`` at acc_off, ``L[i, k] =
@@ -255,10 +283,21 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
     ``lmap`` and ``tiles`` int32; ``f32`` rounds acc, L and U to float32
     once each, runs the product in float32 and stores the widened result
     (the kernel backend).  On the card the whole set is one launch; acc
-    must not overlap any L entry (the sweep's L lies in earlier levels)."""
+    must not overlap any L entry (the sweep's L lies in earlier levels).
+
+    ``systems`` > 1 runs the same records on each of ``systems`` stores of
+    one structure in the same launch: system s's store is the run of
+    ``flat_stride`` entries at ``s * flat_stride`` and its U buffer the run
+    of ``u`` at ``s * u_stride`` (defaults: equal shares).  Each system's
+    result is bitwise the ``systems=1`` call on that system alone; offsets
+    are int32 within a system, so only ``flat_stride`` must stay below
+    2^31, not the batch."""
+    fs, us = _system_strides(flat, u, systems, flat_stride, u_stride)
     if _on_cpu(flat, u, lmap, tiles):
         plain.panel_update_mapped_plain(flat, u, lmap, tiles,
-                                        u_shift=u_shift, f32=f32)
+                                        u_shift=u_shift, f32=f32,
+                                        systems=systems, flat_stride=fs,
+                                        u_stride=us)
         return
     for name, t, dtype, ndim in (("flat", flat, torch.float64, 1),
                                  ("u", u, torch.float64, 1),
@@ -268,10 +307,6 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
     if tiles.shape[1] != PANEL_TILE_INTS:
         raise ValueError(f"tiles must be (T, {PANEL_TILE_INTS}) records, got "
                          f"{tuple(tiles.shape)}")
-    if flat.numel() >= 2 ** 31:
-        raise ValueError(f"the mapped panel update addresses the store with "
-                         f"int32 offsets; this store has {flat.numel()} "
-                         f"entries")
     n_tiles = tiles.shape[0]
     if n_tiles == 0:
         return
@@ -279,7 +314,7 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"{n_tiles} tiles are more than a grid holds")
     _launch("panel_update_mapped", flat.data_ptr(), u.data_ptr(),
             lmap.data_ptr(), tiles.data_ptr(), n_tiles, int(u_shift),
-            int(f32), _stream(flat))
+            int(f32), int(systems), fs, us, _stream(flat))
     panel_update_mapped.launches += 1
 
 

@@ -100,22 +100,32 @@ def panel_update_batched_plain(acc: torch.Tensor, l_panel: torch.Tensor,
 
 def panel_update_mapped_plain(flat: torch.Tensor, u: torch.Tensor,
                               lmap: torch.Tensor, tiles: torch.Tensor, *,
-                              u_shift: int = 0, f32: bool = False) -> None:
+                              u_shift: int = 0, f32: bool = False,
+                              systems: int = 1, flat_stride=None,
+                              u_stride=None) -> None:
     """In place in ``flat``: for every slice of the tile records ``tiles``
     (one per record with ``m0 = n0 = 0``), ``acc - L @ U`` through
     ``panel_update_plain``, L gathered through ``lmap`` (-1 -> 0.0), in
-    float64, or with acc, L and U rounded to float32 when ``f32``."""
-    for acc_off, map_off, u_off, m, n, k, m0, n0, *_ in tiles.tolist():
-        if m0 or n0:
-            continue
-        lm = lmap[map_off:map_off + m * k].view(m, k).long()
-        lp = torch.where(lm >= 0, flat[lm.clamp(min=0)], 0.0)
-        acc = flat[acc_off:acc_off + m * n].view(m, n)
-        b = u[u_off - u_shift:u_off - u_shift + k * n].view(k, n)
-        if f32:
-            acc.copy_(panel_update_plain(acc.float(), lp.float(), b.float()))
-        else:
-            acc.copy_(panel_update_plain(acc, lp, b))
+    float64, or with acc, L and U rounded to float32 when ``f32``.  With
+    ``systems`` > 1, the same records on each system's run of
+    ``flat_stride`` entries of ``flat`` and ``u_stride`` of ``u`` (defaults:
+    equal shares), one system after the other."""
+    fs = flat.numel() // systems if flat_stride is None else flat_stride
+    us = u.numel() // systems if u_stride is None else u_stride
+    recs = [r for r in tiles.tolist() if not (r[6] or r[7])]
+    for sy in range(systems):
+        f = flat[sy * fs:(sy + 1) * fs]
+        uu = u[sy * us:(sy + 1) * us]
+        for acc_off, map_off, u_off, m, n, k, *_ in recs:
+            lm = lmap[map_off:map_off + m * k].view(m, k).long()
+            lp = torch.where(lm >= 0, f[lm.clamp(min=0)], 0.0)
+            acc = f[acc_off:acc_off + m * n].view(m, n)
+            b = uu[u_off - u_shift:u_off - u_shift + k * n].view(k, n)
+            if f32:
+                acc.copy_(panel_update_plain(acc.float(), lp.float(),
+                                             b.float()))
+            else:
+                acc.copy_(panel_update_plain(acc, lp, b))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -16,6 +16,12 @@ blocks, plus iterative refinement:
   recorded relative-residual history is non-increasing by construction.
 
 Everything runs on the factors' device; nothing materializes (n, n).
+
+``solve_batch`` is the batched tier's counterpart over the B systems of a
+``BatchedNumericResult``: the sequential ``solve`` on each system's
+zero-copy store view — a batched cuBLAS product or triangular solve need
+not be bitwise its per-matrix form, and every system's x, residual history
+and accepted count must be bitwise the sequential ``solve``'s.
 """
 from __future__ import annotations
 
@@ -26,8 +32,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.numeric.storage import PanelStore
-from repro_torch.numeric.supernodal import NumericResult
+from repro_torch.numeric.storage import BatchedPanelStore, PanelStore
+from repro_torch.numeric.supernodal import BatchedNumericResult, NumericResult
 from repro_torch.obs import trace as _ot
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.numeric import CsrOperator
@@ -315,3 +321,105 @@ def solve(a: CSRMatrix, b, *, values, num: NumericResult,
     return SolveResult(x=x, residuals=residuals, num=num, factor_s=0.0,
                        solve_s=time.perf_counter() - t0,
                        refine_accepted=accepted)
+
+
+# -- batched-over-systems tier ----------------------------------------------
+
+
+def forward_substitute_batch(bstore: BatchedPanelStore,
+                             b: torch.Tensor) -> torch.Tensor:
+    """y_i with L_i y_i = b_i for every system, ``b`` (B, n) or (B, n, k):
+    ``forward_substitute`` on each system's zero-copy store view."""
+    return torch.stack([forward_substitute(bstore.system(i), b[i])
+                        for i in range(bstore.batch)])
+
+
+def backward_substitute_batch(bstore: BatchedPanelStore,
+                              y: torch.Tensor) -> torch.Tensor:
+    """x_i with U_i x_i = y_i for every system (``backward_substitute`` on
+    each system's view)."""
+    return torch.stack([backward_substitute(bstore.system(i), y[i])
+                        for i in range(bstore.batch)])
+
+
+def solve_factored_batch(bnum: BatchedNumericResult,
+                         b: torch.Tensor) -> torch.Tensor:
+    """x_i = U_i^{-1} L_i^{-1} b_i for every system of the batched factors,
+    ``b`` (B, n) or (B, n, k) (no refinement)."""
+    return backward_substitute_batch(
+        bnum.store, forward_substitute_batch(bnum.store, b))
+
+
+@dataclasses.dataclass
+class BatchedSolveResult:
+    """Solutions + per-system convergence histories of one ``solve_batch``.
+
+    ``x`` is (B, n) or (B, n, k) on the factors' device; ``residuals[i]``
+    is system i's accepted worst-column relative-residual history and
+    ``refine_accepted`` the (B,) accepted-correction counts — each what the
+    sequential ``solve`` of that system records.
+    """
+
+    x: torch.Tensor
+    residuals: List[List[float]]
+    num: BatchedNumericResult
+    solve_s: float
+    refine_accepted: np.ndarray
+
+    @property
+    def batch(self) -> int:
+        return self.num.batch
+
+    @property
+    def residual(self) -> np.ndarray:
+        """(B,) final per-system worst-column relative residuals."""
+        return np.array([h[-1] for h in self.residuals])
+
+    def system(self, i: int) -> SolveResult:
+        """System i as a sequential ``SolveResult`` (a view of ``x``)."""
+        return SolveResult(x=self.x[i], residuals=list(self.residuals[i]),
+                           num=self.num.system(i), factor_s=0.0,
+                           solve_s=0.0,
+                           refine_accepted=int(self.refine_accepted[i]))
+
+
+def solve_batch(a: CSRMatrix, b, values_batch, bnum: BatchedNumericResult,
+                *, refine_iters: int = 2, refine_tol: Optional[float] = None,
+                matvecs: Optional[List[CsrOperator]] = None
+                ) -> BatchedSolveResult:
+    """Substitution + iterative refinement for all B factored systems:
+    ``b`` is (B, n) or (B, n, k), ``values_batch`` the (B, nnz) stack
+    ``bnum`` was factored from (each system refines against its OWN
+    matrix; ``matvecs`` reuses prebuilt ``CsrOperator`` s).
+
+    Each system is the sequential ``solve`` on its zero-copy store view and
+    a fresh copy of its right-hand side, so every system's x, residual
+    history and accepted count are that call's: the refinement stops per
+    system and accepts whole x for a vector RHS, per column for (B, n, k).
+    """
+    t0 = time.perf_counter()
+    bsz, n = bnum.batch, bnum.n
+    dev = bnum.store.device
+    b = torch.as_tensor(b, dtype=torch.float64, device=dev)
+    if (b.dim() not in (2, 3) or b.shape[0] != bsz or b.shape[1] != n
+            or (b.dim() == 3 and b.shape[2] == 0)):
+        raise ValueError(f"b must be ({bsz}, {n}) or ({bsz}, {n}, k>=1), "
+                         f"got {tuple(b.shape)}")
+    values_batch = torch.as_tensor(values_batch, dtype=torch.float64,
+                                   device=dev)
+    if values_batch.dim() != 2 or values_batch.shape[0] != bsz:
+        raise ValueError(f"values_batch must be ({bsz}, nnz), got "
+                         f"{tuple(values_batch.shape)}")
+    if matvecs is None:
+        matvecs = [CsrOperator(a, values_batch[i]) for i in range(bsz)]
+    with _ot.span("solve_batch"):
+        res = [solve(a, b[i].clone(), values=values_batch[i],
+                     num=bnum.system(i), refine_iters=refine_iters,
+                     refine_tol=refine_tol, matvec=matvecs[i])
+               for i in range(bsz)]
+    return BatchedSolveResult(
+        x=torch.stack([r.x for r in res]),
+        residuals=[r.residuals for r in res], num=bnum,
+        solve_s=time.perf_counter() - t0,
+        refine_accepted=np.array([r.refine_accepted for r in res],
+                                 dtype=np.int64))

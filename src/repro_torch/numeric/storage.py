@@ -21,10 +21,18 @@ operations over the whole store instead of one launch per panel.
 pattern that the store and the scheduler consume; ``to_dense`` /
 ``dense_lu`` are test helpers — nothing on the factorization or solve path
 materializes (n, n).
+
+``BatchedPanelStore`` holds B value sets of one structure (the batched
+tier): a (B, total) flat buffer whose rows start 512-byte aligned, so
+``system(i)`` is a zero-copy ``PanelStore`` whose buffers sit at the same
+alignment as a fresh store's (BLAS kernels may pick their code path by
+pointer alignment, and the tier's per-system calls must be bitwise the
+sequential ones).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -187,30 +195,35 @@ class PanelStore:
         self.flat: Optional[torch.Tensor] = None
         self.blocks: Optional[List[torch.Tensor]] = None
         if device is not None:
-            self._allocate(device)
+            self._bind(torch.zeros(int(self.offsets[-1]), dtype=torch.float64,
+                                   device=device))
 
-    def _allocate(self, device) -> None:
-        self.device = torch.device(device)
-        self.flat = torch.zeros(int(self.offsets[-1]), dtype=torch.float64,
-                                device=self.device)
+    def _bind(self, flat: torch.Tensor) -> None:
+        """Take ``flat`` as the values; ``blocks`` become views into it."""
+        self.device = flat.device
+        self.flat = flat
         self.blocks = [
-            self.flat[int(o):int(o) + len(r) * int(e - s)].view(len(r),
-                                                                 int(e - s))
+            flat[int(o):int(o) + len(r) * int(e - s)].view(len(r), int(e - s))
             for o, r, (s, e) in zip(self.offsets, self.rows, self.supernodes)]
 
     @classmethod
     def from_structure(cls, template: "PanelStore", device,
-                       index: Optional[StoreIndex] = None) -> "PanelStore":
-        """A fresh store on ``device`` sharing ``template``'s
-        value-independent structure (read-only by contract) with newly
-        allocated zero blocks — how ``LUPlan.factorize`` reuses one analysis
-        across many factorizations."""
+                       index: Optional[StoreIndex] = None,
+                       flat: Optional[torch.Tensor] = None) -> "PanelStore":
+        """A store sharing ``template``'s value-independent structure
+        (read-only by contract): with newly allocated zero blocks on
+        ``device`` — how ``LUPlan.factorize`` reuses one analysis across
+        many factorizations — or, given ``flat``, a view of those values
+        (``BatchedPanelStore.system``)."""
         new = cls.__new__(cls)
         for name in ("n", "pattern", "supernodes", "sup_of_col", "rows",
                      "in_pattern", "diag", "offsets"):
             setattr(new, name, getattr(template, name))
         new.index = index
-        new._allocate(device)
+        if flat is None:
+            flat = torch.zeros(template.total_entries, dtype=torch.float64,
+                               device=device)
+        new._bind(flat)
         return new
 
     def __getstate__(self):
@@ -366,3 +379,156 @@ class PanelStore:
         """(unit-lower L, upper U) dense host factors — for parity tests."""
         m = self.to_dense()
         return np.tril(m, -1) + np.eye(self.n), np.triu(m)
+
+
+# float64 elements between the starts of two systems' rows of a batched
+# buffer: 512 bytes, the card's allocation rounding and a multiple of the
+# CPU allocator's 64-byte alignment
+_ROW_ALIGN = 64
+
+
+def batch_zeros(batch: int, shape, device,
+                dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Zero (batch, *shape) tensor whose every system slice ``[i]`` is
+    contiguous and starts 512-byte aligned, as a fresh allocation of
+    ``shape`` does: a BLAS call on a slice then sees the pointers the
+    sequential path's call sees."""
+    numel = math.prod(shape)
+    stride = max(_ROW_ALIGN, -(-numel // _ROW_ALIGN) * _ROW_ALIGN)
+    buf = torch.zeros((batch, stride), dtype=dtype, device=device)
+    return buf[:, :numel].view(batch, *shape)
+
+
+def batch_buffer(t: torch.Tensor) -> torch.Tensor:
+    """The 1-D buffer under a (B, ...) tensor whose system slices are
+    contiguous runs ``t.stride(0)`` apart from storage offset 0 (a
+    ``batch_zeros`` tensor, or any contiguous one): system s's run starts
+    at ``s * t.stride(0)``."""
+    if t.storage_offset() != 0 or not t[0].is_contiguous():
+        raise ValueError("batch_buffer needs contiguous system slices from "
+                         "the start of the storage")
+    return t.as_strided((t.shape[0] * t.stride(0),), (1,))
+
+
+class BatchedPanelStore:
+    """Packed CSC-panel storage for B same-pattern systems at once: one
+    (B, rows_J, w_J) float64 block per panel, views into one (B, total)
+    device buffer ``flat`` (rows 512-byte aligned, ``batch_zeros``), sharing
+    the plan template's value-independent structure (rows / diag /
+    in_pattern / pattern — read-only by contract) across the batch.
+
+    The storage half of the many-matrix tier: circuit-style workloads
+    factorize ONE sparsity pattern with many value sets (Newton iterations,
+    transient sweeps, Monte Carlo corners), so the system axis is leading
+    and gathers, scatters and the trailing updates run over it.
+    ``system(i)`` is a zero-copy ``PanelStore`` over system i's values, on
+    which the sequential solve and ``dense_lu`` run unchanged.
+    """
+
+    def __init__(self, template: PanelStore, batch: int, device,
+                 index: Optional[StoreIndex] = None):
+        if batch <= 0:
+            raise ValueError(f"batch must be positive, got {batch}")
+        self.batch = batch
+        self.n = template.n
+        self.template = template
+        self.index = index
+        self.device = torch.device(device)
+        self.flat = batch_zeros(batch, (template.total_entries,), device)
+        self.blocks: List[torch.Tensor] = [
+            self.flat[:, int(o):int(o) + len(r) * int(e - s)].view(
+                batch, len(r), int(e - s))
+            for o, r, (s, e) in zip(template.offsets, template.rows,
+                                    template.supernodes)]
+        self._systems: List[Optional[PanelStore]] = [None] * batch
+        self._solve_schedule = None     # the plan's, handed to system views
+
+    # structure accessors delegate to the shared template
+    @property
+    def supernodes(self) -> np.ndarray:
+        return self.template.supernodes
+
+    @property
+    def rows(self) -> List[np.ndarray]:
+        return self.template.rows
+
+    @property
+    def diag(self) -> np.ndarray:
+        return self.template.diag
+
+    @property
+    def in_pattern(self) -> List[np.ndarray]:
+        return self.template.in_pattern
+
+    @property
+    def n_panels(self) -> int:
+        return self.template.n_panels
+
+    @property
+    def total_entries(self) -> int:
+        """Allocated float64 slots of ONE system."""
+        return self.template.total_entries
+
+    @property
+    def nbytes(self) -> int:
+        return 8 * self.batch * self.total_entries
+
+    def system(self, i: int) -> PanelStore:
+        """Zero-copy ``PanelStore`` of system ``i`` (built once, cached):
+        its ``flat`` is ``flat[i]`` and its blocks are views into it."""
+        if not 0 <= i < self.batch:
+            raise IndexError(f"system {i} out of range for batch "
+                             f"{self.batch}")
+        if self._systems[i] is None:
+            view = PanelStore.from_structure(self.template, self.device,
+                                             self.index, flat=self.flat[i])
+            view._solve_schedule = self._solve_schedule
+            self._systems[i] = view
+        return self._systems[i]
+
+    def set_csr_mapped(self, values: torch.Tensor, maps: CsrScatterMaps, *,
+                       zero: bool = True) -> torch.Tensor:
+        """Scatter (B, nnz) CSR-aligned float64 ``values`` (on the store's
+        device) into every system's blocks with one indexed copy — per
+        system bitwise ``PanelStore.set_csr_mapped``.  Returns the (B,)
+        per-system largest |value| whose slot the store lacks (device
+        tensor, no host sync)."""
+        if tuple(values.shape) != (self.batch, maps.nnz):
+            raise ValueError(f"CSR values must be ({self.batch}, "
+                             f"{maps.nnz}), got {tuple(values.shape)}")
+        if self.index is None:
+            self.index = self.template.build_index(maps, self.device)
+        if zero:
+            self.flat.zero_()
+        self.flat[:, self.index.csr_flat] = values[:, self.index.csr_pos]
+        if self.index.missed is not None:
+            return values[:, self.index.missed].abs().amax(dim=1)
+        return values.new_zeros(self.batch)
+
+    def diag_block(self, j: int) -> torch.Tensor:
+        """The (B, w, w) packed L\\U diagonal blocks of panel j (a view)."""
+        s, e = self.supernodes[j]
+        d = int(self.diag[j])
+        return self.blocks[j][:, d:d + int(e - s)]
+
+    def gather_rows_mapped(self, j: int, g: RowGather) -> torch.Tensor:
+        """(B, g.m, w_j) gather of panel j through a device row map, in a
+        ``batch_zeros`` buffer; per system bitwise
+        ``PanelStore.gather_rows_mapped`` (absent rows are 0.0)."""
+        block = self.blocks[j]
+        out = batch_zeros(self.batch, (g.m, block.shape[2]), self.device)
+        if g.pos is None:
+            out.copy_(block.index_select(1, g.sel))
+        else:
+            out[:, g.pos] = block.index_select(1, g.sel)
+        return out
+
+    def padding_max(self) -> torch.Tensor:
+        """(B,) per-system largest |value| on a padded slot (device)."""
+        if self.index.pad_flat is None:
+            return self.flat.new_zeros(self.batch)
+        return self.flat[:, self.index.pad_flat].abs().amax(dim=1)
+
+    def zero_padding(self) -> None:
+        if self.index.pad_flat is not None:
+            self.flat[:, self.index.pad_flat] = 0.0

@@ -25,6 +25,15 @@ packed blocks of ``storage.PanelStore`` on the store's device:
 Entries outside the symbolic prediction stay exactly zero except at a
 panel's explicit padding, which is bounded by ``pattern_tol`` and zeroed —
 anything larger raises (the ``validate_symbolic`` contract).
+
+``factor_batch_on_store`` is the same sweep over B value sets of one plan
+(the batched tier) in a ``storage.BatchedPanelStore``: gathers, scatters,
+the diagonal LU's column loop and the trailing updates (one mapped K3/K4
+launch per level for all B systems) run over the system axis; the
+triangular solves and the small products of phase A and phase B stay one
+call per system, on buffers at the sequential path's alignment, because a
+batched cuBLAS call need not be bitwise its per-matrix form.  So every
+system's factors are bitwise ``factor_on_store`` on that system alone.
 """
 from __future__ import annotations
 
@@ -40,12 +49,15 @@ from repro_torch.numeric.schedule import (
     DevicePanelMaps, PanelSchedule, UpdateMaps, build_gather_maps,
     build_update_maps, device_maps,
 )
-from repro_torch.numeric.storage import PanelStore
+from repro_torch.numeric.storage import (
+    BatchedPanelStore, PanelStore, batch_buffer, batch_zeros,
+)
 from repro_torch.obs import metrics as _om
 from repro_torch.obs import trace as _ot
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.numeric import (
-    ZeroPivotError, check_pivots, lu_inplace, pivot_tolerance,
+    ZeroPivotError, check_pivots, check_pivots_batched, lu_inplace,
+    lu_inplace_batched, pivot_tolerance,
 )
 
 _BACKENDS = ("numpy", "kernel")
@@ -160,12 +172,22 @@ def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
         block[below:] = _solve_upper_right(diag, block[below:])
 
 
-def _trailing_update(store: PanelStore, upd: UpdateMaps, lo: int, hi: int,
+def _trailing_update(store, upd: UpdateMaps, lo: int, hi: int,
                      u: torch.Tensor, backend: str, u_shift: int = 0) -> None:
     """``acc -= L @ U`` in place for the slices of tile records [lo, hi):
     the mapped panel update (K3/K4), L read in place through ``upd.lmap``,
     in float64, or in float32 on the kernel backend.  On the CPU its plain
-    version, slice by slice."""
+    version, slice by slice.  For a ``BatchedPanelStore`` ``u`` is (B, K)
+    with each system's row a contiguous run (``batch_buffer``) and one
+    launch updates every system (the system stride)."""
+    if isinstance(store, BatchedPanelStore):
+        kops.panel_update_mapped(batch_buffer(store.flat), batch_buffer(u),
+                                 upd.lmap, upd.tiles[lo:hi], u_shift=u_shift,
+                                 f32=backend == "kernel",
+                                 systems=store.batch,
+                                 flat_stride=store.flat.stride(0),
+                                 u_stride=u.stride(0))
+        return
     kops.panel_update_mapped(store.flat, u, upd.lmap, upd.tiles[lo:hi],
                              u_shift=u_shift, f32=backend == "kernel")
 
@@ -214,18 +236,25 @@ def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
         _trailing_update(store, upd, int(upd.level_tiles[li]),
                          int(upd.level_tiles[li + 1]), torch.cat(bs),
                          backend)
-    if _ot.ENABLED and upd.batched[li, 0]:
-        # the reference's stacked same-shape groups of this level (static
-        # per plan, tallied in ``UpdateMaps.batched``)
-        calls, panels, flops, nbytes = (int(x) for x in upd.batched[li])
-        reg = _om.registry()
-        reg.count("gemm.batched.calls", calls)
-        reg.count("gemm.batched.panels", panels)
-        reg.count("gemm.batched.flops", flops)
-        reg.count("gemm.batched.bytes", nbytes)
+    if _ot.ENABLED:
+        _count_batched_gemms(upd, li, 1)
     for j in seg:
         _panel_finish(store, schedule, int(j))
     return out
+
+
+def _count_batched_gemms(upd: UpdateMaps, li: int, systems: int) -> None:
+    """``gemm.batched.*`` of level ``li`` (tracing only): the reference's
+    stacked same-shape groups of more than one panel, static per plan
+    (``UpdateMaps.batched``), flops and bytes times ``systems``."""
+    calls, panels, flops, nbytes = (int(x) for x in upd.batched[li])
+    if not calls:
+        return
+    reg = _om.registry()
+    reg.count("gemm.batched.calls", calls)
+    reg.count("gemm.batched.panels", panels)
+    reg.count("gemm.batched.flops", flops * systems)
+    reg.count("gemm.batched.bytes", nbytes * systems)
 
 
 def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
@@ -338,3 +367,253 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
                          elapsed_s=time.perf_counter() - t0,
                          n_updates=n_updates, gemm_flops=gemm_flops,
                          outside_max=outside_max)
+
+
+@dataclasses.dataclass
+class BatchedNumericResult:
+    """Factors of B same-pattern value sets in one ``BatchedPanelStore``.
+
+    ``n_updates``/``gemm_flops`` are *per system* — the sweep structure is
+    value-independent, so every system does identical work.
+    ``outside_max`` is the (B,) per-system escape check.  ``system(i)``
+    wraps system i's zero-copy store view as a plain ``NumericResult`` so
+    per-system consumers (solve, dense reconstruction) run unchanged.
+    """
+
+    n: int
+    batch: int
+    store: BatchedPanelStore
+    schedule: PanelSchedule
+    backend: str
+    elapsed_s: float
+    n_updates: int               # ancestor panel updates, per system
+    gemm_flops: int              # trailing-update flops, per system
+    outside_max: np.ndarray      # (B,) largest |value| outside the pattern
+
+    @property
+    def n_supernodes(self) -> int:
+        return self.schedule.n_panels
+
+    @property
+    def n_levels(self) -> int:
+        return self.schedule.n_levels
+
+    def system(self, i: int) -> NumericResult:
+        return NumericResult(n=self.n, store=self.store.system(i),
+                             schedule=self.schedule, backend=self.backend,
+                             elapsed_s=0.0, n_updates=self.n_updates,
+                             gemm_flops=self.gemm_flops,
+                             outside_max=float(self.outside_max[i]))
+
+
+def _panel_prepare_batched(bstore: BatchedPanelStore,
+                           schedule: PanelSchedule, j: int,
+                           maps: Optional[DevicePanelMaps]):
+    """``_panel_prepare`` over the system axis: one gather and one U-row
+    scatter serve all B systems; each ancestor's unit-lower solve and rank
+    update are one call per system on that system's slices (buffers at the
+    sequential path's alignment, ``storage.batch_zeros``), so every system
+    sees the sequential calls.  Returns (b (B, K, w), dropped (B,) or None,
+    flops per system)."""
+    s, e = schedule.supernodes[j]
+    w = int(e - s)
+    anc = schedule.ancestors[j]
+    if not len(anc):
+        return None, None, 0
+    offs = maps.offs
+    b = bstore.gather_rows_mapped(j, maps.target)         # (B, K, w)
+    for idx, k in enumerate(anc):
+        r0, r1 = int(offs[idx]), int(offs[idx + 1])
+        strip = bstore.gather_rows_mapped(int(k), maps.strips[idx])
+        for i in range(bstore.batch):
+            if r1 - r0 > 1:       # a 1-row unit-lower solve is the identity
+                b[i, r0:r1] = _solve_unit_lower(strip[i, :r1 - r0],
+                                                b[i, r0:r1])
+            if r1 < maps.n_rows:
+                b[i, r1:] -= strip[i, r1 - r0:] @ b[i, r0:r1]
+    block = bstore.blocks[j]
+    tgt = maps.target
+    block[:, tgt.sel] = b if tgt.pos is None else b[:, tgt.pos]
+    dropped = (b[:, maps.miss].abs().amax(dim=(1, 2))
+               if maps.miss is not None else None)
+    rows = block.shape[1] - int(bstore.diag[j])
+    return b, dropped, 2 * rows * maps.n_rows * w
+
+
+def _panel_finish_batched(bstore: BatchedPanelStore,
+                          schedule: PanelSchedule, j: int) -> None:
+    """``_panel_finish`` over the system axis: the elementwise batched
+    diagonal LU, then the below-panel solve — one division for a 1-wide
+    panel, one triangular solve per system otherwise."""
+    block = bstore.blocks[j]
+    diag = bstore.diag_block(j)
+    lu_inplace_batched(diag)
+    below = int(bstore.diag[j]) + diag.shape[1]
+    if block.shape[1] > below:
+        if diag.shape[1] == 1:
+            block[:, below:] = block[:, below:] / diag[:, :1, :1]
+        else:
+            for i in range(bstore.batch):
+                block[i, below:] = _solve_upper_right(diag[i],
+                                                      block[i, below:])
+
+
+def _factor_panel_batched(bstore: BatchedPanelStore, schedule, j: int,
+                          backend: str, maps, upd: UpdateMaps):
+    """Phase A, the panel's trailing update for all B systems (one mapped
+    K3/K4 launch) and phase B of panel j (per-panel dispatch).  Returns
+    (#ancestor updates, trailing flops, dropped)."""
+    b, dropped, flops = _panel_prepare_batched(bstore, schedule, j, maps)
+    if b is not None:
+        lo, hi = (int(x) for x in upd.panel_tiles[j])
+        _trailing_update(bstore, upd, lo, hi, b.reshape(bstore.batch, -1),
+                         backend, u_shift=int(upd.u_off[j]))
+    _panel_finish_batched(bstore, schedule, j)
+    return len(schedule.ancestors[j]), flops, dropped
+
+
+def _factor_level_batched(bstore: BatchedPanelStore, schedule, li: int,
+                          level, backend: str, maps, upd: UpdateMaps):
+    """Level ``li`` for all B systems with ONE trailing-update launch: phase
+    A for every panel, the level's solved U rows stacked as (B, K_level)
+    in level order, one mapped K3/K4 launch over the systems, then every
+    phase B.  Returns per-panel ``(j, n_updates, flops, dropped)``."""
+    out, bs = [], []
+    for j in level:
+        j = int(j)
+        b, dropped, flops = _panel_prepare_batched(bstore, schedule, j,
+                                                   maps[j])
+        out.append((j, len(schedule.ancestors[j]), flops, dropped))
+        if b is not None:
+            bs.append(b.reshape(bstore.batch, -1))
+    if bs:
+        # each system's U rows at a fresh buffer's alignment, as the
+        # sequential level's concatenation (the plain version's products)
+        u = batch_zeros(bstore.batch, (sum(b.shape[1] for b in bs),),
+                        bstore.device)
+        u.copy_(torch.cat(bs, dim=1))
+        _trailing_update(bstore, upd, int(upd.level_tiles[li]),
+                         int(upd.level_tiles[li + 1]), u, backend)
+    for j in level:
+        _panel_finish_batched(bstore, schedule, int(j))
+    return out
+
+
+def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
+                          bstore: BatchedPanelStore,
+                          schedule: PanelSchedule, *,
+                          backend: str = "numpy",
+                          piv_tol: Optional[float] = None,
+                          check_pattern: bool = True,
+                          pattern_tol: Optional[float] = None,
+                          maps: Optional[List[Optional[DevicePanelMaps]]] = None,
+                          update_maps: Optional[UpdateMaps] = None,
+                          csr_maps=None,
+                          store_is_zeroed: bool = False,
+                          segment_batch: bool = True
+                          ) -> BatchedNumericResult:
+    """``factor_on_store`` over B same-pattern value sets: scatter the
+    (B, nnz) CSR-aligned stack into ``bstore`` and run ONE level-scheduled
+    sweep whose every per-panel step carries the leading system axis.
+
+    System i's factors are **bitwise** ``factor_on_store(a,
+    values_batch[i], ...)`` on a store of its own: the scatter, gathers,
+    diagonal LU and the mapped K3/K4 run over the systems (each system of
+    a multi-system launch is bitwise the one-system launch), the solves and
+    phase A's products are the sequential calls, one per system.  Pivot
+    tolerance (``piv_tol=None``: eps at each system's own value scale), the
+    pattern-escape check and ``ZeroPivotError`` (naming the system) are per
+    system.  The trailing updates are one launch per level for all systems
+    with ``segment_batch`` (one per panel without)."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
+    n = bstore.n
+    bsz = bstore.batch
+    if pattern_tol is None:
+        pattern_tol = 1e-4 if backend == "kernel" else 1e-8
+    t0 = time.perf_counter()
+
+    values_batch = torch.as_tensor(values_batch, dtype=torch.float64,
+                                   device=bstore.device)
+    template = bstore.template
+    if csr_maps is None:
+        if a is None:
+            raise ValueError(
+                "batched CSR values need the matrix `a` or precomputed "
+                "`csr_maps` to locate their slots")
+        csr_maps = template.csr_maps(a)
+    if tuple(values_batch.shape) != (bsz, csr_maps.nnz):
+        raise ValueError(
+            f"values_batch must be ({bsz}, {csr_maps.nnz}) CSR-aligned, "
+            f"got {tuple(values_batch.shape)}")
+    with _ot.span("scatter_values"):
+        dropped = [bstore.set_csr_mapped(values_batch, csr_maps,
+                                         zero=not store_is_zeroed)]
+
+    scale = (values_batch.abs().amax(dim=1).cpu().numpy() if csr_maps.nnz
+             else np.zeros(bsz, dtype=np.float64))
+    if piv_tol is None:
+        # pivot_tolerance at each system's own value scale
+        piv_tol_sys = np.finfo(np.float64).eps * np.maximum(scale, 0.0)
+    else:
+        piv_tol_sys = np.full(bsz, float(piv_tol))
+    if maps is None or update_maps is None:
+        host_maps = build_gather_maps(template, schedule)
+        if maps is None:
+            maps = device_maps(host_maps, bstore.device)
+        if update_maps is None:
+            update_maps = build_update_maps(template, schedule,
+                                            host_maps).to(bstore.device)
+
+    n_updates = 0
+    gemm_flops = 0
+    obs_on = _ot.ENABLED
+    sweep_t0 = time.perf_counter() if obs_on else 0.0
+    for li, level in enumerate(schedule.levels):
+        with _ot.span("factor_level"), _ot.span("factor_segment"):
+            if segment_batch and len(level) > 1:
+                panel_stats = _factor_level_batched(
+                    bstore, schedule, li, level, backend, maps, update_maps)
+            else:
+                panel_stats = [(int(j),) + _factor_panel_batched(
+                    bstore, schedule, int(j), backend, maps[j], update_maps)
+                    for j in level]
+            if obs_on:
+                _count_batched_gemms(update_maps, li, bsz)
+            for j, upd, flops, drop in panel_stats:
+                n_updates += upd
+                gemm_flops += flops
+                if drop is not None:
+                    dropped.append(drop)
+            # every pivot this level divided by, in execution order
+            cols = np.concatenate([np.arange(*schedule.supernodes[j])
+                                   for j in level])
+            pivs = torch.cat([bstore.diag_block(int(j)).diagonal(
+                dim1=1, dim2=2) for j in level], dim=1)
+            try:
+                check_pivots_batched(cols, pivs, piv_tol_sys)
+            except ZeroPivotError as e:
+                raise e.with_context(panel=int(template.sup_of_col[e.k]),
+                                     level=li)
+    if obs_on:
+        reg = _om.registry()
+        reg.count("gemm.flops", gemm_flops * bsz)
+        reg.count("gemm.seconds", time.perf_counter() - sweep_t0)
+
+    dropped.append(bstore.padding_max())
+    outside_max = torch.stack(dropped).amax(dim=0).cpu().numpy()
+    bad = outside_max > pattern_tol * scale
+    if check_pattern and bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise ValueError(
+            f"numeric factorization escaped the symbolic prediction: "
+            f"system {i} has |{outside_max[i]:.3e}| outside the pattern "
+            f"(tol {pattern_tol * scale[i]:.3e}) — symbolic "
+            f"under-prediction")
+    bstore.zero_padding()
+
+    return BatchedNumericResult(n=n, batch=bsz, store=bstore,
+                                schedule=schedule, backend=backend,
+                                elapsed_s=time.perf_counter() - t0,
+                                n_updates=n_updates, gemm_flops=gemm_flops,
+                                outside_max=outside_max)

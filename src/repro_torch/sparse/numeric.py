@@ -18,35 +18,42 @@ class ZeroPivotError(ArithmeticError):
 
     ``k`` is the global pivot column; the sweep that owns the failure
     annotates where it happened: ``panel``/``level`` from the supernodal
-    level schedule.
+    level schedule, and ``system`` (the batch index) when the
+    batched-systems tier trips it.
     """
 
     def __init__(self, k: int, piv: float, tol: float, *,
-                 panel: int | None = None, level: int | None = None):
+                 panel: int | None = None, level: int | None = None,
+                 system: int | None = None):
         self.k = int(k)
         self.piv = float(piv)
         self.tol = float(tol)
         self.panel = None if panel is None else int(panel)
         self.level = None if level is None else int(level)
+        self.system = None if system is None else int(system)
         super().__init__(self._message())
 
     def _message(self) -> str:
         where = "".join(
             f" {name} {val}" for name, val in
-            (("panel", self.panel), ("level", self.level)) if val is not None)
+            (("panel", self.panel), ("level", self.level),
+             ("system", self.system)) if val is not None)
         return (f"zero pivot at column {self.k}"
                 + (f" [{where.strip()}]" if where else "")
                 + f": |{self.piv:.3e}| <= tol {self.tol:.3e} "
                 f"(matrix needs pivoting or is singular)")
 
     def with_context(self, *, panel: int | None = None,
-                     level: int | None = None) -> "ZeroPivotError":
+                     level: int | None = None,
+                     system: int | None = None) -> "ZeroPivotError":
         """Annotate in-flight attribution and refresh the message.  Returns
         ``self`` so callers can ``raise e.with_context(...)``."""
         if panel is not None:
             self.panel = int(panel)
         if level is not None:
             self.level = int(level)
+        if system is not None:
+            self.system = int(system)
         self.args = (self._message(),)
         return self
 
@@ -71,6 +78,23 @@ def check_pivots(cols: np.ndarray, pivs: torch.Tensor,
     if bool(bad.any()):
         i = int(torch.nonzero(bad)[0, 0])
         raise ZeroPivotError(int(cols[i]), float(pivs[i]), piv_tol)
+
+
+def check_pivots_batched(cols: np.ndarray, pivs: torch.Tensor,
+                         piv_tol: np.ndarray) -> None:
+    """The pivot contract for B systems' pivots ``pivs`` (B, P) at one host
+    sync, each system against its own threshold ``piv_tol[i]``: raise for
+    the first failing column in execution order, at the lowest failing
+    system there — the (column, system) the per-column batched elimination
+    would stop at."""
+    tol = torch.as_tensor(np.asarray(piv_tol, dtype=np.float64),
+                          device=pivs.device)
+    bad = ~torch.isfinite(pivs) | (pivs.abs() <= tol[:, None])
+    if bool(bad.any()):
+        c = int(torch.nonzero(bad.any(dim=0))[0, 0])
+        i = int(torch.nonzero(bad[:, c])[0, 0])
+        raise ZeroPivotError(int(cols[c]), float(pivs[i, c]),
+                             float(piv_tol[i]), system=i)
 
 
 def generic_values_csr(a: CSRMatrix, seed: int = 0) -> np.ndarray:
@@ -100,23 +124,33 @@ def generic_values_csr(a: CSRMatrix, seed: int = 0) -> np.ndarray:
 
 class CsrOperator:
     """y = A @ x with CSR-aligned float64 values on one device — the O(nnz)
-    matvec of iterative refinement.  The row ids and column indices go to
-    the device once; ``x`` may be (n,) or a multi-RHS block (n, k)."""
+    matvec of iterative refinement.  The row lengths and column indices go
+    to the device once; ``x`` may be (n,) or a multi-RHS block (n, k),
+    reduced one column at a time as the reference's per-column bincount.
+
+    Each row is summed by ``torch.segment_reduce``, which takes no atomics:
+    the same inputs give the same bits on every run, on the card too
+    (``index_add_`` sums a row with atomics there, in whatever order they
+    land), so a solve can be repeated — and the batched tier's solves
+    checked — bitwise."""
 
     def __init__(self, a: CSRMatrix, vals: torch.Tensor):
         dev = vals.device
         self.n = a.n
         self.vals = vals
-        self.row_of = torch.as_tensor(
-            np.repeat(np.arange(a.n, dtype=np.int64), np.diff(a.indptr)),
-            device=dev)
+        self.lengths = torch.as_tensor(np.diff(a.indptr).astype(np.int64),
+                                       device=dev)
         self.cols = torch.as_tensor(a.indices.astype(np.int64), device=dev)
 
+    def _rows(self, prod: torch.Tensor) -> torch.Tensor:
+        return torch.segment_reduce(prod, "sum", lengths=self.lengths,
+                                    unsafe=True)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        prod = x[self.cols]
-        prod = prod * (self.vals if x.dim() == 1 else self.vals[:, None])
-        out = x.new_zeros((self.n,) + tuple(x.shape[1:]))
-        return out.index_add_(0, self.row_of, prod)
+        if x.dim() == 1:
+            return self._rows(x[self.cols] * self.vals)
+        return torch.stack([self._rows(x[self.cols, c] * self.vals)
+                            for c in range(x.shape[1])], dim=1)
 
 
 def csr_matvec(a: CSRMatrix, vals: torch.Tensor,
@@ -135,3 +169,15 @@ def lu_inplace(m: torch.Tensor) -> None:
     for t in range(w - 1):
         m[t + 1:, t] /= m[t, t]
         m[t + 1:, t + 1:] -= torch.outer(m[t + 1:, t], m[t, t + 1:])
+
+
+def lu_inplace_batched(m: torch.Tensor) -> None:
+    """``lu_inplace`` over a leading system axis: ``m`` is (B, w, w), one
+    same-structure diagonal block per system.  Every operation is
+    elementwise (a division by the pivot and an outer-product update), so
+    each slice is bitwise ``lu_inplace`` on that system alone.  Pivots are
+    checked by the caller (``check_pivots_batched``)."""
+    w = m.shape[1]
+    for t in range(w - 1):
+        m[:, t + 1:, t] /= m[:, t, t, None]
+        m[:, t + 1:, t + 1:] -= m[:, t + 1:, t, None] * m[:, t, None, t + 1:]

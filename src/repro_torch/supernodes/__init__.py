@@ -4,13 +4,16 @@ from repro_torch.supernodes.balance import (
     PanelPartition, pack_panels, supernode_weights,
 )
 from repro_torch.supernodes.detect import (
-    detect_from_fingerprints, merge_flags, ranges_from_flags,
-    supernode_stats,
+    detect_from_fingerprints, detect_supernodes_batched, merge_flags,
+    ranges_from_flags, supernode_stats,
 )
-from repro_torch.supernodes.fingerprint import ColumnFingerprints, mix1, mix2
+from repro_torch.supernodes.fingerprint import (
+    ColumnFingerprints, fingerprints_from_graph, mix1, mix2,
+)
 
 __all__ = [
     "PanelPartition", "pack_panels", "supernode_weights",
-    "detect_from_fingerprints", "merge_flags", "ranges_from_flags",
-    "supernode_stats", "ColumnFingerprints", "mix1", "mix2",
+    "detect_from_fingerprints", "detect_supernodes_batched", "merge_flags",
+    "ranges_from_flags", "supernode_stats", "ColumnFingerprints",
+    "fingerprints_from_graph", "mix1", "mix2",
 ]

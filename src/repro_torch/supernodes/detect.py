@@ -38,6 +38,8 @@ columns, matching the serial size-reset semantics.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from repro_torch.obs import metrics as _om
@@ -100,6 +102,26 @@ def detect_from_fingerprints(fp: ColumnFingerprints, *, relax: int = 0,
             for w in (ranges[:, 1] - ranges[:, 0]).tolist():
                 reg.observe("supernodes.size", w)
         return ranges
+
+
+def detect_supernodes_batched(a, *, relax: int = 0, max_size: int = 64,
+                              concurrency: int = 128, backend: str = "ell",
+                              bubble: bool = False,
+                              fp: Optional[ColumnFingerprints] = None,
+                              device=None) -> np.ndarray:
+    """CSR (or a prepared ``SymbolicGraph``) in, supernode ranges out,
+    never materializing the dense pattern.  Pass ``fp`` to reuse the
+    fingerprints of a symbolic run; otherwise one multi-source fixpoint
+    pass on ``device`` (default: the card) collects them."""
+    if fp is None:
+        from repro_torch.core.gsofa import prepare_graph
+        from repro_torch.supernodes.fingerprint import fingerprints_from_graph
+
+        graph = (a if not hasattr(a, "indptr")
+                 else prepare_graph(a, device=device))
+        fp = fingerprints_from_graph(graph, concurrency=concurrency,
+                                     backend=backend, bubble=bubble)
+    return detect_from_fingerprints(fp, relax=relax, max_size=max_size)
 
 
 def supernode_stats(ranges: np.ndarray) -> dict:

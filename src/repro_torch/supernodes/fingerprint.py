@@ -131,3 +131,18 @@ class ColumnFingerprints:
                        torch.as_tensor(cols, device=dev)].cpu().numpy()
             self.subdiag[kept_srcs[rows]] = vals < cols
         return len(keep)
+
+
+def fingerprints_from_graph(graph, *, concurrency: int = 128,
+                            backend: str = "ell", bubble: bool = False,
+                            use_arena: bool = True) -> ColumnFingerprints:
+    """Run the multi-source fixpoint on the graph's device purely to collect
+    fingerprints (``symbolic_factorize(detect_supernodes=True)`` gets them
+    from the same pass).  Bubble chunks hand K2 label chunks narrower than
+    n."""
+    from repro_torch.core.multisource import run_multisource
+
+    fp = ColumnFingerprints(n=graph.n)
+    run_multisource(graph, concurrency=concurrency, backend=backend,
+                    bubble=bubble, use_arena=use_arena, on_chunk=fp.update)
+    return fp

@@ -93,7 +93,7 @@ def test_luoptions_validation_matches_reference(bad):
 
 
 @pytest.mark.parametrize("later", [
-    dict(bubble=True), dict(pivot="static"), dict(perturb=True),
+    dict(pivot="static"), dict(perturb=True),
     dict(blocking=True), dict(autotune=True), dict(distribute=True),
     dict(runtime="dynamic"),
 ])

@@ -228,6 +228,86 @@ def test_panel_update_mapped_kernel_is_dense_k3(cuda, f32):
         assert torch.equal(all_at_once[sl].view(m, n), dense)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+def test_panel_update_mapped_systems_bitwise(cuda, f32):
+    """One launch over 5 systems (padded system strides) gives every
+    system bitwise the one-system launch on that system alone and the
+    plain version within tolerance, and writes nothing between systems."""
+    flat0, u0, lmap, tiles = _mapped_inputs(MAPPED_SHAPES, seed=11)
+    rng = np.random.default_rng(12)
+    systems, fs, us = 5, len(flat0) + 3, len(u0) + 5
+    flat = rng.standard_normal(systems * fs)
+    u = rng.standard_normal(systems * us)
+    lmap_d, tiles_d = (torch.as_tensor(x, device=cuda)
+                       for x in (lmap, tiles))
+    got = torch.as_tensor(flat, device=cuda)
+    u_d = torch.as_tensor(u, device=cuda)
+    before = ops.panel_update_mapped.launches
+    ops.panel_update_mapped(got, u_d, lmap_d, tiles_d, f32=f32,
+                            systems=systems, flat_stride=fs, u_stride=us)
+    assert ops.panel_update_mapped.launches == before + 1
+    want = torch.as_tensor(flat, device=cuda)
+    plain.panel_update_mapped_plain(want, u_d, lmap_d, tiles_d, f32=f32,
+                                    systems=systems, flat_stride=fs,
+                                    u_stride=us)
+    torch.cuda.synchronize()
+    eps = 2e-6 if f32 else 1e-14
+    k_max = int(tiles[:, 5].max())
+    for sy in range(systems):
+        one = torch.as_tensor(flat[sy * fs:sy * fs + len(flat0)],
+                              device=cuda)
+        ops.panel_update_mapped(one, u_d[sy * us:(sy + 1) * us].clone(),
+                                lmap_d, tiles_d, f32=f32)
+        mine = got[sy * fs:sy * fs + len(flat0)]
+        assert torch.equal(mine.view(torch.int64), one.view(torch.int64))
+        pad = slice(sy * fs + len(flat0), (sy + 1) * fs)
+        assert torch.equal(got[pad], torch.as_tensor(flat[pad], device=cuda))
+        tol = (eps * k_max * float(np.abs(flat).max())
+               * float(np.abs(u).max()))
+        assert float((mine - want[sy * fs:sy * fs + len(flat0)]
+                      ).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_batched_tier_on_card_bitwise(cuda, backend):
+    """factorize_batch on the card: one mapped launch per level for all
+    systems, every system's factors bitwise its sequential factorization;
+    solve_batch bitwise the sequential solves (which repeat bitwise); a
+    NaN pivot in system 1 is named."""
+    import repro_torch
+    from repro_torch.sparse import bordered_block_diagonal
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = bordered_block_diagonal(400, block=16, border=16, seed=2)
+    vb = np.stack([generic_values_csr(a, seed=s) for s in range(3)])
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=64, numeric_backend=backend), device=cuda)
+    levels = sum(any(plan.gather_maps[j] is not None for j in lv)
+                 for lv in plan.schedule.levels)
+    before = ops.panel_update_mapped.launches
+    bf = plan.factorize_batch(vb)
+    assert ops.panel_update_mapped.launches == before + levels
+    rhs = np.random.default_rng(3).standard_normal((3, a.n))
+    rhs4 = np.random.default_rng(4).standard_normal((3, a.n, 2))
+    solved, solved4 = bf.solve_batch(rhs), bf.solve_batch(rhs4)
+    for i in range(3):
+        seq = plan.factorize(vb[i])
+        assert torch.equal(seq.store.flat, bf.store.flat[i])
+        for b, res in ((rhs, solved), (rhs4, solved4)):
+            s1, s2 = seq.solve(b[i]), seq.solve(b[i])
+            assert torch.equal(s1.x, s2.x)
+            assert torch.equal(s1.x, res.x[i])
+            assert s1.residuals == res.residuals[i]
+            assert s1.refine_accepted == int(res.refine_accepted[i])
+    col = a.n // 2
+    vb[1, a.indptr[col] + np.searchsorted(a.row(col), col)] = np.nan
+    with pytest.raises(repro_torch.ZeroPivotError) as err:
+        plan.factorize_batch(vb)
+    assert (err.value.k, err.value.system) == (col, 1)
+
+
 # the shapes chip_smoke.py holds K5 at: the serve path's prefill and decode
 # (smollm-135m, 8 requests, hp = 16 heads, hd = 64, 512 + 32 tokens) and a
 # D = 128 prefill (qwen3's head size)

@@ -4,11 +4,11 @@ commits on one card in one call.
 
     git archive <parent> | tar -x -C build/parent      # build/ is ignored
     for t in build/parent . . build/parent; do
-        python3 tools/ab_trees.py $t [serve] [analyze] [lu]; done
+        python3 tools/ab_trees.py $t [serve] [analyze] [lu] [batched]; done
 
 Imports ``repro_torch`` (and, for ``serve``, ``chip_smoke``) from the tree
-given and runs the sections named (all three by default), each after a
-warm-up:
+given and runs the sections named (the first three by default), each
+after a warm-up:
 
 * ``serve`` — smollm-135m serving 8 x 512 prompt + 32 greedy tokens three
   times (``chip_smoke.serve_run``; median prefill ms and ms per decode
@@ -23,7 +23,14 @@ warm-up:
   s, each ending in a synchronize), the sha256 of ``store.flat`` after
   each (one value when they agree), and one more refactorization under
   ``torch.profiler`` (wall ms, device busy ms, device calls), through the
-  public API only, so it runs on earlier trees too.
+  public API only, so it runs on earlier trees too;
+* ``batched`` — bbd-20k under default options with 8 value sets
+  (``generic_values_csr`` seeds 0..7), the batched tier against its
+  sequential loop in turns: three times the 8 ``factorize`` calls and one
+  ``factorize_batch`` (wall s each), then three times the 8 (n,) solves
+  on those factors and one ``solve_batch`` (wall s each), and each of
+  the four once more under ``torch.profiler`` (wall ms, device busy ms,
+  device calls); only for trees that have ``factorize_batch``.
 
 Prints one JSON line, then the card's name and power limit.  Run the trees
 in turns (parent, change, change, parent): host-bound stages move between
@@ -104,6 +111,73 @@ def lu_times(torch, repro_torch, a, opts) -> dict:
     return out
 
 
+def profiled(torch, fn) -> dict:
+    """Wall ms, device busy ms and device calls of ``fn`` under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
+    return {"wall_ms": wall,
+            "device_busy_ms": sum(ev.device_time_total for ev in evs) / 1e3,
+            "device_calls": sum(ev.count for ev in evs)}
+
+
+def batched_times(torch, repro_torch, a) -> dict:
+    """The ``batched`` section (module docstring)."""
+    import numpy as np
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(concurrency=512))
+    vb = np.stack([generic_values_csr(a, seed=s) for s in range(8)])
+    rhs = np.random.default_rng(5).standard_normal((8, a.n))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    def sequential():
+        return [plan.factorize(v) for v in vb]
+
+    def batched():
+        return plan.factorize_batch(vb)
+
+    factors, batch = sequential(), batched()        # warm-up
+
+    def seq_solves():
+        return [f.solve(b) for f, b in zip(factors, rhs)]
+
+    def batch_solve():
+        return batch.solve_batch(rhs)
+
+    seq_solves(), batch_solve()
+    out = {"factorize_seq_s": [], "factorize_batch_s": [],
+           "solve_seq_s": [], "solve_batch_s": []}
+    for _ in range(3):
+        for key, fn in (("factorize_seq_s", sequential),
+                        ("factorize_batch_s", batched)):
+            out[key].append(timed(fn)[1])
+    for _ in range(3):
+        for key, fn in (("solve_seq_s", seq_solves),
+                        ("solve_batch_s", batch_solve)):
+            out[key].append(timed(fn)[1])
+    for key, fn in (("factorize_seq", sequential),
+                    ("factorize_batch", batched),
+                    ("solve_seq", seq_solves), ("solve_batch", batch_solve)):
+        out[f"profiled_{key}"] = profiled(torch, fn)
+    return out
+
+
 def main(tree: str, sections=("serve", "analyze", "lu")) -> int:
     tree = str(Path(tree).resolve())
     sys.path[:0] = [tree + "/src", tree]
@@ -125,6 +199,8 @@ def main(tree: str, sections=("serve", "analyze", "lu")) -> int:
         for tag, opts in (("default", repro_torch.LUOptions(
                 concurrency=512)), ("kernel", kopts)):
             out[f"lu_{tag}"] = lu_times(torch, repro_torch, a, opts)
+    if "batched" in sections:
+        out["batched"] = batched_times(torch, repro_torch, a)
     if "serve" in sections:
         out.update(serve_sample(torch))
     if "analyze" in sections:
