@@ -53,6 +53,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   tier makes one call per system); a zero pivot in system 3
                   of a small batch named as system 3 at the sequential
                   factorization's column.
+   ``robust``   — the robust tier at n = 8,000 (``ROBUST_N``) on
+                  ``shuffled_dominant(band=6, seed=2)`` and
+                  ``indefinite(band=6, seed=1)`` with their values: the
+                  plain options asserted to raise ``ZeroPivotError``
+                  (panel, level, the robust tier's hint); then
+                  ``pivot="static", perturb=True``: analyze (the pre-pass
+                  span), factorize, refactorize, solves (residual <= 1e-8),
+                  perturbed pivots, ``quality()`` (growth, condition,
+                  verdict, seconds), and ``factorize_batch`` of (v, 1.25 v,
+                  0.8 v), each system's sha256 its sequential one's.
+   ``blocking`` — ``replan`` of phase 3's plan with ``blocking=True`` and
+                  with ``autotune=True``: the merge pass's panels, merges,
+                  padding and modeled gain, the tuned knobs, the blocked
+                  paths' stage times beside phase 3's (residual <= 1e-10,
+                  one mapped launch per level a sweep), a profiled blocked
+                  refactorize (device calls, idle share; the default's is
+                  ``breakdown_default``'s), and the blocked replan of phase
+                  4's plan (float32 updates).
+   ``serve_lu`` — ``SolverEngine(LUOptions(concurrency=512), capacity=2,
+                  batch_slots=8)``: a flush of 8 requests on bbd-20k and 2
+                  on a second bbd-20k pattern (2 misses, 2 dispatches at
+                  occupancy 8/8 and 2/8), a flush of 3 on bbd-20k (a hit,
+                  no analyze); one request per pattern bitwise the
+                  sequential API, every residual <= 1e-10, the mapped
+                  launches once per level per dispatch.
 5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
                   refactorize and a (n, 4) solve (default options), once
                   more under ``torch.profiler``: wall time, device busy
@@ -97,16 +122,20 @@ events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9 and
-11, each ``bubble`` analyze and the ``batched`` phase's batched sweeps,
-and read just after it, so each path reports its own launches (phase 3:
-K2 and the float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped
-K3/K4; ``bubble``: K2, and K1 on the kernel backend; ``batched``: the
-float64 mapped K3/K4 over 8 systems; phase 7: K5; phase 9: K7; phase 11:
-K6 and K5; the dense K3/K4
-entry points are off the paths since the sweep runs the mapped form),
-split by stage in ``launches_by_stage`` for
-the LU paths; the ``kernels`` line takes each row's launches from the path
-that runs it.  The comparison and timing launches of phase 2, the
+11, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+``robust`` and ``blocking`` path and each ``serve_lu`` flush, and read
+just after it, so each path reports its own launches (phase 3: K2 and the
+float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped K3/K4;
+``bubble``: K2, and K1 on the kernel backend; ``batched``: the float64
+mapped K3/K4 over 8 systems; ``robust``: K2 and the float64 mapped K3/K4;
+``blocking``: the mapped K3/K4 (no fixpoint runs); ``serve_lu``: K2 on
+each miss and the mapped K3/K4 over 8 systems; phase 7: K5; phase 9: K7;
+phase 11: K6 and K5; the dense K3/K4 entry points are off the paths since
+the sweep runs the mapped form), split by stage in ``launches_by_stage``
+for the LU paths; the ``kernels`` line takes each row's launches from the
+path that runs it, K2's and the mapped K3/K4's rows add
+``launches_on_new_paths``, and two rows time the mapped K3/K4 at the
+blocked plans' widest level.  The comparison and timing launches of phase 2, the
 breakdown and reference phases, the card-vs-CPU checks and the per-kernel
 timings are not counted.  Each serve phase frees its parameters before the
 next model is drawn.
@@ -146,6 +175,13 @@ SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
 # value sets of the batched phase (and systems of the mapped update's
 # system-stride check)
 BATCH = 8
+# the robust phase's n, cut from the main path's 20,000: at 20,000 the
+# indefinite generator's rescue ends at a relative residual near 7e-3
+# after refinement (above the 1e-8 gate: element growth, not a port fault;
+# at 8,000 the card and the CPU agree to 1e-10), and one analyze of these
+# band generators takes 83-92 s on an H100 80GB HBM3 at 700 W (47-51 k
+# supersteps); at 8,000 it takes 6-17 s there
+ROBUST_N = 8_000
 # the card-vs-CPU check of the SSM serve phases: a prompt, then teacher-
 # forced decode steps, each step's logits gated at max |card - CPU| /
 # max |CPU logit| (float32 sums in another order give ~1e-6; TF32 anywhere
@@ -671,28 +707,44 @@ def gemm_shapes(plan):
 
 
 def run_path(torch, repro_torch, a, values, opts, *, device=None,
-             profile_head=False):
+             profile_head=False, plan=None, analyze_kw=None, tol=1e-10,
+             trace_analyze=False):
     """analyze -> factorize -> refactorize -> solve (n,) and (n, 4).  With
     ``profile_head`` the analyze and the first factorize, which launch every
     kernel of the path, run under torch.profiler; the kernels it saw come
-    back as ``res["profiler"]``."""
+    back as ``res["profiler"]``.  ``plan`` skips the analyze (a replanned
+    plan; ``analyze_s`` is then None); ``analyze_kw`` goes to ``analyze``
+    (the robust tier's ``values``); ``trace_analyze`` records the
+    analyze's spans on ``plan.stats`` (the plan keeps ``opts``, untraced).
+    Every residual, on the card and recomputed on the host, must be at
+    most ``tol``."""
     import numpy as np
     from repro_torch.kernels import ops
 
     snaps = [ops.launch_counts()]      # read only: each stage's launches
+    given = plan
 
     def head():
-        t0 = time.perf_counter()
-        plan = (repro_torch.analyze(a, opts) if device is None
-                else repro_torch.analyze(a, opts, device=device))
-        torch.cuda.synchronize()
-        t_an = time.perf_counter() - t0
+        t_an = None
+        p = given
+        if p is None:
+            t0 = time.perf_counter()
+            kw = dict(analyze_kw or {})
+            if device is not None:
+                kw["device"] = device
+            p = repro_torch.analyze(
+                a, opts.replace(trace=True) if trace_analyze else opts,
+                **kw)
+            torch.cuda.synchronize()
+            t_an = time.perf_counter() - t0
+            if trace_analyze:
+                p = dataclasses.replace(p, options=opts)
         snaps.append(ops.launch_counts())
         t0 = time.perf_counter()
-        factor = plan.factorize(values)
+        factor = p.factorize(values)
         torch.cuda.synchronize()
         snaps.append(ops.launch_counts())
-        return plan, factor, t_an, time.perf_counter() - t0
+        return p, factor, t_an, time.perf_counter() - t0
 
     seen = None
     if profile_head:
@@ -741,6 +793,9 @@ def run_path(torch, repro_torch, a, values, opts, *, device=None,
     }
     if seen is not None:
         res["profiler"] = seen
+    check(all(res[k] <= tol for k in ("residual_n", "residual_n4",
+                                      "host_residual_n", "host_residual_n4")),
+          f"residual above {tol}: {res}")
     want = gemm_levels(plan)
     for stage in ("factorize", "refactorize"):
         got = res["launches_by_stage"][stage]["panel_update_mapped"]
@@ -846,7 +901,6 @@ def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
     solves, bitwise; systems 0 and 7 again on the kernel plan; one
     batched sweep under torch.profiler."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     vals = [generic_values_csr(a, seed=s) for s in range(BATCH)]
     vb = np.stack(vals)
@@ -929,16 +983,304 @@ def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
     counts = out["default"]["launches"]
     out["kernel"] = batched(plan_k, (0, BATCH - 1))
     out["library_bitwise_per_slice"] = batched_library_probe(torch, rng)
+    _, out["profiled_factorize_batch"] = profiled(
+        torch, lambda: plan.factorize_batch(vb))
+    return out, counts
+
+
+def profiled(torch, fn):
+    """``fn()`` once under torch.profiler: (its result, {wall_ms,
+    device_busy_ms, idle_share, device_calls, top})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan.factorize_batch(vb)
+        result = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof)
-    out["profiled_factorize_batch"] = {
-        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
-        "device_calls": device_calls(prof), "top": top_kernels(prof)}
-    return out, counts
+    return result, device_summary(prof, wall)
+
+
+def robust_phase(torch, repro_torch, ops, matrices, generic_values_csr):
+    """The robust tier at n = ``ROBUST_N`` on the two hostile generators of
+    the reference's tests (a row-shuffled dominant matrix and an indefinite one
+    with zero diagonals): the plain options must raise ZeroPivotError
+    naming panel and level; ``pivot="static", perturb=True`` with the
+    matrix's values then runs the path (analyze with its pre-pass span,
+    factorize, refactorize, solves, residual <= 1e-8), the quality report,
+    and ``factorize_batch`` of (v, 1.25 v, 0.8 v), each system bitwise its
+    sequential factorization.  Launch counters reset just before each
+    robust path and read just after."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    out = {"n": ROBUST_N}
+    totals = Counter()
+    for name, a, vals in (
+            ("shuffled", *(lambda a: (a, matrices.shuffled_dominant_values_csr(
+                a, band=6, seed=2)))(matrices.shuffled_dominant(
+                    ROBUST_N, band=6, seed=2))),
+            ("indefinite", *(lambda a: (a, matrices.indefinite_values_csr(
+                a, seed=1)))(matrices.indefinite(ROBUST_N, band=6, seed=1)))):
+        plain_opts = repro_torch.LUOptions(concurrency=CONCURRENCY,
+                                           supernode_relax=2)
+        t0 = time.perf_counter()
+        try:
+            repro_torch.analyze(a, plain_opts).factorize(vals)
+        except repro_torch.ZeroPivotError as e:
+            plain = {"k": e.k, "panel": e.panel, "level": e.level,
+                     "message": str(e), "s": time.perf_counter() - t0}
+        else:
+            fail(f"robust ({name}): the plain options factored without a "
+                 f"ZeroPivotError")
+        check(plain["panel"] is not None and plain["level"] is not None
+              and "pivot='static', perturb=True" in plain["message"],
+              f"robust ({name}): the zero pivot is not attributed: {plain}")
+        opts = plain_opts.replace(pivot="static", perturb=True)
+        ops.reset_launches()
+        plan, factor, res = run_path(
+            torch, repro_torch, a, vals, opts, analyze_kw={"values": vals},
+            tol=1e-8, trace_analyze=True)
+        launches = ops.launch_counts()
+        totals.update(launches)
+        prepass = plan.stats.find("robust_prepass")
+        for kernel in ("column_fingerprints", "panel_update_mapped"):
+            check(launches[kernel] > 0,
+                  f"robust ({name}): {kernel} was not launched")
+        t0 = time.perf_counter()
+        q = factor.quality()
+        torch.cuda.synchronize()
+        t_q = time.perf_counter() - t0
+        check(q.verdict in ("ok", "suspect"),
+              f"robust ({name}): quality verdict {q}")
+        vb = np.stack([vals, 1.25 * vals, 0.8 * vals])
+        t0 = time.perf_counter()
+        bf = plan.factorize_batch(vb)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        seq = [res["flat_sha256"]] + [flat_sha256(plan.factorize(v).store.flat)
+                                      for v in vb[1:]]
+        check(all(flat_sha256(bf.store.flat[i]) == seq[i] for i in range(3)),
+              f"robust ({name}): a batched system differs from its "
+              f"sequential factorization")
+        out[name] = {
+            "plain_zero_pivot": plain,
+            "prepass_s": prepass.total_s if prepass is not None else None,
+            **res, "perturbed_pivots": factor.perturbed_pivots,
+            "quality": {**dc.asdict(q), "seconds": t_q},
+            "factorize_batch_s": t_b,
+            "batch_perturbed_pivots": bf.perturbed_pivots.tolist(),
+            "batch_bitwise_sequential": True, "launches": launches}
+    return out, dict(totals)
+
+
+def level_operands(torch, plan, factor, rng, *, widest=False):
+    """The mapped K3/K4's operands at one level of ``plan``'s sweep, on the
+    factored store of ``factor`` with random U rows: the level with the
+    most slices, or with ``widest`` the one with the widest slice (N, then
+    K).  Returns (flat copy, u, lmap, tiles, work) with ``work`` the
+    level's numbers and the bound's counts: the L entries the map hits, U,
+    acc read and written, 2 flops per hit per column."""
+    from repro_torch.kernels.ops import resolve_device
+
+    dev = resolve_device(plan.device)
+    upd = plan._device_state(dev)[2]
+    bounds = [int(x) for x in upd.level_tiles]
+    recs_by_level = [slice_records(upd.tiles[lo:hi]) if hi > lo else None
+                     for lo, hi in zip(bounds, bounds[1:])]
+    if widest:
+        key = [(int(r[:, 4].max()), int(r[:, 5].max()))
+               if r is not None else (0, 0) for r in recs_by_level]
+    else:
+        key = [len(r) if r is not None else 0 for r in recs_by_level]
+    lvl = max(range(len(key)), key=key.__getitem__)
+    tiles = upd.tiles[bounds[lvl]:bounds[lvl + 1]]
+    recs = recs_by_level[lvl]
+    lmap_h = upd.lmap.cpu().numpy()
+    hits = [int((lmap_h[mo:mo + m * k] >= 0).sum())
+            for _, mo, _, m, _, k, *_ in recs.tolist()]
+    outs = int((recs[:, 3] * recs[:, 4]).sum())
+    u_len = int((recs[:, 5] * recs[:, 4]).sum())
+    u = torch.as_tensor(rng.standard_normal(u_len), device=dev)
+    work = {"level": lvl, "slices": len(recs), "tiles": int(tiles.shape[0]),
+            "outputs": outs, "l_hits": sum(hits), "u_entries": u_len,
+            "max_n": int(recs[:, 4].max()), "max_k": int(recs[:, 5].max()),
+            "slices_per_level": [len(r) if r is not None else 0
+                                 for r in recs_by_level],
+            "bytes": 8 * (sum(hits) + u_len + 2 * outs),
+            "flops": sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4]))}
+    return factor.store.flat.clone(), u, upd.lmap, tiles, work
+
+
+def blocking_phase(torch, repro_torch, ops, plan, values, res, plan_k,
+                   res_k):
+    """Structure-aware blocking and the roofline autotune on phase 3's
+    plan, by ``replan`` (no fixpoint re-run): the merge pass's numbers, the
+    blocked and the autotuned path (factorize, refactorize, solves,
+    residual <= 1e-10, one mapped launch per level a sweep; counters reset
+    just before each and read just after) beside phase 3's in this call,
+    a profiled blocked refactorize (the default one is
+    ``breakdown_default``'s), and the blocked replan of phase 4's plan
+    (float32 updates).  Returns the phase
+    line and the blocked plans and factors (the kernel rows time the
+    mapped K3/K4 at their widest level)."""
+    import numpy as np
+    from repro_torch.supernodes.blocking import merge_supernodes
+    from repro_torch.tune import cost_model_for
+
+    opts = plan.options
+    model = cost_model_for(opts)
+    merged, stats = merge_supernodes(plan.pattern, plan.sym.supernodes,
+                                     model, max_width=opts.block_max_width)
+    a = plan.a
+    out = {"default": {k: res[k] for k in (
+        "factorize_s", "refactorize_s", "solve_s", "n_supernodes",
+        "n_levels")},
+        "merge": {"panels_before": stats.n_before,
+                  "panels_after": stats.n_after, "merges": stats.merges,
+                  "pad_entries_before": stats.pad_entries_before,
+                  "pad_entries_after": stats.pad_entries_after,
+                  "modeled_before_s": stats.modeled_before_s,
+                  "modeled_after_s": stats.modeled_after_s,
+                  "modeled_gain_s": stats.modeled_gain_s}}
+    blocked = {}
+    for tag, knobs in (("blocked", {"blocking": True}),
+                       ("autotuned", {"autotune": True})):
+        t0 = time.perf_counter()
+        p = repro_torch.replan(plan, opts.replace(**knobs))
+        t_re = time.perf_counter() - t0
+        if tag == "blocked":
+            check(np.array_equal(p.schedule.supernodes, merged),
+                  "replan(blocking=True) differs from the merge pass")
+        ops.reset_launches()
+        p, f, r = run_path(torch, repro_torch, a, values, p.options,
+                           plan=p)
+        r["launches"] = ops.launch_counts()
+        r.update(replan_s=t_re,
+                 store_pad_entries=p.store_template.pad_entries,
+                 max_panel_width=int(np.diff(p.schedule.supernodes).max()))
+        if p.tuned is not None:
+            r["tuned"] = {"chosen": p.tuned.chosen,
+                          "modeled_s": p.tuned.modeled_s,
+                          "baseline_s": p.tuned.baseline_s,
+                          "n_panels": p.tuned.n_panels,
+                          "candidates": len(p.tuned.candidates)}
+        blocked[tag] = (p, f)
+        out[tag] = r
+    out["default"]["store_pad_entries"] = plan.store_template.pad_entries
+    # the default plan's profiled refactorize is breakdown_default's
+    fb = blocked["blocked"][1]
+    _, out["profiled_refactorize_blocked"] = profiled(
+        torch, lambda: fb.refactorize(values))
+    kopts = plan_k.options
+    t0 = time.perf_counter()
+    pk = repro_torch.replan(plan_k, kopts.replace(blocking=True))
+    t_re = time.perf_counter() - t0
+    ops.reset_launches()
+    pk, fk, rk = run_path(torch, repro_torch, a, values, pk.options, plan=pk)
+    rk["launches"] = ops.launch_counts()
+    rk["replan_s"] = t_re
+    rk["kernel_path"] = {k: res_k[k] for k in (
+        "factorize_s", "refactorize_s", "solve_s", "n_supernodes")}
+    out["kernel_blocked"] = rk
+    return out, blocked["blocked"], (pk, fk)
+
+
+def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
+    """The sparse-LU serving engine: ``SolverEngine(LUOptions(concurrency=
+    512), capacity=2, batch_slots=8)``.  First flush: 8 requests on
+    bbd-20k (values ``generic_values_csr`` seeds 0..7) and 2 on another
+    bbd-20k pattern (seed 4): 2 misses, 2 dispatches at occupancy 8/8 and
+    2/8.  Second flush: 3 requests on bbd-20k, a cache hit with no
+    analyze.  One request per pattern bitwise the sequential API
+    (``plan.factorize(v).solve(b)``), every residual <= 1e-10; launch
+    counters reset just before each flush and read just after."""
+    import numpy as np
+    from repro_torch.serve import SolverEngine, pattern_fingerprint
+
+    a0 = plan.a
+    a4 = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
+                                        seed=4)
+    eng = SolverEngine(repro_torch.LUOptions(concurrency=CONCURRENCY),
+                       capacity=2, batch_slots=BATCH)
+    rng = np.random.default_rng(9)
+    reqs = {}
+
+    def submit(a, seed):
+        vals = generic_values_csr(a, seed=seed)
+        b = rng.standard_normal(a.n)
+        rid = eng.submit(a, vals, b)
+        reqs[rid] = (a, vals, b)
+        return rid
+
+    out = {}
+    for tag, stream in (("flush_1", [(a0, s) for s in range(BATCH)]
+                         + [(a4, 0), (a4, 1)]),
+                        ("flush_2", [(a0, s) for s in (10, 11, 12)])):
+        before = dict(eng.stats)
+        rids = [submit(a, s) for a, s in stream]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check([r.rid for r in results] == rids,
+              f"serve_lu {tag}: results out of submission order")
+        for r in results:
+            a, vals, b = reqs[r.rid]
+            check(r.residual <= 1e-10
+                  and host_residual(a, vals, r.x[:, None], b[:, None])
+                  <= 1e-10, f"serve_lu {tag}: request {r.rid} residual "
+                  f"{r.residual}")
+        delta = {k: eng.stats[k] - before[k] for k in eng.stats}
+        plans = {id(eng.cache.get(pattern_fingerprint(a))):
+                 eng.cache.get(pattern_fingerprint(a)) for a, _ in stream}
+        want = sum(gemm_levels(p) for p in plans.values())
+        check(launches["panel_update_mapped"] == want,
+              f"serve_lu {tag}: the mapped update launched "
+              f"{launches['panel_update_mapped']} times, not once per level "
+              f"per dispatch ({want})")
+        out[tag] = {"requests": len(stream), "wall_s": wall, "stats": delta,
+                    "launches": launches,
+                    "mapped_launches_per_dispatch": [
+                        gemm_levels(p) for p in plans.values()],
+                    "slots": [r.slot for r in results],
+                    "batch_ids": [r.batch_id for r in results],
+                    "cache_hit": [r.cache_hit for r in results],
+                    "residual_max": max(r.residual for r in results)}
+        out[tag]["results"] = results
+    s1, s2 = out["flush_1"]["stats"], out["flush_2"]["stats"]
+    check(s1["cache_misses"] == 2 and s1["batches"] == 2
+          and s1["padded_slots"] == BATCH - 2,
+          f"serve_lu flush_1: {s1}")
+    check(s2["cache_hits"] == 1 and s2["cache_misses"] == 0
+          and s2["analyze_s"] == 0.0 and s2["batches"] == 1
+          and out["flush_2"]["launches"]["column_fingerprints"] == 0,
+          f"serve_lu flush_2 was not a cache hit without analyze: {s2}")
+    # one request per pattern against the sequential API, bitwise
+    bitwise = {}
+    for tag, a, plan_a in (("bbd_seed3", a0, plan),
+                           ("bbd_seed4", a4,
+                            eng.cache.get(pattern_fingerprint(a4)))):
+        r = next(r for r in out["flush_1"]["results"]
+                 if reqs[r.rid][0] is a)
+        _, vals, b = reqs[r.rid]
+        t0 = time.perf_counter()
+        seq = plan_a.factorize(vals).solve(b)
+        torch.cuda.synchronize()
+        check(torch.equal(r.x, seq.x) and r.residual == seq.residuals[-1],
+              f"serve_lu: request {r.rid} ({tag}) differs from the "
+              f"sequential API")
+        bitwise[tag] = {"rid": r.rid, "sequential_s":
+                        time.perf_counter() - t0}
+    for tag in ("flush_1", "flush_2"):
+        del out[tag]["results"]
+    out["bitwise_sequential"] = bitwise
+    out["stats"] = dict(eng.stats)
+    return out
 
 
 def zero_pivot_check(torch, repro_torch, sparse, generic_values_csr):
@@ -1025,35 +1367,23 @@ def profile_kernels(torch, fn):
     return seen, result
 
 
-def busy_ms(prof) -> float:
-    """Device milliseconds of every kernel, copy and fill in a profile (one
-    stream, so they never overlap)."""
-    from torch.autograd import DeviceType
-
-    return sum(ev.device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False)) / 1e3
-
-
-def device_calls(prof) -> int:
-    """Device kernels, copies and fills in a profile."""
-    from torch.autograd import DeviceType
-
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False))
-
-
-def top_kernels(prof, k: int = 5):
-    """The ``k`` device events with the most time: [name, calls, ms]."""
+def device_summary(prof, wall_ms: float, k: int = 5) -> dict:
+    """A profile's device side, from one pass over its events: busy
+    milliseconds of every kernel, copy and fill (one stream, so they never
+    overlap), the idle share of ``wall_ms``, the device calls, and the
+    ``k`` events with the most time as [name, calls, ms]."""
     from torch.autograd import DeviceType
 
     evs = [ev for ev in prof.key_averages()
            if ev.device_type == DeviceType.CUDA
            and not getattr(ev, "is_user_annotation", False)]
+    busy = sum(ev.device_time_total for ev in evs) / 1e3
     evs.sort(key=lambda ev: ev.device_time_total, reverse=True)
-    return [[ev.key[:80], ev.count, ev.device_time_total / 1e3]
-            for ev in evs[:k]]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_calls": sum(ev.count for ev in evs),
+            "top": [[ev.key[:80], ev.count, ev.device_time_total / 1e3]
+                    for ev in evs[:k]]}
 
 
 def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
@@ -1064,22 +1394,12 @@ def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
     and a (n, 4) solve.  Profiling costs time per launch, and the sweep
     launches some 10^5 kernels, so the callers pick the stages."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     b4 = np.random.default_rng(7).standard_normal((a.n, 4))
     out = {}
 
     def stage(name, fn):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy = busy_ms(prof)
-        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                     "idle_share": 1.0 - busy / wall,
-                     "device_calls": device_calls(prof),
-                     "top": top_kernels(prof)}
+        result, out[name] = profiled(torch, fn)
         return result
 
     plan = stage("analyze", lambda: repro_torch.analyze(a, opts))
@@ -1273,7 +1593,6 @@ def breakdown_serve(torch, cfg, params):
     """Phases 8, 10 and 12: the serve path's prefill and one decode step
     (after one warm decode step) under torch.profiler."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     prefill = make_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_GEN)
@@ -1283,17 +1602,7 @@ def breakdown_serve(torch, cfg, params):
     out = {}
 
     def stage(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy = busy_ms(prof)
-        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                     "idle_share": 1.0 - busy / wall,
-                     "device_calls": device_calls(prof),
-                     "top": top_kernels(prof)}
+        result, out[name] = profiled(torch, fn)
         return result
 
     tok, caches = stage("prefill", lambda: prefill(params, {"tokens": tokens}))
@@ -1343,9 +1652,6 @@ def main() -> int:
     opts = repro_torch.LUOptions(concurrency=CONCURRENCY)
     plan, factor, res = run_path(torch, repro_torch, a, values, opts)
     counts_default = ops.launch_counts()
-    check(res["residual_n"] <= 1e-10 and res["residual_n4"] <= 1e-10
-          and res["host_residual_n"] <= 1e-10
-          and res["host_residual_n4"] <= 1e-10, f"default residual {res}")
     for name in ("column_fingerprints", "panel_update_mapped"):
         check(counts_default[name] > 0,
               f"{name} was not launched on the default path")
@@ -1368,8 +1674,6 @@ def main() -> int:
     factor_rel = float((factor_k.store.flat - f64).abs().max()
                        / f64.abs().max())
     check(factor_rel <= 1e-4, f"kernel-path factors off by {factor_rel}")
-    check(res_k["residual_n"] <= 1e-10 and res_k["residual_n4"] <= 1e-10,
-          f"kernel-path residual {res_k}")
     for name in PROFILED_PATH:
         check(launches[name] > 0,
               f"{name} was not launched on the kernel path")
@@ -1399,6 +1703,26 @@ def main() -> int:
     emit({"phase": "batched", **batched_res,
           "zero_pivot": zero_pivot_check(torch, repro_torch, sparse,
                                          generic_values_csr)})
+
+    from repro_torch.sparse import matrices
+    robust_res, counts_robust = robust_phase(torch, repro_torch, ops,
+                                             matrices, generic_values_csr)
+    emit({"phase": "robust", **robust_res})
+    blocking_res, (plan_b, factor_b), (plan_bk, factor_bk) = blocking_phase(
+        torch, repro_torch, ops, plan, values, res, plan_k, res_k)
+    emit({"phase": "blocking", **blocking_res})
+    serve_lu_res = serve_lu_phase(torch, repro_torch, ops, sparse, plan,
+                                  generic_values_csr)
+    emit({"phase": "serve_lu", **serve_lu_res})
+    # K2 and the mapped K3/K4 on the new paths (the kernels line's rows)
+    new_paths = {
+        "robust": counts_robust,
+        "blocking": blocking_res["blocked"]["launches"],
+        "autotune": blocking_res["autotuned"]["launches"],
+        "blocking_kernel": blocking_res["kernel_blocked"]["launches"],
+        "serve_lu": {k: serve_lu_res["flush_1"]["launches"][k]
+                     + serve_lu_res["flush_2"]["launches"][k]
+                     for k in counts_robust}}
 
     emit({"phase": "breakdown_default",
           **breakdown(torch, repro_torch, a, values, opts, sweep=True)})
@@ -1480,6 +1804,9 @@ def main() -> int:
         lambda: ops.column_fingerprints(rel, *lanes),
         lambda: plain.column_fingerprints_plain(rel, *lanes),
         s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v)
+    kern[-1]["launches_on_new_paths"] = {
+        path: new_paths[path]["column_fingerprints"]
+        for path in ("robust", "serve_lu")}
 
     # K3/K4 at the commonest GEMM shape and the largest stack of the bbd-20k
     # sweep: float32 (the kernel path's launches) and float64 (the default
@@ -1541,62 +1868,68 @@ def main() -> int:
 
     # the mapped K3/K4 over bbd-20k's largest level (most slices) on the
     # factored store with random U rows, float64 (the default path's) and
-    # float32 (the kernel path's); the bound counts the L entries the map
-    # hits, U, and acc read and written, and 2 flops per hit per column;
-    # no single PyTorch call updates a ragged set of slices in place
-    upd = plan._device_state(dev)[2]
-    bounds = [int(x) for x in upd.level_tiles]
-    per_level = [len(slice_records(upd.tiles[lo:hi])) if hi > lo else 0
-                 for lo, hi in zip(bounds, bounds[1:])]
-    lvl = max(range(len(per_level)), key=per_level.__getitem__)
-    tiles = upd.tiles[bounds[lvl]:bounds[lvl + 1]]
-    recs = slice_records(tiles)
-    lmap_h = upd.lmap.cpu().numpy()
-    hits = [int((lmap_h[mo:mo + m * k] >= 0).sum())
-            for _, mo, _, m, _, k, *_ in recs.tolist()]
-    outs = int((recs[:, 3] * recs[:, 4]).sum())
-    u_len = int((recs[:, 5] * recs[:, 4]).sum())
-    u_lvl = torch.as_tensor(rng.standard_normal(u_len), device=dev)
-    flat_lvl = factor.store.flat.clone()
-    panel_line["panel_update_mapped"] = {
-        "level": lvl, "slices": len(recs), "tiles": int(tiles.shape[0]),
-        "outputs": outs, "l_hits": sum(hits), "u_entries": u_len,
-        "max_k": int(recs[:, 5].max()), "slices_per_level": per_level}
-    for f32, suffix, counts, peak in (
-            (True, "", launches, PEAK_OPS_S),
-            (False, " (float64)", counts_default, PEAK_F64_OPS_S)):
-        err, _ = mapped_check(torch, ops, plain, flat_lvl, u_lvl, upd.lmap,
-                              tiles, f32)
-        row("panel_update_mapped" + suffix, counts["panel_update_mapped"],
-            err, lambda: ops.panel_update_mapped(flat_lvl, u_lvl, upd.lmap,
-                                                 tiles, f32=f32),
-            lambda: plain.panel_update_mapped_plain(flat_lvl, u_lvl, upd.lmap,
-                                                    tiles, f32=f32),
-            8 * (sum(hits) + u_len + 2 * outs),
-            sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4])),
-            kernel="panel_update_mapped", peak_ops=peak,
-            plain_kw={"reps": 3})
+    # float32 (the kernel path's), and at the widest level of the blocked
+    # plans (merged panels up to 256 wide, explicit-zero rows): each
+    # checked against its plain version and bitwise dense K3 per slice; the
+    # bound counts the L entries the map hits, U, and acc read and written,
+    # and 2 flops per hit per column (``level_operands``); no single
+    # PyTorch call updates a ragged set of slices in place
+    flat_lvl, u_lvl, lmap, tiles, work = level_operands(torch, plan, factor,
+                                                        rng)
+    panel_line["panel_update_mapped"] = work
+    # each mapped row's launches on the new paths of its element type and
+    # system count (the blocked rows' own paths are their ``launches``)
+    on_paths = {"panel_update_mapped": ("blocking_kernel",),
+                "panel_update_mapped (float64)": ("robust", "blocking",
+                                                  "autotune")}
+    for name, p_, f_, f32, counts, peak, widest in (
+            ("panel_update_mapped", plan, factor, True, launches,
+             PEAK_OPS_S, False),
+            ("panel_update_mapped (float64)", plan, factor, False,
+             counts_default, PEAK_F64_OPS_S, False),
+            ("panel_update_mapped (blocked, float64)", plan_b, factor_b,
+             False, new_paths["blocking"], PEAK_F64_OPS_S, True),
+            ("panel_update_mapped (blocked, float32)", plan_bk, factor_bk,
+             True, new_paths["blocking_kernel"], PEAK_OPS_S, True)):
+        fl, uu, lm, tl, wk = ((flat_lvl, u_lvl, lmap, tiles, work)
+                              if not widest else
+                              level_operands(torch, p_, f_, rng, widest=True))
+        if widest:
+            panel_line[name] = wk
+        err, _ = mapped_check(torch, ops, plain, fl, uu, lm, tl, f32)
+        row(name, counts["panel_update_mapped"], err,
+            lambda: ops.panel_update_mapped(fl, uu, lm, tl, f32=f32),
+            lambda: plain.panel_update_mapped_plain(fl, uu, lm, tl, f32=f32),
+            wk["bytes"], wk["flops"], kernel="panel_update_mapped",
+            peak_ops=peak, plain_kw={"reps": 3})
+        if name in on_paths:
+            kern[-1]["launches_on_new_paths"] = {
+                path: new_paths[path]["panel_update_mapped"]
+                for path in on_paths[name]}
     # the same level over BATCH systems in one launch (the batched
-    # default sweep's form, float64): the factored store repeated, random
-    # U rows per system; the bound is BATCH times the one-system work
+    # default sweep's and the serving engine's form, float64): the
+    # factored store repeated, random U rows per system; the bound is
+    # BATCH times the one-system work
+    u_len = work["u_entries"]
     flat_b = factor.store.flat.repeat(BATCH)
     u_b = torch.as_tensor(rng.standard_normal(BATCH * u_len), device=dev)
     kw_b = dict(systems=BATCH, flat_stride=factor.store.flat.numel(),
                 u_stride=u_len)
     got_b, want_b = flat_b.clone(), flat_b.clone()
-    ops.panel_update_mapped(got_b, u_b, upd.lmap, tiles, **kw_b)
-    plain.panel_update_mapped_plain(want_b, u_b, upd.lmap, tiles, **kw_b)
+    ops.panel_update_mapped(got_b, u_b, lmap, tiles, **kw_b)
+    plain.panel_update_mapped_plain(want_b, u_b, lmap, tiles, **kw_b)
     err = float((got_b - want_b).abs().max())
     del got_b, want_b
     row(f"panel_update_mapped ({BATCH} systems, float64)",
         counts_batched["panel_update_mapped"], err,
-        lambda: ops.panel_update_mapped(flat_b, u_b, upd.lmap, tiles, **kw_b),
-        lambda: plain.panel_update_mapped_plain(flat_b, u_b, upd.lmap, tiles,
+        lambda: ops.panel_update_mapped(flat_b, u_b, lmap, tiles, **kw_b),
+        lambda: plain.panel_update_mapped_plain(flat_b, u_b, lmap, tiles,
                                                 **kw_b),
-        BATCH * 8 * (sum(hits) + u_len + 2 * outs),
-        BATCH * sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4])),
+        BATCH * work["bytes"], BATCH * work["flops"],
         kernel="panel_update_mapped", peak_ops=PEAK_F64_OPS_S,
         plain_kw={"reps": 1})
+    kern[-1]["launches_on_new_paths"] = {
+        "serve_lu": new_paths["serve_lu"]["panel_update_mapped"]}
 
     # K5 at the standing prefill shape (its row; the bound counts 3 TF32
     # products per float32 one on the tensor cores, the CUDA-core bound

@@ -11,16 +11,33 @@ CUDA C++ for Hopper (``kernels/csrc``).  The default device is the card::
     result = factor.solve(b)               # b: (n,) or (n, k)
     batch = plan.factorize_batch(values_batch)   # B value sets, one sweep
 
-It imports torch, numpy and scipy — never jax and never ``repro``.
+The robust tier (``LUOptions(pivot="static", perturb=True)``), structure-
+aware blocking and the roofline autotune (``blocking``, ``autotune``,
+``replan``) and the serving engine (``SolverEngine``) sit on the same
+session API.  It imports torch, numpy and scipy — never jax and never
+``repro``.
 """
 __version__ = "0.1.0"
 
 _LAZY_EXPORTS = {
     "analyze": "repro_torch.api",
+    "replan": "repro_torch.api",
     "LUOptions": "repro_torch.api",
     "LUPlan": "repro_torch.api",
     "LUFactorization": "repro_torch.api",
     "BatchedLUFactorization": "repro_torch.api",
+    # roofline autotune + structure-aware blocking
+    "RooflineCostModel": "repro_torch.tune",
+    "TuneReport": "repro_torch.tune",
+    "BlockingStats": "repro_torch.supernodes",
+    # serving front end
+    "SolverEngine": "repro_torch.serve",
+    "PlanCache": "repro_torch.serve",
+    "pattern_fingerprint": "repro_torch.serve",
+    # numerical robustness tier
+    "RobustPlan": "repro_torch.robust",
+    "QualityReport": "repro_torch.robust",
+    "StructurallySingularError": "repro_torch.robust",
     "SymbolicResult": "repro_torch.core.symbolic",
     "NumericResult": "repro_torch.numeric",
     "BatchedNumericResult": "repro_torch.numeric",

@@ -11,6 +11,8 @@ multi-RHS — on one CUDA device by default::
     batch = plan.factorize_batch(values_batch)   # (B, nnz): one sweep
     results = batch.solve_batch(b_batch)         # (B, n) or (B, n, k)
 
+    blocked = repro_torch.replan(plan, plan.options.replace(blocking=True))
+
 ``analyze`` runs the symbolic fixpoint + streamed supernode detection on the
 device and precomputes everything value-independent: the sparse
 ``CSCPattern`` of L+U, the supernode panel partition, the level schedule,
@@ -22,6 +24,16 @@ value-dependent panel sweep on the plan's device;
 sweep (the many-matrix tier: Newton iterations, transient sweeps, Monte
 Carlo corners), each system bitwise its sequential factorization.
 
+The robust tier (``LUOptions(pivot="static", perturb=True)``) runs a
+maximum-product transversal + equilibration pre-pass on the host at
+analyze time; the symbolic analysis runs on the permuted pattern
+(``LUPlan.a_factored``), each factorization replays the O(nnz) value
+transform on the device, tiny pivots are bumped on the device, and
+``LUFactorization.quality()`` certifies the factors.  ``blocking=True`` /
+``autotune=True`` merge the detected supernodes under a roofline cost
+model before the schedule is built, and ``replan`` re-derives a plan
+under new partition knobs without re-running the fixpoint.
+
 The default device is the card (``device=None`` -> ``"cuda"``); without
 CUDA ``analyze`` raises instead of running on the CPU.  Pass
 ``device="cpu"`` to run the whole path on the CPU (the kernels' plain
@@ -30,8 +42,9 @@ only — device copies of the maps live in a cache that is not pickled — so
 an analysis pickles and replays anywhere its device exists.
 
 ``LUOptions`` keeps exactly the fields, defaults and validation of
-``repro.LUOptions``; options that belong to later slices of the port raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item.
+``repro.LUOptions``; options that belong to later slices of the port
+(``distribute``, ``runtime="dynamic"``) raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -63,8 +76,14 @@ from repro_torch.numeric.supernodal import (
 )
 from repro_torch.obs import trace as _ot
 from repro_torch.obs.trace import SpanSummary
+from repro_torch.robust import (
+    QualityReport, RobustPlan, build_robust_prepass, estimate_quality,
+)
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.numeric import CsrOperator, generic_values_csr
+from repro_torch.supernodes.blocking import merge_supernodes
+from repro_torch.supernodes.detect import detect_from_fingerprints
+from repro_torch.tune import TuneReport, autotune_partition, cost_model_for
 
 _SYMBOLIC_BACKENDS = ("ell", "dense", "kernel")
 _NUMERIC_BACKENDS = ("numpy", "kernel")
@@ -74,10 +93,6 @@ _PIVOTS = ("none", "static")
 
 # options of later slices: (is it requested?, what it is, ROADMAP.md item)
 _LATER_SLICES = (
-    (lambda o: o.pivot == "static", "pivot='static' (static pivoting)", 9),
-    (lambda o: o.perturb, "perturb=True (tiny-pivot perturbation)", 9),
-    (lambda o: o.blocking, "blocking=True (structure-aware blocking)", 9),
-    (lambda o: o.autotune, "autotune=True (roofline autotune)", 9),
     (lambda o: o.distribute, "distribute=True (multi-device)", 10),
     (lambda o: o.runtime == "dynamic",
      "runtime='dynamic' (work-stealing runtime)", 10),
@@ -101,6 +116,15 @@ class LUOptions:
     Supernodes: ``supernode_relax`` (T3 merge tolerance, 0 = exact T2),
     ``supernode_max_size`` (panel width cap).
 
+    Blocking / autotune: ``blocking=True`` merges adjacent supernodes whose
+    row structures nearly overlap into padded dense blocks when the
+    roofline cost model says it pays (``block_merge_threshold``, default
+    1.0 = exactly the modeled wins; ``block_max_width`` caps a merged
+    panel); ``autotune=True`` sweeps ``supernode_relax`` /
+    ``supernode_max_size`` candidates through that merge pass and freezes
+    the winner (and a ``concurrency``) onto the plan's options
+    (``LUPlan.tuned``).  Both off by default.
+
     Numeric: ``n_bins``/``policy`` (pack_panels within-level grouping),
     ``numeric_backend`` ("numpy" = float64 torch, "kernel" = float32 K3/K4),
     ``piv_tol`` (zero-pivot threshold; None = eps at matrix scale),
@@ -109,8 +133,14 @@ class LUOptions:
 
     Solve: ``refine_iters``/``refine_tol``.  Observability: ``trace``.
 
-    ``pivot="static"``, ``perturb``, ``blocking``, ``autotune``,
-    ``distribute`` and ``runtime="dynamic"`` are later slices of the port
+    Robustness: ``pivot="static"`` adds the analyze-time maximum-product
+    transversal + equilibration pre-pass (the factored system becomes
+    ``Dr·P·A·Dc``, stored on the plan); ``perturb=True`` replaces tiny
+    pivots (|piv| <= ``perturb_eps``·max|A|, default sqrt(machine eps))
+    with the signed threshold during the sweep instead of raising, counting
+    them in ``perturbed_pivots``.  Both off by default.
+
+    ``distribute`` and ``runtime="dynamic"`` are a later slice of the port
     and raise ``NotImplementedError``.
     """
 
@@ -234,8 +264,13 @@ class LUFactorization:
     values: torch.Tensor         # (nnz,) float64 on the device (refinement)
     factor_s: float              # scatter + panel-sweep wall time
     stats: Optional[SpanSummary] = None
+    # the values actually swept: the static-pivoting transform of
+    # ``values`` under ``pivot="static"``, ``values`` itself otherwise
+    factored_values: Optional[torch.Tensor] = None
     _matvec: Optional[CsrOperator] = dataclasses.field(default=None,
                                                        repr=False)
+    _quality: Optional[QualityReport] = dataclasses.field(default=None,
+                                                          repr=False)
 
     @property
     def n(self) -> int:
@@ -270,7 +305,26 @@ class LUFactorization:
             refine_iters=(opts.refine_iters if refine_iters is None
                           else refine_iters),
             refine_tol=opts.refine_tol if refine_tol is None else refine_tol,
-            batched=batched, matvec=self._matvec)
+            batched=batched, matvec=self._matvec,
+            transform=self.plan._transform())
+
+    @property
+    def perturbed_pivots(self) -> int:
+        """Tiny pivots bumped by the robust tier during this sweep."""
+        return self.num.perturbed_pivots
+
+    def quality(self, *, itmax: int = 5) -> QualityReport:
+        """Trust certificate of these factors: element growth, the Hager
+        1-norm condition estimate of the factored system and an
+        "ok"/"suspect"/"reject" verdict — a few triangular solves on the
+        packed factors, on their device; computed once and cached."""
+        if self._quality is None:
+            fvals = (self.factored_values if self.factored_values is not None
+                     else self.values)
+            self._quality = estimate_quality(
+                self.num, self.plan.a_factored, fvals,
+                perturbed_pivots=self.num.perturbed_pivots, itmax=itmax)
+        return self._quality
 
     def refactorize(self, values) -> "LUFactorization":
         """Factor a new value set **in place** on this factorization's
@@ -295,6 +349,7 @@ class BatchedLUFactorization:
     values: torch.Tensor         # (B, nnz) float64 on the device
     factor_s: float              # scatter + batched panel-sweep wall time
     stats: Optional[SpanSummary] = None
+    factored_values: Optional[torch.Tensor] = None   # (B, nnz) swept values
     _matvecs: Optional[List[CsrOperator]] = dataclasses.field(default=None,
                                                               repr=False)
 
@@ -310,11 +365,22 @@ class BatchedLUFactorization:
     def store(self) -> BatchedPanelStore:
         return self.num.store
 
+    @property
+    def perturbed_pivots(self) -> np.ndarray:
+        """Per-system tiny-pivot bump counts, (B,) int64 (all zero unless
+        the plan was built with ``LUOptions(perturb=True)``)."""
+        pp = self.num.perturbed_pivots
+        return (pp if pp is not None
+                else np.zeros(self.batch, dtype=np.int64))
+
     def system(self, i: int) -> LUFactorization:
         """System i as a sequential ``LUFactorization`` (zero-copy factor
         views; its ``factor_s`` is 0.0 — the batch owns the timing)."""
-        return LUFactorization(plan=self.plan, num=self.num.system(i),
-                               values=self.values[i], factor_s=0.0)
+        return LUFactorization(
+            plan=self.plan, num=self.num.system(i), values=self.values[i],
+            factor_s=0.0,
+            factored_values=(self.factored_values[i]
+                             if self.factored_values is not None else None))
 
     def solve_batch(self, b, *, refine_iters: Optional[int] = None,
                     refine_tol: Optional[float] = None
@@ -331,7 +397,7 @@ class BatchedLUFactorization:
             refine_iters=(opts.refine_iters if refine_iters is None
                           else refine_iters),
             refine_tol=opts.refine_tol if refine_tol is None else refine_tol,
-            matvecs=self._matvecs)
+            matvecs=self._matvecs, transform=self.plan._transform())
 
 
 @dataclasses.dataclass
@@ -339,8 +405,9 @@ class LUPlan:
     """One matrix structure, analyzed once on ``device``: the symbolic
     prediction plus every value-independent precomputation of the numeric
     pipeline.  Picklable: numpy arrays and plain dataclasses only; the
-    device copies of the maps (``_device_cache``) are rebuilt on the first
-    ``factorize`` after unpickling."""
+    device copies of the maps and of the static-pivoting tables
+    (``_device_cache``) are rebuilt on the first ``factorize`` after
+    unpickling."""
 
     a: CSRMatrix
     options: LUOptions
@@ -354,12 +421,25 @@ class LUPlan:
     analyze_s: float
     device: str
     stats: Optional[SpanSummary] = None
+    # static pivoting (``pivot="static"``): the transform and the permuted
+    # structural matrix the symbolic analysis ran on
+    robust: Optional[RobustPlan] = None
+    factored: Optional[CSRMatrix] = None
+    # autotune record (``autotune=True``): its chosen knobs are frozen into
+    # ``options``
+    tuned: Optional[TuneReport] = None
     _device_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __getstate__(self):
         state = dict(self.__dict__)
         state["_device_cache"] = {}
         return state
+
+    @property
+    def a_factored(self) -> CSRMatrix:
+        """The structural matrix the factors describe: ``Dr·P·A·Dc``'s
+        pattern under static pivoting, ``a`` itself otherwise."""
+        return self.factored if self.factored is not None else self.a
 
     @property
     def n(self) -> int:
@@ -380,28 +460,40 @@ class LUPlan:
 
     def _device_state(self, dev: torch.device):
         """(store index, per-panel device gather maps, trailing-update
-        tables) on ``dev``, built on first use and cached for every later
-        factorization."""
+        tables, static-pivoting tables or None) on ``dev``, built on first
+        use and cached for every later factorization."""
         key = str(dev)
         if key not in self._device_cache:
             self._device_cache[key] = (
                 self.store_template.build_index(self.csr_maps, dev),
                 device_maps(self.gather_maps, dev),
                 build_update_maps(self.store_template, self.schedule,
-                                  self.gather_maps).to(dev))
+                                  self.gather_maps).to(dev),
+                self.robust.on(dev) if self.robust is not None else None)
         return self._device_cache[key]
+
+    def _transform(self):
+        """The static-pivoting tables on the plan's device (None without
+        ``pivot="static"``)."""
+        if self.robust is None:
+            return None
+        return self._device_state(resolve_device(self.device))[3]
 
     def factorize(self, values=None, *,
                   _reuse_store: Optional[PanelStore] = None
                   ) -> LUFactorization:
         """Numeric factorization of CSR-aligned ``values`` ((nnz,), numpy or
-        tensor; defaults to ``generic_values_csr``) on the plan's device."""
+        tensor; defaults to ``generic_values_csr``) on the plan's device.
+        Under static pivoting the plan's transform is replayed on the
+        device first (an O(nnz) gather + scale; no symbolic work)."""
         t0 = time.perf_counter()
         if values is None:
             values = generic_values_csr(self.a)
         dev = resolve_device(self.device)
         values = torch.as_tensor(values, dtype=torch.float64, device=dev)
-        index, maps, update_maps = self._device_state(dev)
+        index, maps, update_maps, robust = self._device_state(dev)
+        fvals = (robust.transform_values(values) if robust is not None
+                 else values)
         store = (_reuse_store if _reuse_store is not None
                  else PanelStore.from_structure(self.store_template, dev,
                                                 index))
@@ -410,7 +502,7 @@ class LUPlan:
             mark = tr.mark() if tr is not None else 0
             with _ot.span("factorize"):
                 num = factor_on_store(
-                    self.a, values, store, self.schedule,
+                    self.a_factored, fvals, store, self.schedule,
                     backend=self.options.numeric_backend,
                     piv_tol=self.options.piv_tol,
                     check_pattern=self.options.check_pattern,
@@ -418,11 +510,13 @@ class LUPlan:
                     maps=maps, update_maps=update_maps,
                     csr_maps=self.csr_maps,
                     store_is_zeroed=_reuse_store is None,
-                    segment_batch=self.options.segment_batch)
+                    segment_batch=self.options.segment_batch,
+                    perturb=self.options.perturb,
+                    perturb_eps=self.options.perturb_eps)
             stats = tr.summary(mark) if tr is not None else None
         return LUFactorization(plan=self, num=num, values=values,
                                factor_s=time.perf_counter() - t0,
-                               stats=stats)
+                               stats=stats, factored_values=fvals)
 
     def factorize_batch(self, values_batch) -> BatchedLUFactorization:
         """Numeric factorization of B same-pattern value sets in ONE
@@ -440,7 +534,9 @@ class LUPlan:
             raise ValueError(
                 f"values_batch must be a (B, {self.a.nnz}) CSR-aligned "
                 f"stack, got shape {tuple(values_batch.shape)}")
-        index, maps, update_maps = self._device_state(dev)
+        index, maps, update_maps, robust = self._device_state(dev)
+        fvals = (robust.transform_values(values_batch) if robust is not None
+                 else values_batch)
         bstore = BatchedPanelStore(self.store_template,
                                    values_batch.shape[0], dev, index)
         bstore._solve_schedule = self.solve_schedule
@@ -448,19 +544,21 @@ class LUPlan:
             mark = tr.mark() if tr is not None else 0
             with _ot.span("factorize_batch"):
                 num = factor_batch_on_store(
-                    self.a, values_batch, bstore, self.schedule,
+                    self.a_factored, fvals, bstore, self.schedule,
                     backend=self.options.numeric_backend,
                     piv_tol=self.options.piv_tol,
                     check_pattern=self.options.check_pattern,
                     pattern_tol=self.options.pattern_tol,
                     maps=maps, update_maps=update_maps,
                     csr_maps=self.csr_maps, store_is_zeroed=True,
-                    segment_batch=self.options.segment_batch)
+                    segment_batch=self.options.segment_batch,
+                    perturb=self.options.perturb,
+                    perturb_eps=self.options.perturb_eps)
             stats = tr.summary(mark) if tr is not None else None
         return BatchedLUFactorization(plan=self, num=num,
                                       values=values_batch,
                                       factor_s=time.perf_counter() - t0,
-                                      stats=stats)
+                                      stats=stats, factored_values=fvals)
 
     def solve(self, b, values=None) -> SolveResult:
         """Convenience: factorize ``values`` and solve in one call."""
@@ -470,16 +568,72 @@ class LUPlan:
         return res
 
 
+def _partition_with_blocking(pattern, supernodes, fingerprints, opts,
+                             peaks):
+    """Apply autotune / structure-aware blocking to a detected partition.
+
+    Returns ``(supernodes, tuned, opts)``: the (possibly merged) partition,
+    the ``TuneReport`` when autotuning ran, and the options with any chosen
+    knob values frozen in.  A no-op (same objects back) when both knobs are
+    off — the default path never touches the merge pass.
+    """
+    tuned = None
+    if opts.autotune:
+        supernodes, tuned = autotune_partition(pattern, fingerprints, opts,
+                                               peaks=peaks)
+        opts = opts.replace(**tuned.chosen)
+    elif opts.blocking:
+        threshold = (1.0 if opts.block_merge_threshold is None
+                     else opts.block_merge_threshold)
+        supernodes, _ = merge_supernodes(
+            pattern, supernodes, cost_model_for(opts, peaks),
+            threshold=threshold, max_width=opts.block_max_width)
+    return supernodes, tuned, opts
+
+
+def _plan_structure(pattern: CSCPattern, supernodes, a_factored: CSRMatrix,
+                    opts: LUOptions) -> dict:
+    """Everything value-independent below a partition: the level schedule,
+    the store template, the gather and CSR scatter maps (on the factored
+    matrix) and the solve schedule — ``LUPlan`` fields by name."""
+    with _ot.span("build_schedule"):
+        schedule = build_schedule(pattern, supernodes, n_bins=opts.n_bins,
+                                  policy=opts.policy)
+        store_template = PanelStore(pattern, schedule.supernodes)
+    with _ot.span("gather_maps"):
+        gather_maps = build_gather_maps(store_template, schedule)
+        csr_maps = store_template.csr_maps(a_factored)
+    with _ot.span("solve_schedule"):
+        solve_schedule = build_solve_schedule(store_template)
+    return dict(schedule=schedule, store_template=store_template,
+                gather_maps=gather_maps, csr_maps=csr_maps,
+                solve_schedule=solve_schedule)
+
+
 def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
-            device=None, mesh=None, on_progress=None) -> LUPlan:
+            values=None, peaks: Optional[dict] = None, device=None,
+            mesh=None, on_progress=None) -> LUPlan:
     """Symbolic analysis of ``a`` on ``device`` (default: the card): one
     fixpoint pass streams out the L/U counts, the supernode partition
     (fingerprints, K2) and the sparse ``CSCPattern``; everything
     value-independent downstream is precomputed into the returned
     ``LUPlan``.  No dense (n, n) pattern is materialized on the host or the
     device (the dense adjacency of ``backend="dense"/"kernel"`` is the
-    graph, not the pattern).  ``mesh`` (multi-device analysis) is a later
-    slice of the port and raises ``NotImplementedError``."""
+    graph, not the pattern).
+
+    With ``LUOptions(pivot="static")`` the robust pre-pass runs first, on
+    the host: a maximum-product transversal over ``values`` (a
+    representative value set, CSR-aligned (nnz,) or dense (n, n), numpy or
+    tensor; defaults to ``generic_values_csr(a)``, which weights the
+    pattern only) picks the row permutation, Ruiz equilibration the
+    scalings, and the fixpoint and everything downstream run on the
+    permuted pattern (``LUPlan.a_factored``).  With ``blocking=True`` /
+    ``autotune=True`` the detected partition runs through the blocking
+    merge pass / the roofline knob sweep before the schedule is built;
+    ``peaks`` (``{"mem_bw_gbs", "flops_gflops"}``) feeds the cost model
+    (fixed constants otherwise, so tuning stays deterministic).  ``mesh``
+    (multi-device analysis) is a later slice of the port and raises
+    ``NotImplementedError``."""
     t0 = time.perf_counter()
     opts = options if options is not None else LUOptions()
     if mesh is not None:
@@ -487,11 +641,20 @@ def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
             "analyze(mesh=...) is not ported to repro_torch yet: ROADMAP.md "
             "Queue A item 10")
     dev = resolve_device(device)
+    robust = None
+    a_sym = a
     with _ot.ensure(opts.trace) as tr:
         mark = tr.mark() if tr is not None else 0
+        if opts.pivot == "static":
+            with _ot.span("robust_prepass"):
+                if values is None:
+                    values = generic_values_csr(a)
+                elif isinstance(values, torch.Tensor):
+                    values = values.detach().cpu().numpy()
+                a_sym, robust = build_robust_prepass(a, values)
         with _ot.span("analyze"):
             sym = _symbolic_factorize(
-                a, concurrency=opts.concurrency, backend=opts.backend,
+                a_sym, concurrency=opts.concurrency, backend=opts.backend,
                 combined=opts.combined, bubble=opts.bubble,
                 use_arena=opts.use_arena, budget_bytes=opts.budget_bytes,
                 checkpoint_path=opts.checkpoint_path,
@@ -499,21 +662,53 @@ def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
                 supernode_relax=opts.supernode_relax,
                 supernode_max_size=opts.supernode_max_size,
                 collect_pattern=True, device=dev, on_progress=on_progress)
-            pattern = sym.pattern
-            with _ot.span("build_schedule"):
-                schedule = build_schedule(pattern, sym.supernodes,
-                                          n_bins=opts.n_bins,
-                                          policy=opts.policy)
-                store_template = PanelStore(pattern, schedule.supernodes)
-            with _ot.span("gather_maps"):
-                gather_maps = build_gather_maps(store_template, schedule)
-                csr_maps = store_template.csr_maps(a)
-            with _ot.span("solve_schedule"):
-                solve_schedule = build_solve_schedule(store_template)
+            supernodes, tuned, opts = _partition_with_blocking(
+                sym.pattern, sym.supernodes, sym.fingerprints, opts, peaks)
+            structure = _plan_structure(sym.pattern, supernodes, a_sym, opts)
         stats = tr.summary(mark) if tr is not None else None
-    return LUPlan(a=a, options=opts, sym=sym, pattern=pattern,
-                  schedule=schedule, store_template=store_template,
-                  gather_maps=gather_maps, csr_maps=csr_maps,
-                  solve_schedule=solve_schedule,
-                  analyze_s=time.perf_counter() - t0, device=str(dev),
-                  stats=stats)
+    return LUPlan(a=a, options=opts, sym=sym, pattern=sym.pattern,
+                  **structure, analyze_s=time.perf_counter() - t0,
+                  device=str(dev), stats=stats, robust=robust,
+                  factored=a_sym if robust is not None else None,
+                  tuned=tuned)
+
+
+def replan(plan: LUPlan, options: Optional[LUOptions] = None, *,
+           peaks: Optional[dict] = None) -> LUPlan:
+    """Re-derive a plan under new partition knobs WITHOUT re-running the
+    symbolic fixpoint.
+
+    The supernode partition, schedules, gather/scatter maps, storage
+    template and solve DAGs are cheap derivations from the plan's retained
+    O(n) column fingerprints and sparse pattern; ``replan`` re-runs exactly
+    those for ``options`` (defaults to the plan's own) — the blocking merge
+    pass and the autotune sweep included — on the host.  Returns a NEW
+    ``LUPlan`` on the same device (the input plan is untouched); with the
+    plan's own knobs it factorizes bitwise like the plan.  The static-
+    pivoting transform is the plan's.  Raises ``ValueError`` for a plan
+    whose symbolic result kept no fingerprints.
+    """
+    t0 = time.perf_counter()
+    opts = options if options is not None else plan.options
+    fp = getattr(plan.sym, "fingerprints", None)
+    if fp is None:
+        raise ValueError(
+            "plan retains no column fingerprints (symbolic ran without "
+            "supernode detection); re-run repro_torch.analyze() to rebuild "
+            "it")
+    with _ot.ensure(opts.trace) as tr:
+        mark = tr.mark() if tr is not None else 0
+        with _ot.span("replan"):
+            supernodes = detect_from_fingerprints(
+                fp, relax=opts.supernode_relax,
+                max_size=opts.supernode_max_size)
+            supernodes, tuned, opts = _partition_with_blocking(
+                plan.pattern, supernodes, fp, opts, peaks)
+            structure = _plan_structure(plan.pattern, supernodes,
+                                        plan.a_factored, opts)
+        stats = tr.summary(mark) if tr is not None else None
+    return LUPlan(a=plan.a, options=opts, sym=plan.sym, pattern=plan.pattern,
+                  **structure,
+                  analyze_s=plan.analyze_s + (time.perf_counter() - t0),
+                  device=plan.device, stats=stats, robust=plan.robust,
+                  factored=plan.factored, tuned=tuned)

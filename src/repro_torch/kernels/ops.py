@@ -172,6 +172,25 @@ def panel_tile(n: int, k: int) -> tuple:
     return int(tc[0]), int(bk[0])
 
 
+def padded_gemm_shape(m, k, n):
+    """Padded ``(M, K, N)`` that the mapped K3/K4 works through for a
+    logical ``m x k @ k x n`` update: M up to a multiple of the tile's rows
+    (``PANEL_THREADS // TC``), N up to a multiple of TC, K up to a multiple
+    of BK, with (TC, BK) ``panel_tile``'s.  The cost model charges this
+    shape for the kernel backend.  Scalars or numpy arrays (vectorised over
+    candidate partitions); a zero dimension gives (0, 0, 0) — such an
+    update is never launched."""
+    m_, k_, n_ = (np.asarray(x, dtype=np.int64) for x in (m, k, n))
+    tc, bk = _tile_shapes(n_, k_)
+    tr = PANEL_THREADS // tc
+    dead = (m_ == 0) | (k_ == 0) | (n_ == 0)
+    mp, kp, np_ = (np.where(dead, 0, -(-x // t) * t)
+                   for x, t in ((m_, tr), (k_, bk), (n_, tc)))
+    if np.isscalar(m) and np.isscalar(k) and np.isscalar(n):
+        return int(mp), int(kp), int(np_)
+    return mp, kp, np_
+
+
 def mapped_tiles(slices) -> np.ndarray:
     """(T, ``PANEL_TILE_INTS``) int32 tile records of the mapped update
     for ``slices``, rows ``(acc_off, map_off, u_off, M, N, K)``: each

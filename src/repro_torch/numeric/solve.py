@@ -14,6 +14,12 @@ blocks, plus iterative refinement:
 * **Iterative refinement** — r = b - A x via the O(nnz) CSR matvec,
   re-solve on the factors, accept only improving corrections, so the
   recorded relative-residual history is non-increasing by construction.
+* **Static pivoting** — with a ``transform`` (the plan's
+  ``robust.DeviceRobust``) every inner factored solve runs on
+  ``apply_rhs(rhs)`` and maps back through ``apply_solution``, while the
+  refinement matvec stays against the ORIGINAL matrix and values.
+* **Transposed substitution** — ``solve_factored_transposed`` (A_f^{-T}
+  b = L^{-T} U^{-T} b) for the robust tier's condition estimate.
 
 Everything runs on the factors' device; nothing materializes (n, n).
 
@@ -229,6 +235,62 @@ def solve_factored(num: NumericResult, b: torch.Tensor, *,
                                batched=batched)
 
 
+# -- transposed substitution (the robust tier's condition estimate) ---------
+#
+# Hager's 1-norm condition estimator needs A^{-T} applied to a vector, which
+# the packed factors give as L^{-T} U^{-T}.  The sweeps mirror the primal
+# ones with reading and writing roles swapped: L^T pulls a panel's own range
+# from its *below* rows (owned by later panels, so a plain descending panel
+# walk is topologically correct), U^T pulls from the *above* rows (earlier
+# panels, ascending walk).  These are diagnostic paths (a handful of solves
+# per quality estimate), so they stay serial and unscheduled.
+
+
+def backward_substitute_t(store: PanelStore, b: torch.Tensor) -> torch.Tensor:
+    """x with L^T x = b (unit-lower L in the packed blocks, transposed)."""
+    x = b.clone()
+    below_rows = _row_index(store).below
+    with _ot.span("solve_backward_t"):
+        for j in range(store.n_panels - 1, -1, -1):
+            s, e = (int(v) for v in store.supernodes[j])
+            d = int(store.diag[j])
+            below = below_rows[j]
+            if below is not None:
+                x[s:e] -= store.blocks[j][d + e - s:].T @ x[below]
+            if e - s > 1:
+                x[s:e] = torch.linalg.solve_triangular(
+                    store.blocks[j][d:d + e - s].T, x[s:e, None], upper=True,
+                    unitriangular=True)[:, 0]
+    return x
+
+
+def forward_substitute_t(store: PanelStore, b: torch.Tensor) -> torch.Tensor:
+    """w with U^T w = b (upper U in the packed blocks, transposed)."""
+    y = b.clone()
+    above_rows = _row_index(store).above
+    with _ot.span("solve_forward_t"):
+        for j in range(store.n_panels):
+            s, e = (int(v) for v in store.supernodes[j])
+            d = int(store.diag[j])
+            above = above_rows[j]
+            if above is not None:
+                y[s:e] -= store.blocks[j][:d].T @ y[above]
+            diag = store.blocks[j][d:d + e - s]
+            if e - s == 1:
+                y[s] = y[s] / diag[0, 0]
+            else:
+                y[s:e] = torch.linalg.solve_triangular(
+                    diag.T, y[s:e, None], upper=False)[:, 0]
+    return y
+
+
+def solve_factored_transposed(num: NumericResult,
+                              b: torch.Tensor) -> torch.Tensor:
+    """z = A^{-T} b = L^{-T} U^{-T} b on the packed factors, ``b`` (n,)."""
+    return backward_substitute_t(num.store,
+                                 forward_substitute_t(num.store, b))
+
+
 @dataclasses.dataclass
 class SolveResult:
     """Solution + convergence history of one ``solve`` call.
@@ -266,7 +328,8 @@ def _col_residuals(matvec, x: torch.Tensor, b: torch.Tensor,
 def solve(a: CSRMatrix, b, *, values, num: NumericResult,
           refine_iters: int = 2, refine_tol: Optional[float] = None,
           batched: Optional[bool] = None,
-          matvec: Optional[CsrOperator] = None) -> SolveResult:
+          matvec: Optional[CsrOperator] = None,
+          transform=None) -> SolveResult:
     """Solve A x = b on the factors ``num`` of ``values`` (CSR-aligned, the
     values the factorization was built from), with iterative refinement.
 
@@ -277,6 +340,14 @@ def solve(a: CSRMatrix, b, *, values, num: NumericResult,
     refinement stops early once every column is at or below ``refine_tol``
     (default 1e-14).  ``matvec`` reuses a prebuilt ``CsrOperator`` of
     (a, values).
+
+    ``transform`` (a ``robust.DeviceRobust``, or a ``RobustPlan``) wires the
+    static-pivoting permutation and scalings around every inner factored
+    solve: ``num`` holds the factors of ``A_f = Dr·P·A·Dc``, so each
+    substitution runs on ``apply_rhs(rhs)`` and maps back through
+    ``apply_solution``, while ``a``/``values``/``b`` stay the ORIGINAL
+    system the refinement iterates against.  ``None`` leaves the float
+    operations those of the untransformed path.
     """
     t0 = time.perf_counter()
     dev = num.store.device
@@ -291,8 +362,14 @@ def solve(a: CSRMatrix, b, *, values, num: NumericResult,
     if refine_tol is None:
         refine_tol = 1e-14
 
-    def fsolve(rhs):
-        return solve_factored(num, rhs, batched=batched)
+    if transform is None:
+        def fsolve(rhs):
+            return solve_factored(num, rhs, batched=batched)
+    else:
+        def fsolve(rhs):
+            return transform.apply_solution(
+                solve_factored(num, transform.apply_rhs(rhs),
+                               batched=batched))
 
     b_norms = torch.linalg.norm(b, dim=0).reshape(-1)
     b_norms = torch.where(b_norms == 0.0, 1.0, b_norms)
@@ -385,8 +462,8 @@ class BatchedSolveResult:
 
 def solve_batch(a: CSRMatrix, b, values_batch, bnum: BatchedNumericResult,
                 *, refine_iters: int = 2, refine_tol: Optional[float] = None,
-                matvecs: Optional[List[CsrOperator]] = None
-                ) -> BatchedSolveResult:
+                matvecs: Optional[List[CsrOperator]] = None,
+                transform=None) -> BatchedSolveResult:
     """Substitution + iterative refinement for all B factored systems:
     ``b`` is (B, n) or (B, n, k), ``values_batch`` the (B, nnz) stack
     ``bnum`` was factored from (each system refines against its OWN
@@ -396,6 +473,8 @@ def solve_batch(a: CSRMatrix, b, values_batch, bnum: BatchedNumericResult,
     a fresh copy of its right-hand side, so every system's x, residual
     history and accepted count are that call's: the refinement stops per
     system and accepts whole x for a vector RHS, per column for (B, n, k).
+    ``transform`` wires the static-pivoting transform around each system's
+    factored solves, as in ``solve``.
     """
     t0 = time.perf_counter()
     bsz, n = bnum.batch, bnum.n
@@ -415,7 +494,8 @@ def solve_batch(a: CSRMatrix, b, values_batch, bnum: BatchedNumericResult,
     with _ot.span("solve_batch"):
         res = [solve(a, b[i].clone(), values=values_batch[i],
                      num=bnum.system(i), refine_iters=refine_iters,
-                     refine_tol=refine_tol, matvec=matvecs[i])
+                     refine_tol=refine_tol, matvec=matvecs[i],
+                     transform=transform)
                for i in range(bsz)]
     return BatchedSolveResult(
         x=torch.stack([r.x for r in res]),

@@ -18,7 +18,11 @@ packed blocks of ``storage.PanelStore`` on the store's device:
 * **Panel factor** — dense no-pivot LU of the diagonal block, then one
   triangular solve for the below-panel L rows.  Pivots are checked once per
   dependency level (one host sync) and a failure raises the same
-  ``ZeroPivotError`` — column, panel, level — as the reference.
+  ``ZeroPivotError`` — column, panel, level — as the reference.  With
+  ``perturb`` a tiny pivot is replaced by the signed threshold on the
+  device before its division (``sparse.numeric.PerturbState``), so the
+  level's check sees the bumped diagonal; the count is read once, after
+  the sweep.
 * **Level schedule** — panels within a level are independent; with
   ``segment_batch`` a level's trailing updates are one launch.
 
@@ -56,8 +60,8 @@ from repro_torch.obs import metrics as _om
 from repro_torch.obs import trace as _ot
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.numeric import (
-    ZeroPivotError, check_pivots, check_pivots_batched, lu_inplace,
-    lu_inplace_batched, pivot_tolerance,
+    PerturbState, ZeroPivotError, check_pivots, check_pivots_batched,
+    lu_inplace, lu_inplace_batched, perturb_threshold, pivot_tolerance,
 )
 
 _BACKENDS = ("numpy", "kernel")
@@ -80,6 +84,7 @@ class NumericResult:
     n_updates: int               # ancestor panel updates consumed
     gemm_flops: int              # flops of the accumulated trailing GEMMs
     outside_max: float           # largest |value| found outside the pattern
+    perturbed_pivots: int = 0    # tiny pivots bumped by the robust tier
     _dense_lu: Optional[Tuple[np.ndarray, np.ndarray]] = \
         dataclasses.field(default=None, repr=False)
 
@@ -162,11 +167,13 @@ def _panel_prepare(store: PanelStore, schedule: PanelSchedule, j: int,
     return b, dropped, 2 * rows * maps.n_rows * w
 
 
-def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int) -> None:
-    """Phase B of panel j: diagonal-block factor + below-panel solve."""
+def _panel_finish(store: PanelStore, schedule: PanelSchedule, j: int,
+                  perturb: Optional[PerturbState] = None) -> None:
+    """Phase B of panel j: diagonal-block factor (tiny pivots bumped with
+    ``perturb``) + below-panel solve."""
     block = store.blocks[j]
     diag = store.diag_block(j)
-    lu_inplace(diag)
+    lu_inplace(diag, perturb=perturb)
     below = int(store.diag[j]) + diag.shape[0]
     if block.shape[0] > below:
         block[below:] = _solve_upper_right(diag, block[below:])
@@ -194,7 +201,7 @@ def _trailing_update(store, upd: UpdateMaps, lo: int, hi: int,
 
 def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
                   backend: str, maps: Optional[DevicePanelMaps],
-                  upd: UpdateMaps):
+                  upd: UpdateMaps, perturb: Optional[PerturbState] = None):
     """Factor panel j in place on its packed block (per-panel dispatch: a
     one-slice update).  Returns (#ancestor updates, trailing flops,
     dropped)."""
@@ -203,14 +210,15 @@ def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
         lo, hi = (int(x) for x in upd.panel_tiles[j])
         _trailing_update(store, upd, lo, hi, b.reshape(-1), backend,
                          u_shift=int(upd.u_off[j]))
-    _panel_finish(store, schedule, j)
+    _panel_finish(store, schedule, j, perturb)
     return len(schedule.ancestors[j]), flops, dropped
 
 
 def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
                             li: int, seg, backend: str,
                             maps: List[Optional[DevicePanelMaps]],
-                            upd: UpdateMaps):
+                            upd: UpdateMaps,
+                            perturb: Optional[PerturbState] = None):
     """Factor level ``li``'s panels ``seg`` with ONE trailing-update launch
     (DESIGN.md §13).
 
@@ -239,7 +247,7 @@ def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
     if _ot.ENABLED:
         _count_batched_gemms(upd, li, 1)
     for j in seg:
-        _panel_finish(store, schedule, int(j))
+        _panel_finish(store, schedule, int(j), perturb)
     return out
 
 
@@ -267,7 +275,9 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
                     update_maps: Optional[UpdateMaps] = None,
                     csr_maps=None,
                     store_is_zeroed: bool = False,
-                    segment_batch: bool = True) -> NumericResult:
+                    segment_batch: bool = True,
+                    perturb: bool = False,
+                    perturb_eps: Optional[float] = None) -> NumericResult:
     """Scatter CSR-aligned ``values`` into ``store`` and run the
     level-scheduled panel sweep on the store's device.
 
@@ -277,6 +287,11 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     ``LUPlan.factorize`` passes all three from its analysis; when omitted
     they are derived here.  ``segment_batch`` (default on) runs a level's
     trailing updates as one launch instead of one per panel.
+
+    ``perturb`` enables tiny-pivot perturbation: pivots with |piv| <=
+    ``perturb_eps``·max|A| (default sqrt(machine eps)) are replaced by that
+    signed threshold instead of raising, counted in
+    ``NumericResult.perturbed_pivots``.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
@@ -304,6 +319,8 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     scale = float(values.abs().max()) if values.numel() else 0.0
     if piv_tol is None:
         piv_tol = pivot_tolerance(scale)
+    pstate = (PerturbState(perturb_threshold(scale, perturb_eps),
+                           store.device) if perturb else None)
     if maps is None or update_maps is None:
         host_maps = build_gather_maps(store, schedule)
         if maps is None:
@@ -323,10 +340,12 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
         with _ot.span("factor_level"), _ot.span("factor_segment"):
             if segment_batch and len(level) > 1:
                 panel_stats = _factor_segment_batched(
-                    store, schedule, li, level, backend, maps, update_maps)
+                    store, schedule, li, level, backend, maps, update_maps,
+                    pstate)
             else:
                 panel_stats = [(int(j),) + _factor_panel(
-                    store, schedule, int(j), backend, maps[j], update_maps)
+                    store, schedule, int(j), backend, maps[j], update_maps,
+                    pstate)
                     for j in level]
             for j, upd, flops, drop in panel_stats:
                 n_updates += upd
@@ -348,11 +367,14 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
             except ZeroPivotError as e:
                 raise e.with_context(panel=int(store.sup_of_col[e.k]),
                                      level=li)
+    perturbed = pstate.total() if pstate is not None else 0
     if obs_on:
         reg = _om.registry()
         reg.count("gemm.flops", gemm_flops)
         reg.count("gemm.bytes", gemm_bytes)
         reg.count("gemm.seconds", time.perf_counter() - sweep_t0)
+        if perturbed:
+            reg.count("robust.perturbed_pivots", perturbed)
 
     dropped.append(store.padding_max())
     outside_max = float(torch.stack(dropped).max())
@@ -366,7 +388,7 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     return NumericResult(n=n, store=store, schedule=schedule, backend=backend,
                          elapsed_s=time.perf_counter() - t0,
                          n_updates=n_updates, gemm_flops=gemm_flops,
-                         outside_max=outside_max)
+                         outside_max=outside_max, perturbed_pivots=perturbed)
 
 
 @dataclasses.dataclass
@@ -389,6 +411,7 @@ class BatchedNumericResult:
     n_updates: int               # ancestor panel updates, per system
     gemm_flops: int              # trailing-update flops, per system
     outside_max: np.ndarray      # (B,) largest |value| outside the pattern
+    perturbed_pivots: Optional[np.ndarray] = None   # (B,) per-system counts
 
     @property
     def n_supernodes(self) -> int:
@@ -403,7 +426,11 @@ class BatchedNumericResult:
                              schedule=self.schedule, backend=self.backend,
                              elapsed_s=0.0, n_updates=self.n_updates,
                              gemm_flops=self.gemm_flops,
-                             outside_max=float(self.outside_max[i]))
+                             outside_max=float(self.outside_max[i]),
+                             perturbed_pivots=(
+                                 int(self.perturbed_pivots[i])
+                                 if self.perturbed_pivots is not None
+                                 else 0))
 
 
 def _panel_prepare_batched(bstore: BatchedPanelStore,
@@ -441,13 +468,15 @@ def _panel_prepare_batched(bstore: BatchedPanelStore,
 
 
 def _panel_finish_batched(bstore: BatchedPanelStore,
-                          schedule: PanelSchedule, j: int) -> None:
+                          schedule: PanelSchedule, j: int,
+                          perturb: Optional[PerturbState] = None) -> None:
     """``_panel_finish`` over the system axis: the elementwise batched
-    diagonal LU, then the below-panel solve — one division for a 1-wide
-    panel, one triangular solve per system otherwise."""
+    diagonal LU (each system's tiny pivots bumped against its own
+    threshold with ``perturb``), then the below-panel solve — one division
+    for a 1-wide panel, one triangular solve per system otherwise."""
     block = bstore.blocks[j]
     diag = bstore.diag_block(j)
-    lu_inplace_batched(diag)
+    lu_inplace_batched(diag, perturb=perturb)
     below = int(bstore.diag[j]) + diag.shape[1]
     if block.shape[1] > below:
         if diag.shape[1] == 1:
@@ -459,7 +488,8 @@ def _panel_finish_batched(bstore: BatchedPanelStore,
 
 
 def _factor_panel_batched(bstore: BatchedPanelStore, schedule, j: int,
-                          backend: str, maps, upd: UpdateMaps):
+                          backend: str, maps, upd: UpdateMaps,
+                          perturb: Optional[PerturbState] = None):
     """Phase A, the panel's trailing update for all B systems (one mapped
     K3/K4 launch) and phase B of panel j (per-panel dispatch).  Returns
     (#ancestor updates, trailing flops, dropped)."""
@@ -468,12 +498,13 @@ def _factor_panel_batched(bstore: BatchedPanelStore, schedule, j: int,
         lo, hi = (int(x) for x in upd.panel_tiles[j])
         _trailing_update(bstore, upd, lo, hi, b.reshape(bstore.batch, -1),
                          backend, u_shift=int(upd.u_off[j]))
-    _panel_finish_batched(bstore, schedule, j)
+    _panel_finish_batched(bstore, schedule, j, perturb)
     return len(schedule.ancestors[j]), flops, dropped
 
 
 def _factor_level_batched(bstore: BatchedPanelStore, schedule, li: int,
-                          level, backend: str, maps, upd: UpdateMaps):
+                          level, backend: str, maps, upd: UpdateMaps,
+                          perturb: Optional[PerturbState] = None):
     """Level ``li`` for all B systems with ONE trailing-update launch: phase
     A for every panel, the level's solved U rows stacked as (B, K_level)
     in level order, one mapped K3/K4 launch over the systems, then every
@@ -495,7 +526,7 @@ def _factor_level_batched(bstore: BatchedPanelStore, schedule, li: int,
         _trailing_update(bstore, upd, int(upd.level_tiles[li]),
                          int(upd.level_tiles[li + 1]), u, backend)
     for j in level:
-        _panel_finish_batched(bstore, schedule, int(j))
+        _panel_finish_batched(bstore, schedule, int(j), perturb)
     return out
 
 
@@ -510,7 +541,9 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
                           update_maps: Optional[UpdateMaps] = None,
                           csr_maps=None,
                           store_is_zeroed: bool = False,
-                          segment_batch: bool = True
+                          segment_batch: bool = True,
+                          perturb: bool = False,
+                          perturb_eps: Optional[float] = None
                           ) -> BatchedNumericResult:
     """``factor_on_store`` over B same-pattern value sets: scatter the
     (B, nnz) CSR-aligned stack into ``bstore`` and run ONE level-scheduled
@@ -522,8 +555,9 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
     a multi-system launch is bitwise the one-system launch), the solves and
     phase A's products are the sequential calls, one per system.  Pivot
     tolerance (``piv_tol=None``: eps at each system's own value scale), the
-    pattern-escape check and ``ZeroPivotError`` (naming the system) are per
-    system.  The trailing updates are one launch per level for all systems
+    pattern-escape check, ``ZeroPivotError`` (naming the system) and
+    ``perturb`` (``perturb_eps`` times each system's own value scale, and
+    the count) are per system.  The trailing updates are one launch per level for all systems
     with ``segment_batch`` (one per panel without)."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
@@ -557,6 +591,9 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
         piv_tol_sys = np.finfo(np.float64).eps * np.maximum(scale, 0.0)
     else:
         piv_tol_sys = np.full(bsz, float(piv_tol))
+    eps = np.float64(perturb_threshold(1.0, perturb_eps))
+    pstate = (PerturbState(eps * np.maximum(scale, 0.0), bstore.device)
+              if perturb else None)
     if maps is None or update_maps is None:
         host_maps = build_gather_maps(template, schedule)
         if maps is None:
@@ -573,10 +610,12 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
         with _ot.span("factor_level"), _ot.span("factor_segment"):
             if segment_batch and len(level) > 1:
                 panel_stats = _factor_level_batched(
-                    bstore, schedule, li, level, backend, maps, update_maps)
+                    bstore, schedule, li, level, backend, maps, update_maps,
+                    pstate)
             else:
                 panel_stats = [(int(j),) + _factor_panel_batched(
-                    bstore, schedule, int(j), backend, maps[j], update_maps)
+                    bstore, schedule, int(j), backend, maps[j], update_maps,
+                    pstate)
                     for j in level]
             if obs_on:
                 _count_batched_gemms(update_maps, li, bsz)
@@ -595,10 +634,14 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
             except ZeroPivotError as e:
                 raise e.with_context(panel=int(template.sup_of_col[e.k]),
                                      level=li)
+    perturbed = (pstate.count.cpu().numpy() if pstate is not None
+                 else None)
     if obs_on:
         reg = _om.registry()
         reg.count("gemm.flops", gemm_flops * bsz)
         reg.count("gemm.seconds", time.perf_counter() - sweep_t0)
+        if perturbed is not None and perturbed.sum():
+            reg.count("robust.perturbed_pivots", int(perturbed.sum()))
 
     dropped.append(bstore.padding_max())
     outside_max = torch.stack(dropped).amax(dim=0).cpu().numpy()
@@ -616,4 +659,5 @@ def factor_batch_on_store(a: Optional[CSRMatrix], values_batch,
                                 schedule=schedule, backend=backend,
                                 elapsed_s=time.perf_counter() - t0,
                                 n_updates=n_updates, gemm_flops=gemm_flops,
-                                outside_max=outside_max)
+                                outside_max=outside_max,
+                                perturbed_pivots=perturbed)

@@ -1,9 +1,11 @@
 """Numeric helpers of the packed LU path: the pivot contract, generic values,
-the CSR matvec of iterative refinement, and the in-place diagonal-block LU.
+the CSR matvec of iterative refinement, the in-place diagonal-block LU and
+its tiny-pivot perturbation (the robust tier).
 
 ``generic_values_csr`` stays numpy and keeps ``numpy.random.default_rng``'s
 stream, so its values are bitwise those of the reference; ``csr_matvec`` and
-``lu_inplace`` run on tensors on any device.
+``lu_inplace`` run on tensors on any device, and a ``PerturbState`` keeps its
+count on the device, read once at the end of a sweep.
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ class ZeroPivotError(ArithmeticError):
         return (f"zero pivot at column {self.k}"
                 + (f" [{where.strip()}]" if where else "")
                 + f": |{self.piv:.3e}| <= tol {self.tol:.3e} "
-                f"(matrix needs pivoting or is singular)")
+                f"(matrix needs pivoting or is singular; "
+                f"LUOptions(pivot='static', perturb=True) enables the "
+                f"robust tier)")
 
     def with_context(self, *, panel: int | None = None,
                      level: int | None = None,
@@ -61,6 +65,61 @@ class ZeroPivotError(ArithmeticError):
 def pivot_tolerance(scale: float) -> float:
     """Default near-zero pivot threshold: machine epsilon at the matrix scale."""
     return np.finfo(np.float64).eps * max(float(scale), 0.0)
+
+
+#: Default tiny-pivot perturbation magnitude relative to the matrix scale —
+#: sqrt(machine eps), the SuperLU_DIST choice: large enough that 1/piv stays
+#: harmless, small enough that iterative refinement recovers the accuracy.
+PERTURB_EPS = float(np.sqrt(np.finfo(np.float64).eps))
+
+
+def perturb_threshold(scale: float, eps: float | None = None) -> float:
+    """Replacement magnitude for tiny pivots: ``eps·max|A|`` (``eps``
+    defaults to ``PERTURB_EPS``)."""
+    return (PERTURB_EPS if eps is None else float(eps)) * max(float(scale), 0.0)
+
+
+class PerturbState:
+    """Sweep-scope tiny-pivot perturbation on one device.
+
+    ``threshold`` is the replacement magnitude eps·max|A|: a float for the
+    single-system sweep, a (B,) float64 array for the batched tier (each
+    system its own).  ``count`` is a device int64 tensor (0-d, or (B,))
+    that every bump adds to without a host sync; ``total()`` reads it once.
+    Non-finite pivots are never perturbed — they mean the sweep diverged,
+    and the pivot check reports them.
+    """
+
+    __slots__ = ("threshold", "count", "_pos", "_neg", "_cmp", "_finite")
+
+    def __init__(self, threshold, device):
+        thr = np.asarray(threshold, dtype=np.float64)
+        self.threshold = float(thr) if thr.ndim == 0 else thr
+        self.count = torch.zeros(thr.shape, dtype=torch.int64, device=device)
+        # the signed replacements as float64 device tensors, and the
+        # comparison bound: a threshold that is not positive bumps nothing
+        self._pos = torch.as_tensor(thr, device=device)
+        self._neg = torch.as_tensor(-thr, device=device)
+        self._cmp = torch.as_tensor(np.where(thr > 0.0, thr, -np.inf),
+                                    device=device)
+        # a finite threshold never reaches an infinite pivot, so the
+        # isfinite test is needed only when a threshold is infinite
+        self._finite = bool(np.isfinite(thr).all())
+
+    def bump(self, piv: torch.Tensor) -> None:
+        """Replace the tiny finite pivots of ``piv`` (a view of diagonal
+        entries: 0-d, or one per system) in place by the signed threshold
+        (``piv >= 0`` -> +threshold, so -0.0 goes to +threshold) and count
+        them; a threshold of 0.0 bumps nothing."""
+        tiny = piv.abs() <= self._cmp
+        if not self._finite:
+            tiny &= torch.isfinite(piv)
+        piv.copy_(torch.where(tiny, torch.where(piv >= 0.0, self._pos,
+                                                self._neg), piv))
+        self.count += tiny
+
+    def total(self) -> int:
+        return int(self.count.sum())
 
 
 def check_pivot(k: int, piv: float, piv_tol: float) -> None:
@@ -159,25 +218,40 @@ def csr_matvec(a: CSRMatrix, vals: torch.Tensor,
     return CsrOperator(a, vals)(x)
 
 
-def lu_inplace(m: torch.Tensor) -> None:
+def lu_inplace(m: torch.Tensor, *,
+               perturb: PerturbState | None = None) -> None:
     """In-place no-pivot right-looking elimination of the square block ``m``
     (L strictly below, U on/above the diagonal) on its device.  Pivots are
     not checked here: after the call ``m.diagonal()`` holds every pivot the
     elimination divided by, and the caller checks them in one batch
-    (``check_pivots``) instead of one host sync per column."""
+    (``check_pivots``) instead of one host sync per column.
+
+    With ``perturb`` every column's pivot, the last one too, is bumped in
+    place before its division (``PerturbState.bump``), so the check sees
+    the bumped diagonal; with None the float operations are exactly the
+    unperturbed ones."""
     w = m.shape[0]
-    for t in range(w - 1):
-        m[t + 1:, t] /= m[t, t]
-        m[t + 1:, t + 1:] -= torch.outer(m[t + 1:, t], m[t, t + 1:])
+    for t in range(w):
+        if perturb is not None:
+            perturb.bump(m[t, t])
+        if t < w - 1:
+            m[t + 1:, t] /= m[t, t]
+            m[t + 1:, t + 1:] -= torch.outer(m[t + 1:, t], m[t, t + 1:])
 
 
-def lu_inplace_batched(m: torch.Tensor) -> None:
+def lu_inplace_batched(m: torch.Tensor, *,
+                       perturb: PerturbState | None = None) -> None:
     """``lu_inplace`` over a leading system axis: ``m`` is (B, w, w), one
     same-structure diagonal block per system.  Every operation is
     elementwise (a division by the pivot and an outer-product update), so
-    each slice is bitwise ``lu_inplace`` on that system alone.  Pivots are
+    each slice is bitwise ``lu_inplace`` on that system alone; ``perturb``
+    bumps each system's pivot against its own threshold.  Pivots are
     checked by the caller (``check_pivots_batched``)."""
     w = m.shape[1]
-    for t in range(w - 1):
-        m[:, t + 1:, t] /= m[:, t, t, None]
-        m[:, t + 1:, t + 1:] -= m[:, t + 1:, t, None] * m[:, t, None, t + 1:]
+    for t in range(w):
+        if perturb is not None:
+            perturb.bump(m[:, t, t])
+        if t < w - 1:
+            m[:, t + 1:, t] /= m[:, t, t, None]
+            m[:, t + 1:, t + 1:] -= (m[:, t + 1:, t, None]
+                                     * m[:, t, None, t + 1:])

@@ -1,6 +1,8 @@
 """repro_torch session API: end to end against repro on every generator,
 pickled plans, LUOptions parity with repro.LUOptions, the later-slice
-options, and the device rule (the card by default, never a silent CPU)."""
+options (item 10's still raise; analyze takes the robust tier's values and
+the cost model's peaks), and the device rule (the card by default, never a
+silent CPU)."""
 import dataclasses
 import pickle
 
@@ -82,7 +84,8 @@ def test_luoptions_fields_and_defaults_match_reference():
     dict(block_max_width=0), dict(block_merge_threshold=0.0),
     dict(backend="bogus"), dict(numeric_backend="bogus"),
     dict(policy="bogus"), dict(runtime="bogus"), dict(pivot="bogus"),
-    dict(perturb_eps=-1.0), dict(runtime="dynamic", distribute=True),
+    dict(pivot="partial"), dict(perturb_eps=-1.0),
+    dict(runtime="dynamic", distribute=True),
 ])
 def test_luoptions_validation_matches_reference(bad):
     with pytest.raises(ValueError) as ref:
@@ -93,14 +96,32 @@ def test_luoptions_validation_matches_reference(bad):
 
 
 @pytest.mark.parametrize("later", [
-    dict(pivot="static"), dict(perturb=True),
-    dict(blocking=True), dict(autotune=True), dict(distribute=True),
-    dict(runtime="dynamic"),
+    dict(distribute=True), dict(runtime="dynamic"),
 ])
 def test_later_slice_options_raise(later):
     repro.LUOptions(**later)                    # valid in the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue A item 10"):
         repro_torch.LUOptions(**later)
+
+
+def test_analyze_takes_values_and_peaks():
+    """``analyze(values=, peaks=)`` as the reference's: the values seed
+    the static-pivoting transversal, the peaks feed the blocking cost
+    model; item 9's options are accepted."""
+    a = to_port(GENERATORS["bbd"]())
+    values = generic_values_csr(a, seed=1)
+    peaks = {"mem_bw_gbs": 100.0, "flops_gflops": 1000.0}
+    opts = repro_torch.LUOptions(concurrency=64, pivot="static",
+                                 perturb=True, blocking=True)
+    plan = repro_torch.analyze(a, opts, values=values, peaks=peaks,
+                               device="cpu")
+    assert plan.robust is not None and plan.options == opts
+    factor = plan.factorize(values)
+    assert factor.solve(np.ones(a.n)).residual <= 1e-10
+    auto = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=64, autotune=True), peaks=peaks, device="cpu")
+    assert auto.tuned is not None and auto.options.blocking
 
 
 def test_mesh_raises_not_implemented():

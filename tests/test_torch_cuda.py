@@ -674,3 +674,158 @@ def test_ssm_serving_on_card_matches_cpu(cuda, name):
     for a, b in zip(s_card, s_host):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(
             b.abs().max()))
+
+
+# -- the robust tier, blocking and the serving engine on the card ---------
+
+def _tiny_diag_system(n=60, band=4):
+    """A system whose first pivot is exactly 0.0 (no elimination update
+    reaches column 0): the perturbation's test case."""
+    from repro_torch.sparse import banded_random
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = banded_random(n, band=band, seed=9)
+    vals = generic_values_csr(a, seed=9)
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    vals[np.flatnonzero((rows == 0) & (a.indices == 0))[0]] = 0.0
+    return a, vals
+
+
+@pytest.mark.cuda
+def test_perturbation_on_card_matches_cpu(cuda):
+    """Tiny-pivot perturbation on the card bumps and counts what the CPU
+    port bumps (sequential and per system), the bumped pivot exactly the
+    threshold, the factors within float64 roundoff of the CPU's."""
+    import repro_torch
+    from repro_torch.sparse.numeric import PERTURB_EPS, generic_values_csr
+
+    a, bad = _tiny_diag_system()
+    opts = repro_torch.LUOptions(supernode_relax=2, perturb=True)
+    got = {}
+    for dev in (cuda, "cpu"):
+        plan = repro_torch.analyze(a, opts, device=dev)
+        f = plan.factorize(bad)
+        vb = np.stack([generic_values_csr(a, seed=9), bad,
+                       generic_values_csr(a, seed=9)])
+        got[str(dev)] = (f, plan.factorize_batch(vb))
+    (fc, bc), (fh, bh) = got[str(cuda)], got["cpu"]
+    assert fc.perturbed_pivots == fh.perturbed_pivots == 1
+    assert bc.perturbed_pivots.tolist() == bh.perturbed_pivots.tolist() \
+        == [0, 1, 0]
+    thr = PERTURB_EPS * np.abs(bad).max()
+    assert float(fc.store.blocks[0][0, 0]) == thr
+    assert float(bc.store.blocks[0][1, 0, 0]) == thr
+    scale = float(fh.store.flat.abs().max())
+    assert float((fc.store.flat.cpu() - fh.store.flat).abs().max()) \
+        <= 1e-12 * scale
+    assert fc.quality().verdict == fh.quality().verdict == "suspect"
+
+
+@pytest.mark.cuda
+def test_transposed_solve_on_card_matches_cpu(cuda):
+    import repro_torch
+    from repro_torch.numeric.solve import solve_factored_transposed
+    from repro_torch.sparse import banded_random
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = banded_random(80, band=5, seed=5)
+    vals = generic_values_csr(a, seed=5)
+    b = np.random.default_rng(5).standard_normal(a.n)
+    z = {}
+    for dev in (cuda, "cpu"):
+        f = repro_torch.analyze(a, repro_torch.LUOptions(supernode_relax=2),
+                                device=dev).factorize(vals)
+        z[str(dev)] = solve_factored_transposed(
+            f.num, torch.as_tensor(b, device=dev)).cpu()
+    zc, zh = z[str(cuda)], z["cpu"]
+    assert float((zc - zh).abs().max()) <= 1e-12 * float(zh.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", [False, True])
+def test_engine_on_card_is_sequential_bitwise(cuda, robust):
+    """The serving engine on the card: every request bitwise the
+    sequential API on the card, padded slots dropped."""
+    import repro_torch
+    from repro_torch.serve import SolverEngine
+    from repro_torch.sparse import circuit_like, matrices
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    if robust:
+        a = matrices.shuffled_dominant(160, band=5, seed=2)
+        base = matrices.shuffled_dominant_values_csr(a, band=5, seed=2)
+        opts = repro_torch.LUOptions(concurrency=64, supernode_relax=2,
+                                     pivot="static", perturb=True)
+        vals = [base * (1.0 + 0.1 * i) for i in range(5)]
+    else:
+        a = circuit_like(200, seed=7)
+        opts = repro_torch.LUOptions(concurrency=64, supernode_relax=2)
+        vals = [generic_values_csr(a, seed=i) for i in range(5)]
+    rng = np.random.default_rng(0)
+    rhs = [rng.standard_normal(a.n) for _ in range(5)]
+    eng = SolverEngine(opts, batch_slots=4, device=cuda)
+    rids = [eng.submit(a, v, b) for v, b in zip(vals, rhs)]
+    results = eng.flush()
+    assert [r.rid for r in results] == rids
+    assert eng.stats["batches"] == 2 and eng.stats["padded_slots"] == 3
+    plan = repro_torch.analyze(a, opts, values=vals[0], device=cuda)
+    for r, v, b in zip(results, vals, rhs):
+        seq = plan.factorize(v).solve(b)
+        assert r.x.device.type == cuda.type
+        assert torch.equal(r.x, seq.x) and r.residual == seq.residuals[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+def test_mapped_update_at_blocked_widths_is_dense_k3(cuda, f32):
+    """The mapped K3/K4 at a blocked plan's widest levels (merged panels
+    of N and K up to 256, explicit-zero rows): every slice bitwise dense
+    K3 on its gathered operands, the whole within tolerance of the plain
+    version."""
+    import repro_torch
+    from repro_torch.sparse import bordered_block_diagonal
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = bordered_block_diagonal(2000, block=16, border=64, seed=3)
+    values = generic_values_csr(a)
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=256, numeric_backend="kernel" if f32 else "numpy"),
+        device=cuda)
+    blocked = repro_torch.replan(plan, plan.options.replace(blocking=True))
+    f = blocked.factorize(values)
+    upd = blocked._device_state(cuda)[2]
+    tiles = upd.tiles.cpu().numpy()
+    recs = tiles[(tiles[:, 6] == 0) & (tiles[:, 7] == 0)]
+    assert recs[:, 4].max() > 64 and recs[:, 5].max() > 64
+    # the widest level's slices and the deepest one's
+    bounds = upd.level_tiles.tolist()
+    levels = [(int(tiles[lo:hi, 4].max()), int(tiles[lo:hi, 5].max()), li)
+              for li, (lo, hi) in enumerate(zip(bounds, bounds[1:]))
+              if hi > lo]
+    rng = np.random.default_rng(1)
+    flat = f.store.flat.cpu().numpy()
+    lmap = upd.lmap.cpu().numpy()
+    for li in {max(levels)[2], max(levels, key=lambda t: t[1])[2]}:
+        lvl_tiles = tiles[bounds[li]:bounds[li + 1]]
+        lrecs = lvl_tiles[(lvl_tiles[:, 6] == 0) & (lvl_tiles[:, 7] == 0)]
+        u = rng.standard_normal(int((lrecs[:, 4] * lrecs[:, 5]).sum()))
+        got = torch.as_tensor(flat, device=cuda)
+        u_d = torch.as_tensor(u, device=cuda)
+        tiles_d = torch.as_tensor(lvl_tiles, device=cuda)
+        ops.panel_update_mapped(got, u_d, upd.lmap, tiles_d, f32=f32)
+        want = torch.as_tensor(flat, device=cuda)
+        plain.panel_update_mapped_plain(want, u_d, upd.lmap, tiles_d,
+                                        f32=f32)
+        eps = 2e-6 if f32 else 1e-14
+        tol = (eps * int(lrecs[:, 5].max()) * np.abs(flat).max()
+               * np.abs(u).max())
+        assert float((got - want).abs().max()) <= tol
+        for rec in lrecs:
+            acc_off, m, n, k = int(rec[0]), *(int(x) for x in rec[3:6])
+            acc, lp, up = (torch.as_tensor(x, device=cuda)
+                           for x in _mapped_operands(flat, u, lmap, rec))
+            dense = (ops.panel_update(acc.float(), lp.float(),
+                                      up.float()).double()
+                     if f32 else ops.panel_update(acc, lp, up))
+            assert torch.equal(got[acc_off:acc_off + m * n].view(m, n),
+                               dense)
