@@ -47,7 +47,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   and (8, n, 4) bitwise the sequential solves (x, residual
                   history, accepted count), residuals <= 1e-10; systems 0
                   and 7 again on phase 4's plan (float32 updates); one
-                  batched sweep under ``torch.profiler``; whether batched
+                  batched sweep of systems 0 and 1 under ``torch.profiler``
+                  (``PROFILED_SYSTEMS``); whether batched
                   cuBLAS products and triangular solves are bitwise per
                   slice at the sweep's shapes (reported, not required: the
                   tier makes one call per system); a zero pivot in system 3
@@ -78,6 +79,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   no analyze); one request per pattern bitwise the
                   sequential API, every residual <= 1e-10, the mapped
                   launches once per level per dispatch.
+   ``distributed`` — Queue A item 10 on bbd-20k: ``torch.multiprocessing``
+                  spawns a gloo world of 2 ranks (a ``FileStore``, both
+                  ranks on ``cuda:0``), each running ``analyze`` with
+                  ``distribute=True`` under the default and the kernel
+                  options (per rank: ``analyze_s``, K1/K2 launches,
+                  ``per_device_edge_checks``, ``balance_ratio``,
+                  ``supersteps``, ``overlap_hidden_s``, ``merge_s``;
+                  structure sha256 equal to phase 3's, a rank that raises
+                  fails the run); the dynamic runtime on one slot through
+                  ``analyze``, and the symbolic pass in turns: the static
+                  loop against ``DynamicScheduler(devices=[cuda:0] * k)``
+                  for k = 1 and 4 stream slots (chunks, steals, re-issues,
+                  retired; counts, fingerprints and pattern bitwise);
+                  ``plan.place(d)`` for d = 1, 2, 4 on phases 3 and 4's
+                  plans, a refactorize at each after an unplaced one
+                  (factors' sha256 and both solves
+                  bitwise, 12 mapped launches a sweep) and the
+                  ``placement.imbalance_modeled`` /
+                  ``factor.level_imbalance_measured`` metrics at d = 2, 4.
 5. ``breakdown_default`` / ``breakdown_kernel`` — analyze (both), and
                   refactorize and a (n, 4) solve (default options), once
                   more under ``torch.profiler``: wall time, device busy
@@ -123,17 +143,21 @@ small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9 and
 11, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
-``robust`` and ``blocking`` path and each ``serve_lu`` flush, and read
+``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
+``distributed`` path (in each rank's own process for the sharded
+analyze), and read
 just after it, so each path reports its own launches (phase 3: K2 and the
 float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped K3/K4;
 ``bubble``: K2, and K1 on the kernel backend; ``batched``: the float64
 mapped K3/K4 over 8 systems; ``robust``: K2 and the float64 mapped K3/K4;
 ``blocking``: the mapped K3/K4 (no fixpoint runs); ``serve_lu``: K2 on
-each miss and the mapped K3/K4 over 8 systems; phase 7: K5; phase 9: K7;
+each miss and the mapped K3/K4 over 8 systems; ``distributed``: K2 (and
+K1 on the kernel options) on each rank and each dynamic run, the mapped
+K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
 phase 11: K6 and K5; the dense K3/K4 entry points are off the paths since
 the sweep runs the mapped form), split by stage in ``launches_by_stage``
 for the LU paths; the ``kernels`` line takes each row's launches from the
-path that runs it, K2's and the mapped K3/K4's rows add
+path that runs it, K1's, K2's and the mapped K3/K4's rows add
 ``launches_on_new_paths``, and two rows time the mapped K3/K4 at the
 blocked plans' widest level.  The comparison and timing launches of phase 2, the
 breakdown and reference phases, the card-vs-CPU checks and the per-kernel
@@ -175,6 +199,11 @@ SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
 # value sets of the batched phase (and systems of the mapped update's
 # system-stride check)
 BATCH = 8
+# systems of the batched phase's profiled sweep: the profiler's host-side
+# processing costs about 0.2 ms an event on the card machine (H100 80GB
+# HBM3, 700 W), and a sweep makes about 55,000 device calls a system, so
+# a sweep of all 8 spent some 90 s of the smoke's time limit there
+PROFILED_SYSTEMS = 2
 # the robust phase's n, cut from the main path's 20,000: at 20,000 the
 # indefinite generator's rescue ends at a relative residual near 7e-3
 # after refinement (above the 1e-8 gate: element growth, not a port fault;
@@ -812,8 +841,8 @@ def flat_sha256(flat) -> str:
 
 
 def structure_sha256(plan) -> dict:
-    """sha256 of a plan's structure: per-row counts, supernodes, CSC
-    pattern."""
+    """sha256 of a plan's (or a ``SymbolicResult``'s) structure: per-row
+    counts, supernodes, CSC pattern."""
     import hashlib
 
     import numpy as np
@@ -821,11 +850,12 @@ def structure_sha256(plan) -> dict:
     def sha(x):
         return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
 
-    return {"l_counts": sha(plan.sym.l_counts),
-            "u_counts": sha(plan.sym.u_counts),
-            "supernodes": sha(plan.sym.supernodes),
-            "indptr": sha(plan.pattern.indptr),
-            "rowind": sha(plan.pattern.rowind)}
+    sym = getattr(plan, "sym", plan)
+    return {"l_counts": sha(sym.l_counts),
+            "u_counts": sha(sym.u_counts),
+            "supernodes": sha(sym.supernodes),
+            "indptr": sha(sym.pattern.indptr),
+            "rowind": sha(sym.pattern.rowind)}
 
 
 def bubble_phase(torch, repro_torch, ops, a, opts, plan):
@@ -984,13 +1014,15 @@ def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
     out["kernel"] = batched(plan_k, (0, BATCH - 1))
     out["library_bitwise_per_slice"] = batched_library_probe(torch, rng)
     _, out["profiled_factorize_batch"] = profiled(
-        torch, lambda: plan.factorize_batch(vb))
+        torch, lambda: plan.factorize_batch(vb[:PROFILED_SYSTEMS]))
+    out["profiled_factorize_batch"]["systems"] = PROFILED_SYSTEMS
     return out, counts
 
 
 def profiled(torch, fn):
     """``fn()`` once under torch.profiler: (its result, {wall_ms,
-    device_busy_ms, idle_share, device_calls, top})."""
+    device_busy_ms, idle_share, device_calls, top, profiler_host_s}), the
+    last the seconds the profiler's stop and summary took on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -998,8 +1030,11 @@ def profiled(torch, fn):
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return result, device_summary(prof, wall)
+        t1 = time.perf_counter()
+        wall = (t1 - t0) * 1e3
+    summary = device_summary(prof, wall)
+    summary["profiler_host_s"] = time.perf_counter() - t1
+    return result, summary
 
 
 def robust_phase(torch, repro_torch, ops, matrices, generic_values_csr):
@@ -1280,6 +1315,247 @@ def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
         del out[tag]["results"]
     out["bitwise_sequential"] = bitwise
     out["stats"] = dict(eng.stats)
+    return out
+
+
+def distributed_rank(rank, world, want):
+    """One rank of the ``distributed`` phase's gloo world (spawned by
+    ``tests/_torch_world.run_world``; rank r on ``cuda:(r % cards)``,
+    so both ranks share the one card): ``analyze`` of bbd-20k with
+    ``distribute=True`` under the default and the kernel options, the
+    launch counters reset just before and read just after each; rank 0
+    holds the structure against the single-device plan's."""
+    import torch
+
+    import repro_torch
+    from repro_torch import sparse
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_flat_mesh
+
+    a = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
+                                       seed=SEED)
+    mesh = make_flat_mesh()
+    out = {"rank": rank, "device": str(mesh.device)}
+    opts = repro_torch.LUOptions(concurrency=CONCURRENCY, distribute=True)
+    for tag, o in (("default", opts),
+                   ("kernel", opts.replace(backend="kernel",
+                                           numeric_backend="kernel"))):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = repro_torch.analyze(a, o)
+        torch.cuda.synchronize()
+        t_an = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        sha = structure_sha256(plan)
+        if rank == 0:
+            check(sha == want, f"distributed ({tag}): rank 0's structure "
+                  f"differs from the single-device plan's")
+        dist = plan.sym.dist
+        out[tag] = {
+            "analyze_s": t_an,
+            "launches": {k: counts[k] for k in ("minmax_relax",
+                                                "column_fingerprints")},
+            "per_device_edge_checks": dist["per_device_edge_checks"].tolist(),
+            "balance_ratio": dist["balance_ratio"],
+            "supersteps": plan.sym.supersteps,
+            "overlap_hidden_s": dist["overlap_hidden_s"],
+            "merge_s": dist["merge_s"], "n_devices": plan.n_devices,
+            "structure_sha256": sha}
+    return out
+
+
+def imbalance_metrics(torch, plan, factor, values, d) -> dict:
+    """``placement.imbalance_modeled`` and
+    ``factor.level_imbalance_measured`` of ``plan.place(d)`` and one
+    refactorize under tracing (registry reset before, read after)."""
+    from repro_torch.obs import metrics as om
+    from repro_torch.obs import trace as ot
+
+    ot.disable()
+    om.registry().reset()
+    ot.enable()
+    try:
+        plan.place(d)
+        factor.refactorize(values)
+        torch.cuda.synchronize()
+        out = {}
+        for name in ("placement.imbalance_modeled",
+                     "factor.level_imbalance_measured"):
+            h = om.registry().get(name)
+            out[name] = ({"levels": h.count, "mean": h.mean, "max": h.max}
+                         if h is not None else None)
+    finally:
+        ot.disable()
+        om.registry().reset()
+    return out
+
+
+def distributed_phase(torch, repro_torch, ops, a, values, opts, plan,
+                      factor, res, plan_k, factor_k, res_k):
+    """Queue A item 10 on bbd-20k: the sharded analyze in a gloo world of
+    2 ranks on the card (``distributed_rank``); the dynamic runtime on one
+    slot through ``analyze``, then the symbolic pass alone: the static loop
+    against ``DynamicScheduler(devices=[cuda:0] * slots)`` for 1 and 4
+    stream slots in turns, default and kernel backends, counts,
+    fingerprints and pattern bitwise the static plan's;
+    ``plan.place(d)`` for d in 1, 2, 4 on the default and the kernel
+    plans: in-place refactorizes after one unplaced one, factors' sha256
+    bitwise the unplaced plan's at every d, the (n,) and (n, 4) solves at
+    d = 2 and 4 (default) and 4 (kernel), the mapped K3/K4 still once per
+    level, and the two imbalance metrics at d = 2 and 4.  Launch counters
+    are reset just before each path and read just after."""
+    import tempfile
+
+    import numpy as np
+    from _torch_world import run_world
+    from repro_torch.core.gsofa import prepare_graph
+    from repro_torch.core.spaceopt import auto_concurrency
+    from repro_torch.core.symbolic import PatternCollector, symbolic_factorize
+    from repro_torch.runtime.scheduler import DynamicScheduler
+    from repro_torch.supernodes import ColumnFingerprints
+
+    want = structure_sha256(plan)
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as workdir:
+        ranks = run_world(2, distributed_rank, want, workdir=workdir)
+    out["sharded"] = {"world": 2, "wall_s": time.perf_counter() - t0,
+                      "single_device_analyze_s": {
+                          "default": res["analyze_s"],
+                          "kernel": res_k["analyze_s"]},
+                      "ranks": ranks}
+    for r in ranks:
+        for tag in ("default", "kernel"):
+            rec = r[tag]
+            check(rec["structure_sha256"] == want,
+                  f"distributed ({tag}): rank {r['rank']}'s structure "
+                  f"differs from the single-device plan's")
+            check(rec["launches"]["column_fingerprints"] > 0,
+                  f"distributed ({tag}): K2 was not launched on rank "
+                  f"{r['rank']}")
+            check((rec["launches"]["minmax_relax"] > 0) == (tag == "kernel"),
+                  f"distributed ({tag}): K1 launched "
+                  f"{rec['launches']['minmax_relax']} times on rank "
+                  f"{r['rank']}")
+
+    dev = torch.device("cuda", 0)
+    dyn = {"static_analyze_s": {"default": res["analyze_s"],
+                                "kernel": res_k["analyze_s"]}}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    p = repro_torch.analyze(a, opts.replace(runtime="dynamic"))
+    torch.cuda.synchronize()
+    dyn["analyze_1_slot"] = {"analyze_s": time.perf_counter() - t0,
+                             **p.sym.runtime,
+                             "launches": ops.launch_counts()}
+    check(structure_sha256(p) == want,
+          "dynamic (1 slot): structure differs from the static plan's")
+    # the symbolic pass alone: the static loop against a DynamicScheduler
+    # on 1 and 4 stream slots on cuda:0, in turns (default backend), the
+    # static loop and 4 slots (kernel backend); each scheduler run's counts,
+    # fingerprints and pattern are held against the static plan's
+    for tag, backend, p_static, turns in (
+            ("default", "ell", plan, ("static", 1, 4, 4, 1, "static")),
+            ("kernel", "kernel", plan_k, ("static", 4))):
+        graph = prepare_graph(
+            a, dense_block=128 if backend == "kernel" else None, device=dev)
+        eff_c = auto_concurrency(graph, None, CONCURRENCY, backend)
+        times = {}
+        for slots in turns:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if slots == "static":
+                sym = symbolic_factorize(
+                    a, concurrency=CONCURRENCY, backend=backend, graph=graph,
+                    detect_supernodes=True, collect_pattern=True)
+            else:
+                fp = ColumnFingerprints(n=a.n)
+                collector = PatternCollector(n=a.n)
+                run = DynamicScheduler(
+                    graph, devices=[dev] * slots, concurrency=eff_c,
+                    backend=backend, on_chunk=fp.update,
+                    on_mask=collector.update).run()
+            torch.cuda.synchronize()
+            times.setdefault(str(slots), []).append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            if slots == "static":
+                check(structure_sha256(sym) == want,
+                      f"symbolic ({tag}, static): structure differs from "
+                      f"the static plan's")
+                continue
+            want_fp = p_static.sym.fingerprints
+            pattern = collector.to_csc()
+            check(run["completed"] == run["chunks"],
+                  f"dynamic ({slots} slots, {tag}): chunks left undone")
+            check(np.array_equal(run["l_counts"], p_static.sym.l_counts)
+                  and np.array_equal(run["u_counts"], p_static.sym.u_counts)
+                  and all(np.array_equal(getattr(fp, k), getattr(want_fp, k))
+                          for k in ("counts", "hsum", "hxor", "subdiag",
+                                    "seen"))
+                  and np.array_equal(pattern.indptr, p_static.pattern.indptr)
+                  and np.array_equal(pattern.rowind, p_static.pattern.rowind),
+                  f"dynamic ({slots} slots, {tag}): counts, fingerprints or "
+                  f"pattern differ from the static plan's")
+            if slots == 4:
+                dyn[f"symbolic_4_slots_{tag}"] = {
+                    "n_devices": slots, **{k: run[k] for k in (
+                        "chunks", "completed", "steals", "reissues",
+                        "retired")},
+                    "launches": {k: counts[k] for k in (
+                        "minmax_relax", "column_fingerprints")}}
+        dyn[f"symbolic_s_{tag}"] = times
+    out["dynamic"] = dyn
+
+    rng = np.random.default_rng(42)
+    b1 = rng.standard_normal(a.n)
+    b4 = rng.standard_normal((a.n, 4))
+    placed = {}
+    # turns with the unplaced plan; solves checked where the segments
+    # differ from the unplaced order (d = 1 is the unplaced code path)
+    for tag, p, f, turns, solve_at in (
+            ("default", plan, factor, (None, 2, 4, 1), ("2", "4")),
+            ("kernel", plan_k, factor_k, (None, 4, 2, 1), ("4",))):
+        digest = flat_sha256(f.store.flat)
+        x1, x4 = f.solve(b1).x, f.solve(b4).x
+        want_mapped = gemm_levels(p)
+        rows = {"refactorize_s": {}, "flat_sha256": digest}
+        for d in turns:
+            key = "unplaced" if d is None else str(d)
+            if d is None:
+                p.placement = None
+            else:
+                p.place(d)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            f = f.refactorize(values)
+            torch.cuda.synchronize()
+            rows["refactorize_s"].setdefault(key, []).append(
+                time.perf_counter() - t0)
+            mapped = ops.launch_counts()["panel_update_mapped"]
+            check(flat_sha256(f.store.flat) == digest,
+                  f"placed ({tag}, d={d}): factors differ from the "
+                  f"unplaced plan's")
+            check(mapped == want_mapped,
+                  f"placed ({tag}, d={d}): {mapped} mapped launches, not "
+                  f"{want_mapped}")
+            rows.setdefault(key, {"mapped_launches": mapped})
+            if key not in solve_at or "solve_s" in rows[key]:
+                continue
+            t0 = time.perf_counter()
+            s1, s4 = f.solve(b1), f.solve(b4)
+            torch.cuda.synchronize()
+            check(torch.equal(s1.x, x1) and torch.equal(s4.x, x4),
+                  f"placed ({tag}, d={d}): solves differ from the "
+                  f"unplaced plan's")
+            rows[key]["solve_s"] = time.perf_counter() - t0
+        if tag == "default":
+            rows["imbalance"] = {str(d): imbalance_metrics(
+                torch, p, f, values, d) for d in (2, 4)}
+        p.placement = None
+        placed[tag] = rows
+    out["placed"] = placed
     return out
 
 
@@ -1623,6 +1899,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(1, str(ROOT / "tests"))     # _torch_world: gloo ranks
     import numpy as np
 
     import repro_torch
@@ -1714,6 +1991,9 @@ def main() -> int:
     serve_lu_res = serve_lu_phase(torch, repro_torch, ops, sparse, plan,
                                   generic_values_csr)
     emit({"phase": "serve_lu", **serve_lu_res})
+    dist_res = distributed_phase(torch, repro_torch, ops, a, values, opts,
+                                 plan, factor, res, plan_k, factor_k, res_k)
+    emit({"phase": "distributed", **dist_res})
     # K2 and the mapped K3/K4 on the new paths (the kernels line's rows)
     new_paths = {
         "robust": counts_robust,
@@ -1723,6 +2003,20 @@ def main() -> int:
         "serve_lu": {k: serve_lu_res["flush_1"]["launches"][k]
                      + serve_lu_res["flush_2"]["launches"][k]
                      for k in counts_robust}}
+    # item 10's paths: each rank's K1/K2 of the sharded analyze, the
+    # dynamic analyzes' K1/K2, the placed sweeps' mapped launches (d = 1,
+    # 2, 4, one refactorize each)
+    dyn = dist_res["dynamic"]
+    for tag in ("default", "kernel"):
+        new_paths[f"sharded_{tag}"] = {
+            k: [r[tag]["launches"][k] for r in dist_res["sharded"]["ranks"]]
+            for k in ("minmax_relax", "column_fingerprints")}
+        new_paths[f"dynamic_4_slots_{tag}"] = dyn[
+            f"symbolic_4_slots_{tag}"]["launches"]
+        new_paths[f"placed_{tag}"] = {"panel_update_mapped": sum(
+            dist_res["placed"][tag][str(d)]["mapped_launches"]
+            for d in (1, 2, 4))}         # the first placed sweep at each d
+    new_paths["dynamic_1_slot"] = dyn["analyze_1_slot"]["launches"]
 
     emit({"phase": "breakdown_default",
           **breakdown(torch, repro_torch, a, values, opts, sweep=True)})
@@ -1789,6 +2083,9 @@ def main() -> int:
         lambda: plain.minmax_relax_plain(prop, adj),
         s * u * 4 + adj.numel() + s * u * 4, s * nnz_adj,
         plain_kw={"reps": 1, "warmup": 0})
+    kern[-1]["launches_on_new_paths"] = {
+        path: new_paths[path]["minmax_relax"]
+        for path in ("sharded_kernel", "dynamic_4_slots_kernel")}
 
     v = N_LARGE
     rel = torch.as_tensor(rng.integers(-1, v + 2, size=(s, v)).astype(
@@ -1806,7 +2103,9 @@ def main() -> int:
         s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v)
     kern[-1]["launches_on_new_paths"] = {
         path: new_paths[path]["column_fingerprints"]
-        for path in ("robust", "serve_lu")}
+        for path in ("robust", "serve_lu", "sharded_default",
+                     "sharded_kernel", "dynamic_1_slot",
+                     "dynamic_4_slots_default", "dynamic_4_slots_kernel")}
 
     # K3/K4 at the commonest GEMM shape and the largest stack of the bbd-20k
     # sweep: float32 (the kernel path's launches) and float64 (the default
@@ -1879,9 +2178,10 @@ def main() -> int:
     panel_line["panel_update_mapped"] = work
     # each mapped row's launches on the new paths of its element type and
     # system count (the blocked rows' own paths are their ``launches``)
-    on_paths = {"panel_update_mapped": ("blocking_kernel",),
+    on_paths = {"panel_update_mapped": ("blocking_kernel", "placed_kernel"),
                 "panel_update_mapped (float64)": ("robust", "blocking",
-                                                  "autotune")}
+                                                  "autotune",
+                                                  "placed_default")}
     for name, p_, f_, f32, counts, peak, widest in (
             ("panel_update_mapped", plan, factor, True, launches,
              PEAK_OPS_S, False),

@@ -41,10 +41,17 @@ versions), as the tests do.  Plans hold numpy arrays and plain dataclasses
 only — device copies of the maps live in a cache that is not pickled — so
 an analysis pickles and replays anywhere its device exists.
 
+Analysis distributes over ``torch.distributed``: every rank of a process
+group calls ``analyze(a, opts, mesh=launch.mesh.make_flat_mesh())`` (or sets
+``LUOptions(distribute=True)``), relaxes its own share of the sources, and
+gets the whole plan, bitwise the single-process one, with a
+``PanelPlacement`` that splits each level's panels into per-device segments
+(``LUPlan.place(n)`` re-derives it for any count).
+``LUOptions(runtime="dynamic")`` runs the fixpoint on the work-stealing
+scheduler's executor slots (``runtime.scheduler``).
+
 ``LUOptions`` keeps exactly the fields, defaults and validation of
-``repro.LUOptions``; options that belong to later slices of the port
-(``distribute``, ``runtime="dynamic"``) raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item.
+``repro.LUOptions``.
 """
 from __future__ import annotations
 
@@ -58,9 +65,12 @@ import torch
 from repro_torch.core.symbolic import SymbolicResult
 from repro_torch.core.symbolic import symbolic_factorize as _symbolic_factorize
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import (
+    FLAT_AXIS, make_flat_mesh, visible_device_count,
+)
 from repro_torch.numeric.schedule import (
-    PanelSchedule, build_gather_maps, build_schedule, build_update_maps,
-    device_maps,
+    PanelPlacement, PanelSchedule, build_gather_maps, build_placement,
+    build_schedule, build_update_maps, device_maps,
 )
 from repro_torch.numeric.solve import (
     BatchedSolveResult, SolveResult, SolveSchedule, build_solve_schedule,
@@ -90,13 +100,6 @@ _NUMERIC_BACKENDS = ("numpy", "kernel")
 _POLICIES = ("lpt", "contiguous")
 _RUNTIMES = ("static", "dynamic")
 _PIVOTS = ("none", "static")
-
-# options of later slices: (is it requested?, what it is, ROADMAP.md item)
-_LATER_SLICES = (
-    (lambda o: o.distribute, "distribute=True (multi-device)", 10),
-    (lambda o: o.runtime == "dynamic",
-     "runtime='dynamic' (work-stealing runtime)", 10),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +143,12 @@ class LUOptions:
     with the signed threshold during the sweep instead of raising, counting
     them in ``perturbed_pivots``.  Both off by default.
 
-    ``distribute`` and ``runtime="dynamic"`` are a later slice of the port
-    and raise ``NotImplementedError``.
+    Distribution: ``distribute=True`` makes ``analyze`` build the flat
+    mesh over the default process group (``launch.mesh.make_flat_mesh``)
+    when no mesh is passed: each rank relaxes its share of the sources and
+    the plan's placement splits level work per device.  Runtime:
+    ``runtime="dynamic"`` runs the fixpoint on the work-stealing scheduler
+    (``runtime.scheduler``) instead of the static chunk loop.
     """
 
     # -- symbolic fixpoint
@@ -241,11 +248,6 @@ class LUOptions:
                 "runtime='dynamic' is the host-driven scheduler over the "
                 "visible devices and cannot be combined with "
                 "distribute=True (the shard_map mesh) — drop one")
-        for requested, what, item in _LATER_SLICES:
-            if requested(self):
-                raise NotImplementedError(
-                    f"LUOptions({what}) is not ported to repro_torch yet: "
-                    f"ROADMAP.md Queue A item {item}")
 
     def replace(self, **changes) -> "LUOptions":
         """A copy with ``changes`` applied (frozen-dataclass convenience)."""
@@ -407,7 +409,8 @@ class LUPlan:
     pipeline.  Picklable: numpy arrays and plain dataclasses only; the
     device copies of the maps and of the static-pivoting tables
     (``_device_cache``) are rebuilt on the first ``factorize`` after
-    unpickling."""
+    unpickling.  ``placement`` (per-device panel segments of every level,
+    plain numpy) travels in the pickle; the mesh never does."""
 
     a: CSRMatrix
     options: LUOptions
@@ -428,6 +431,9 @@ class LUPlan:
     # autotune record (``autotune=True``): its chosen knobs are frozen into
     # ``options``
     tuned: Optional[TuneReport] = None
+    # device placement of panel work: set by a sharded or dynamic analyze,
+    # re-derived by ``place``
+    placement: Optional[PanelPlacement] = None
     _device_cache: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __getstate__(self):
@@ -457,6 +463,24 @@ class LUPlan:
     @property
     def n_levels(self) -> int:
         return self.schedule.n_levels
+
+    @property
+    def n_devices(self) -> int:
+        return self.placement.n_devices if self.placement is not None else 1
+
+    def place(self, n_devices: Optional[int] = None, *,
+              policy: str = "lpt") -> "LUPlan":
+        """Re-derive the panel placement for ``n_devices`` (default: the
+        visible device count, ``launch.mesh.visible_device_count``).
+        Within a level panels are independent, so placement changes
+        scheduling only — factors and solutions stay bitwise the same at
+        every count.  Returns ``self`` (the placement is replaced in place)
+        so ``pickle.load(f).place().factorize(v)`` chains."""
+        if n_devices is None:
+            n_devices = visible_device_count()
+        self.placement = build_placement(self.schedule, n_devices,
+                                         axis=FLAT_AXIS, policy=policy)
+        return self
 
     def _device_state(self, dev: torch.device):
         """(store index, per-panel device gather maps, trailing-update
@@ -498,6 +522,7 @@ class LUPlan:
                  else PanelStore.from_structure(self.store_template, dev,
                                                 index))
         store._solve_schedule = self.solve_schedule
+        store._placement = self.placement       # per-device solve segments
         with _ot.ensure(self.options.trace) as tr:
             mark = tr.mark() if tr is not None else 0
             with _ot.span("factorize"):
@@ -512,7 +537,8 @@ class LUPlan:
                     store_is_zeroed=_reuse_store is None,
                     segment_batch=self.options.segment_batch,
                     perturb=self.options.perturb,
-                    perturb_eps=self.options.perturb_eps)
+                    perturb_eps=self.options.perturb_eps,
+                    placement=self.placement)
             stats = tr.summary(mark) if tr is not None else None
         return LUFactorization(plan=self, num=num, values=values,
                                factor_s=time.perf_counter() - t0,
@@ -525,7 +551,8 @@ class LUPlan:
         maps and update tables are the plan's (``_device_state``); the
         trailing updates are one mapped K3/K4 launch per level for all B
         systems.  System i's factors are bitwise
-        ``self.factorize(values_batch[i])``'s."""
+        ``self.factorize(values_batch[i])``'s.  The batched tier ignores
+        the placement."""
         t0 = time.perf_counter()
         dev = resolve_device(self.device)
         values_batch = torch.as_tensor(values_batch, dtype=torch.float64,
@@ -631,16 +658,22 @@ def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
     ``autotune=True`` the detected partition runs through the blocking
     merge pass / the roofline knob sweep before the schedule is built;
     ``peaks`` (``{"mem_bw_gbs", "flops_gflops"}``) feeds the cost model
-    (fixed constants otherwise, so tuning stays deterministic).  ``mesh``
-    (multi-device analysis) is a later slice of the port and raises
-    ``NotImplementedError``."""
+    (fixed constants otherwise, so tuning stays deterministic).
+
+    ``mesh`` (a ``launch.mesh.FlatMesh``; every rank of its process group
+    calls ``analyze`` with it) shards the fixpoint's sources over the
+    ranks, each on its own device (``device`` defaults to the mesh's), and
+    attaches a ``PanelPlacement`` over the mesh's shards;
+    ``LUOptions(distribute=True)`` builds the flat mesh itself.  Counts,
+    supernodes, pattern, factors and solutions are bitwise the mesh-less
+    analysis's, on every rank.  A ``runtime="dynamic"`` plan gets a
+    placement over the visible devices."""
     t0 = time.perf_counter()
     opts = options if options is not None else LUOptions()
-    if mesh is not None:
-        raise NotImplementedError(
-            "analyze(mesh=...) is not ported to repro_torch yet: ROADMAP.md "
-            "Queue A item 10")
-    dev = resolve_device(device)
+    if mesh is None and opts.distribute:
+        mesh = make_flat_mesh(device=device)
+    dev = (mesh.device if mesh is not None and device is None
+           else resolve_device(device))
     robust = None
     a_sym = a
     with _ot.ensure(opts.trace) as tr:
@@ -661,16 +694,27 @@ def analyze(a: CSRMatrix, options: Optional[LUOptions] = None, *,
                 detect_supernodes=True,
                 supernode_relax=opts.supernode_relax,
                 supernode_max_size=opts.supernode_max_size,
-                collect_pattern=True, device=dev, on_progress=on_progress)
+                collect_pattern=True, mesh=mesh, runtime=opts.runtime,
+                device=dev, on_progress=on_progress)
             supernodes, tuned, opts = _partition_with_blocking(
                 sym.pattern, sym.supernodes, sym.fingerprints, opts, peaks)
             structure = _plan_structure(sym.pattern, supernodes, a_sym, opts)
+            placement = None
+            if mesh is not None:
+                placement = build_placement(structure["schedule"], mesh.size,
+                                            axis=mesh.axis_names[0])
+            elif opts.runtime == "dynamic":
+                # the dynamic runtime drove every visible device through the
+                # analyze; factorize/solve get the matching segments
+                placement = build_placement(structure["schedule"],
+                                            visible_device_count(),
+                                            axis=FLAT_AXIS)
         stats = tr.summary(mark) if tr is not None else None
     return LUPlan(a=a, options=opts, sym=sym, pattern=sym.pattern,
                   **structure, analyze_s=time.perf_counter() - t0,
                   device=str(dev), stats=stats, robust=robust,
                   factored=a_sym if robust is not None else None,
-                  tuned=tuned)
+                  tuned=tuned, placement=placement)
 
 
 def replan(plan: LUPlan, options: Optional[LUOptions] = None, *,
@@ -706,9 +750,14 @@ def replan(plan: LUPlan, options: Optional[LUOptions] = None, *,
                 plan.pattern, supernodes, fp, opts, peaks)
             structure = _plan_structure(plan.pattern, supernodes,
                                         plan.a_factored, opts)
+            placement = None
+            if plan.placement is not None:
+                placement = build_placement(structure["schedule"],
+                                            plan.placement.n_devices,
+                                            axis=plan.placement.axis)
         stats = tr.summary(mark) if tr is not None else None
     return LUPlan(a=plan.a, options=opts, sym=plan.sym, pattern=plan.pattern,
                   **structure,
                   analyze_s=plan.analyze_s + (time.perf_counter() - t0),
                   device=plan.device, stats=stats, robust=plan.robust,
-                  factored=plan.factored, tuned=tuned)
+                  factored=plan.factored, tuned=tuned, placement=placement)

@@ -7,8 +7,11 @@ into the supernode fingerprints and the sparse pattern collector, so no
 dense (n, n) pattern is ever gathered.  Every output — counts, fill ratio, supernodes, CSC pattern —
 is bitwise that of ``repro.core.symbolic.symbolic_factorize``.
 
-The sharded (mesh) and work-stealing (``runtime="dynamic"``) drivers are a
-later slice of the port (``ROADMAP.md`` Queue A item 10).
+With a ``mesh`` (``launch.mesh.FlatMesh``) the fixpoint shards its sources
+over the ranks of a process group (``core.distributed``); with
+``runtime="dynamic"`` it runs on the work-stealing scheduler's executor
+slots (``runtime.scheduler``).  Both stream into the same collectors, and
+every output stays bitwise the single-device one.
 """
 from __future__ import annotations
 
@@ -188,8 +191,8 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
                        supernode_relax: int = 0,
                        supernode_max_size: int = 64,
                        collect_pattern: bool = False,
-                       device=None,
-                       on_progress=None) -> SymbolicResult:
+                       mesh=None, runtime: str = "static",
+                       device=None, on_progress=None) -> SymbolicResult:
     """Compute the L/U nonzero structure of ``a`` with the fixpoint on
     ``device`` (default: the card; the graph's device when ``graph`` is
     given).
@@ -210,8 +213,47 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
     ``bubble`` narrows each chunk's labels to its sources' window
     (``multisource.plan_chunks``); every output stays bitwise that of the
     full-width run.
+
+    With ``mesh`` (a ``launch.mesh.FlatMesh``; every rank of its process
+    group calls this) the fixpoint shards its sources over the ranks
+    (``core.distributed``): fingerprints accumulate per rank and merge
+    through ring collectives, the pattern streams per rank and is unioned
+    once, and every rank returns the mesh-less result bitwise, plus
+    ``result.dist``.  ``device`` defaults to the mesh's.  The sharded path
+    always runs combined full-width chunks: ``bubble`` and
+    ``checkpoint_path`` raise there, ``use_arena`` is ignored.
+
+    ``runtime="dynamic"`` runs the fixpoint on the work-stealing
+    ``runtime.scheduler.DynamicScheduler`` with its default executor slots
+    (one per visible CUDA device, or the CPU when ``device`` is the CPU):
+    converged chunks stream into the same collectors, so every output stays
+    bitwise the static loop's, and the result gains ``runtime`` (slots,
+    chunks, steals, re-issues, retired).  ``checkpoint_path`` composes with
+    it; ``mesh`` and ``bubble`` do not.
     """
     t0 = time.perf_counter()
+    if runtime not in ("static", "dynamic"):
+        raise ValueError(f"unknown runtime {runtime!r}; pick from "
+                         f"('static', 'dynamic')")
+    if mesh is not None:
+        if runtime == "dynamic":
+            raise ValueError(
+                "runtime='dynamic' is the host-driven scheduler over the "
+                "visible devices and cannot be combined with a shard_map "
+                "mesh — drop one of the two")
+        if checkpoint_path is not None:
+            raise ValueError(
+                "checkpoint_path is a single-device refinement; the "
+                "distributed path re-runs lost shards instead (drop the "
+                "mesh or the checkpoint)")
+        if bubble:
+            raise ValueError("bubble removal is not supported on the "
+                             "distributed path (chunks are full-width)")
+        if device is None and graph is None:
+            device = mesh.device
+    elif runtime == "dynamic" and bubble:
+        raise ValueError("bubble removal is not supported on the "
+                         "dynamic runtime (chunks are full-width)")
     if graph is None:
         dense_block = 128 if backend in ("dense", "kernel") else None
         graph = prepare_graph(a, dense_block=dense_block, device=device)
@@ -228,7 +270,57 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
     on_mask = collector.update if collector is not None else None
 
     ckpt = ChunkCheckpointer(checkpoint_path, a.n) if checkpoint_path else None
-    if ckpt is not None and ckpt.covered.any():
+    runtime_stats = None
+    if mesh is not None:
+        # this rank's row of the interleaved source matrix; the fingerprints
+        # fold the chunks it owns and merge over the ring, the pattern rows
+        # it collected are unioned once
+        from repro_torch.core.distributed import (
+            distributed_multisource, gather_pattern,
+        )
+        from repro_torch.launch.mesh import FLAT_AXIS
+        from repro_torch.runtime.collectives import merge_fingerprint_shards
+
+        with _ot.span("fixpoint"):
+            ms = distributed_multisource(
+                graph, mesh, concurrency=eff_c, backend=backend,
+                on_shard_chunk=(None if fp is None else
+                                lambda d, labels, srcs: fp.update(labels,
+                                                                  srcs)),
+                on_shard_mask=(None if collector is None else
+                               lambda d, mask, srcs: collector.update(mask,
+                                                                      srcs)),
+                on_progress=on_progress)
+        t_merge = time.perf_counter()
+        if fp is not None:
+            with _ot.span("fingerprint_merge"):
+                fp = merge_fingerprint_shards(mesh, FLAT_AXIS, fp)
+        if collector is not None:
+            with _ot.span("pattern_gather"):
+                gather_pattern(mesh, collector)
+        ms.dist["merge_s"] = time.perf_counter() - t_merge
+    elif runtime == "dynamic":
+        from repro_torch.runtime.scheduler import DynamicScheduler
+
+        sched = DynamicScheduler(graph, concurrency=eff_c, backend=backend,
+                                 checkpointer=ckpt, on_chunk=on_chunk,
+                                 on_mask=on_mask)
+        with _ot.span("fixpoint"):
+            out = sched.run()
+        ms = MultiSourceResult(
+            l_counts=out["l_counts"], u_counts=out["u_counts"],
+            edge_checks=out["edge_checks"],
+            conv_iters=np.zeros(a.n, np.int64),
+            supersteps=out["supersteps"], n_chunks=out["completed"],
+            concurrency=eff_c, reinits=out["completed"],
+            windows=out["completed"])
+        runtime_stats = {
+            "n_devices": len(sched.devices),
+            "chunks": out["chunks"], "completed": out["completed"],
+            "steals": out["steals"], "reissues": out["reissues"],
+            "retired": out["retired"],
+        }
+    elif ckpt is not None and ckpt.covered.any():
         # restart path: only run the uncovered sources, re-chunked on THIS
         # run's grid (the recording run may have used a different concurrency)
         l_counts = np.zeros(a.n, dtype=np.int64)
@@ -314,5 +406,9 @@ def symbolic_factorize(a: CSRMatrix, *, concurrency: int = 128,
         pattern=collector.to_csc() if collector is not None else None,
         fingerprints=fp,
     )
+    if mesh is not None:
+        out.dist = ms.dist                     # type: ignore[attr-defined]
+    if runtime_stats is not None:
+        out.runtime = runtime_stats            # type: ignore[attr-defined]
     _record_fill_metrics(out, a)
     return out

@@ -30,6 +30,8 @@ dependency level (one slice is K3's role).
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -37,6 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import plain
 
 INF = plain.INF
+_COUNT_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,6 +85,13 @@ def _launch(kernel: str, *args) -> None:
                            f"{err}")
 
 
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: the dynamic runtime's slots
+    launch from several threads, so the increment takes a lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -105,7 +115,7 @@ def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     if s and u and v:
         _launch("minmax_relax", prop.data_ptr(), adj.data_ptr(),
                 out.data_ptr(), s, u, v, _stream(prop))
-        minmax_relax.launches += 1
+        _count(minmax_relax)
     return out
 
 
@@ -128,7 +138,7 @@ def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
         _launch("column_fingerprints", rel.data_ptr(), src.data_ptr(),
                 m1.data_ptr(), m2.data_ptr(), valid.data_ptr(),
                 out.data_ptr(), s, v, _stream(rel))
-        column_fingerprints.launches += 1
+        _count(column_fingerprints)
     return out
 
 
@@ -241,7 +251,7 @@ def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
     if m == 0 or n == 0 or k == 0:
         return acc
     out = _dense_panel_launch(acc, l_panel, u_panel, 1, m, n, k, False)
-    panel_update.launches += 1
+    _count(panel_update)
     return out
 
 
@@ -259,7 +269,7 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
     if b == 0 or m == 0 or n == 0 or k == 0:
         return acc
     out = _dense_panel_launch(acc, l_panel, u_panel, b, m, n, k, True)
-    panel_update_batched.launches += 1
+    _count(panel_update_batched)
     return out
 
 
@@ -334,7 +344,7 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
     _launch("panel_update_mapped", flat.data_ptr(), u.data_ptr(),
             lmap.data_ptr(), tiles.data_ptr(), n_tiles, int(u_shift),
             int(f32), int(systems), fs, us, _stream(flat))
-    panel_update_mapped.launches += 1
+    _count(panel_update_mapped)
 
 
 def panel_update_empty(blocks: int, device) -> None:
@@ -440,7 +450,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             d ** -0.5 if scale is None else float(scale),
             int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], _stream(q))
-    flash_attention.launches += 1
+    _count(flash_attention)
     return out
 
 
@@ -489,7 +499,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("rwkv6_scan", r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w.data_ptr(), u.data_ptr(), state.data_ptr(), o.data_ptr(),
             s_out.data_ptr(), b, l, h, kk, _stream(r))
-    rwkv6_scan.launches += 1
+    _count(rwkv6_scan)
     return o, s_out
 
 
@@ -537,7 +547,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
     _launch("mamba_scan", x.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
             c_t.data_ptr(), a.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
             y.data_ptr(), h_out.data_ptr(), b, l, di, n, _stream(x))
-    mamba_scan.launches += 1
+    _count(mamba_scan)
     return y, h_out
 
 

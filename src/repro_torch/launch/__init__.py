@@ -1,1 +1,2 @@
-"""Launch entry points: ``serve`` (batched prefill + greedy decode)."""
+"""Launch entry points: ``serve`` (batched prefill + greedy decode) and the
+flat mesh of the sharded analyze (``mesh``)."""

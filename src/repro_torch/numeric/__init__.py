@@ -9,7 +9,8 @@ one plan (``BatchedPanelStore``, ``factor_batch_on_store``,
 ``solve_batch``).
 """
 from repro_torch.numeric.schedule import (
-    PanelMaps, PanelSchedule, build_gather_maps, build_schedule,
+    PanelMaps, PanelPlacement, PanelSchedule, build_gather_maps,
+    build_placement, build_schedule,
 )
 from repro_torch.numeric.solve import (
     BatchedSolveResult, SolveResult, SolveSchedule, backward_substitute,
@@ -26,7 +27,8 @@ from repro_torch.numeric.supernodal import (
 )
 
 __all__ = [
-    "PanelMaps", "PanelSchedule", "build_gather_maps", "build_schedule",
+    "PanelMaps", "PanelPlacement", "PanelSchedule", "build_gather_maps",
+    "build_placement", "build_schedule",
     "BatchedSolveResult", "SolveResult", "SolveSchedule",
     "backward_substitute", "backward_substitute_batch",
     "build_solve_schedule", "forward_substitute", "forward_substitute_batch",

@@ -34,6 +34,8 @@ import torch
 
 from repro_torch.kernels.ops import mapped_tiles
 from repro_torch.numeric.storage import CSCPattern, RowGather
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
 from repro_torch.supernodes.balance import PanelPartition, pack_panels
 
 
@@ -67,6 +69,77 @@ class PanelSchedule:
             "n_updates": n_updates,
             "balance_ratio": self.partition.balance_ratio,
         }
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelPlacement:
+    """Device assignment of panels for a placed factorize/solve.
+
+    Derived from ``pack_panels`` bins computed *per dependency level*: each
+    level's panels — exactly the independent work of one sweep step — are
+    LPT-packed by predicted L-panel nnz into ``n_devices`` bins, so every
+    level's critical path is within one panel weight of optimal.  Within a
+    level panels are independent (left-looking panels only read
+    strictly-earlier levels), so *any* segment order gives bitwise the same
+    factors — placement changes scheduling, never math.
+
+    Plain numpy only — plans stay picklable; the mesh is never stored.
+    """
+
+    n_devices: int
+    axis: str                      # mesh axis name (launch.mesh.FLAT_AXIS)
+    device_of_panel: np.ndarray    # (k,) int64 device id per panel
+
+    def segments(self, members: np.ndarray) -> List[np.ndarray]:
+        """Per-device panel lists of one level (ascending ids within each
+        segment; devices without work get empty segments)."""
+        members = np.asarray(members, dtype=np.int64)
+        dev = self.device_of_panel[members]
+        return [np.sort(members[dev == d]) for d in range(self.n_devices)]
+
+    def level_loads(self, schedule: "PanelSchedule") -> np.ndarray:
+        """(n_levels, n_devices) packed panel weight per device per level —
+        the placement-quality surface."""
+        from repro_torch.supernodes.balance import supernode_weights
+
+        weights = supernode_weights(schedule.supernodes, schedule.col_counts)
+        out = np.zeros((schedule.n_levels, self.n_devices), dtype=np.int64)
+        for lv, members in enumerate(schedule.levels):
+            np.add.at(out[lv], self.device_of_panel[members],
+                      weights[members])
+        return out
+
+
+def build_placement(schedule: PanelSchedule, n_devices: int, *,
+                    axis: str = "shards",
+                    policy: str = "lpt") -> PanelPlacement:
+    """Panel -> device assignment from per-level ``pack_panels`` bins (see
+    ``PanelPlacement``).  ``n_devices=1`` puts everything on device 0 — the
+    same code path at every count.  With tracing on and more than one
+    device, each level's modeled imbalance (max / mean packed weight of its
+    busy bins) is observed as ``placement.imbalance_modeled``."""
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    with _ot.span("placement"):
+        device_of_panel = np.zeros(schedule.n_panels, dtype=np.int64)
+        for members in schedule.levels:
+            if not len(members):
+                continue
+            part = pack_panels(schedule.supernodes[members],
+                               schedule.col_counts,
+                               min(n_devices, len(members)), policy=policy)
+            device_of_panel[members] = part.assignment
+        placement = PanelPlacement(n_devices=n_devices, axis=axis,
+                                   device_of_panel=device_of_panel)
+        if _ot.ENABLED and n_devices > 1:
+            loads = placement.level_loads(schedule)
+            reg = _om.registry()
+            for lv in range(loads.shape[0]):
+                busy = loads[lv][loads[lv] > 0]
+                if len(busy):
+                    reg.observe("placement.imbalance_modeled",
+                                float(busy.max()) / float(busy.mean()))
+        return placement
 
 
 @dataclasses.dataclass

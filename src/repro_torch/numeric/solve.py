@@ -10,7 +10,8 @@ blocks, plus iterative refinement:
   pull ``x[above] -= U(above, J) @ x[s:e]`` through the above-diagonal rows.
 * **Level schedules** — substitution has its own dependency DAGs, not the
   factorization's (``build_solve_schedule``); the diagonal solves within a
-  level are independent, the pushes are applied in ascending panel order.
+  level are independent (run per device segment under a placement), the
+  pushes are applied in ascending panel order.
 * **Iterative refinement** — r = b - A x via the O(nnz) CSR matvec,
   re-solve on the factors, accept only improving corrections, so the
   recorded relative-residual history is non-increasing by construction.
@@ -99,6 +100,17 @@ def _solve_schedule_of(store: PanelStore) -> SolveSchedule:
     return sched
 
 
+def _level_iter(store: PanelStore, level: np.ndarray):
+    """Per-device segments of one level (the plan's ``PanelPlacement``,
+    handed to the store as ``_placement``) — a single all-panels segment
+    without one.  Diagonal solves within a level are independent and write
+    disjoint ranges, so segment grouping never changes a float op."""
+    placement = getattr(store, "_placement", None)
+    if placement is None or placement.n_devices <= 1:
+        return (level,)
+    return tuple(seg for seg in placement.segments(level) if len(seg))
+
+
 def _batched_solve_unit_lower(mats: torch.Tensor,
                               rhs: torch.Tensor) -> torch.Tensor:
     """Forward substitution over stacked panels: ``mats`` (p, w, w)
@@ -153,23 +165,25 @@ def _level_diag_solves(store: PanelStore, level: np.ndarray, y: torch.Tensor,
             for i, (s, e) in enumerate(sn[ids]):
                 y[s:e] = rhs[i] if multi else rhs[i, :, 0]
         return
-    for j in level:
-        s, e = sn[j]
-        w = e - s
-        diag = store.diag_block(int(j))
-        if lower:
-            if w > 1:
-                rhs = y[s:e] if y.dim() == 2 else y[s:e, None]
-                sol = torch.linalg.solve_triangular(diag, rhs, upper=False,
-                                                    unitriangular=True)
-                y[s:e] = sol if y.dim() == 2 else sol[:, 0]
-        else:
-            if w == 1:
-                y[s] = y[s] / diag[0, 0]
+    for seg in _level_iter(store, level):
+        for j in seg:
+            s, e = sn[j]
+            w = e - s
+            diag = store.diag_block(int(j))
+            if lower:
+                if w > 1:
+                    rhs = y[s:e] if y.dim() == 2 else y[s:e, None]
+                    sol = torch.linalg.solve_triangular(
+                        diag, rhs, upper=False, unitriangular=True)
+                    y[s:e] = sol if y.dim() == 2 else sol[:, 0]
             else:
-                rhs = y[s:e] if y.dim() == 2 else y[s:e, None]
-                sol = torch.linalg.solve_triangular(diag, rhs, upper=True)
-                y[s:e] = sol if y.dim() == 2 else sol[:, 0]
+                if w == 1:
+                    y[s] = y[s] / diag[0, 0]
+                else:
+                    rhs = y[s:e] if y.dim() == 2 else y[s:e, None]
+                    sol = torch.linalg.solve_triangular(diag, rhs,
+                                                        upper=True)
+                    y[s:e] = sol if y.dim() == 2 else sol[:, 0]
 
 
 def _row_index(store: PanelStore):

@@ -24,7 +24,11 @@ packed blocks of ``storage.PanelStore`` on the store's device:
   level's check sees the bumped diagonal; the count is read once, after
   the sweep.
 * **Level schedule** — panels within a level are independent; with
-  ``segment_batch`` a level's trailing updates are one launch.
+  ``segment_batch`` a level's trailing updates are one launch.  A
+  ``PanelPlacement`` splits each level into per-device segments that order
+  its phases A and B and its pivot check (``factor_segment`` spans, one
+  track per device); the level's update stays one launch, so placement
+  changes no float operation.
 
 Entries outside the symbolic prediction stay exactly zero except at a
 panel's explicit padding, which is bounded by ``pattern_tol`` and zeroed —
@@ -214,40 +218,110 @@ def _factor_panel(store: PanelStore, schedule: PanelSchedule, j: int,
     return len(schedule.ancestors[j]), flops, dropped
 
 
-def _factor_segment_batched(store: PanelStore, schedule: PanelSchedule,
-                            li: int, seg, backend: str,
-                            maps: List[Optional[DevicePanelMaps]],
-                            upd: UpdateMaps,
-                            perturb: Optional[PerturbState] = None):
-    """Factor level ``li``'s panels ``seg`` with ONE trailing-update launch
-    (DESIGN.md §13).
+class _SegmentClock:
+    """Per-segment times of a placed sweep, taken under tracing only: CUDA
+    events on the store's device, read once after the sweep (so the sweep
+    gains no host sync), or the host clock on the CPU.  Each level records
+    ``(device, start, end)`` stamps; a segment's time sums its stamps."""
 
-    Three phases: phase A for every panel, then the level's trailing
-    updates — its solved U rows concatenated in level order, every slice
-    updated in place by one mapped K3/K4 launch — then every diagonal
-    factor in segment order.  Panels within a level only read
-    strictly-earlier levels and write their own block, and each output's
-    operation sequence is the per-panel one, so segment batching gives the
-    per-panel factors bitwise.
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.levels: List[List[tuple]] = []
+
+    def stamp(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def observe(self) -> None:
+        """``factor.level_imbalance_measured``: max / mean segment time of
+        every level with more than one busy segment."""
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        reg = _om.registry()
+        for stamps in self.levels:
+            times = {}
+            for d, t0, t1 in stamps:
+                dt = t0.elapsed_time(t1) / 1e3 if self.cuda else t1 - t0
+                times[d] = times.get(d, 0.0) + dt
+            if len(times) > 1:
+                mean_t = sum(times.values()) / len(times)
+                if mean_t > 0:
+                    reg.observe("factor.level_imbalance_measured",
+                                max(times.values()) / mean_t)
+
+
+def _level_segments(placement, level) -> tuple:
+    """``(device, panels)`` of one level: its non-empty placement segments
+    in device order, or ``((None, level),)`` without a placement."""
+    if placement is None or placement.n_devices <= 1:
+        return ((None, level),)
+    return tuple((d, seg) for d, seg in enumerate(placement.segments(level))
+                 if len(seg))
+
+
+def _in_segments(segments, clock: Optional[_SegmentClock], work) -> list:
+    """``work(seg)`` for every segment in order, each under a
+    ``factor_segment`` span on its device's track, stamped on ``clock``;
+    returns the concatenated per-segment results."""
+    out = []
+    for d, seg in segments:
+        track = f"device {d}" if d is not None else None
+        with _ot.span("factor_segment", track=track):
+            t0 = clock.stamp() if clock is not None else None
+            out.extend(work(seg))
+            if clock is not None:
+                clock.levels[-1].append((d, t0, clock.stamp()))
+    return out
+
+
+def _factor_level_segments(store: PanelStore, schedule: PanelSchedule,
+                           li: int, segments, backend: str,
+                           maps: List[Optional[DevicePanelMaps]],
+                           upd: UpdateMaps,
+                           perturb: Optional[PerturbState] = None,
+                           clock: Optional[_SegmentClock] = None):
+    """Factor level ``li`` with ONE trailing-update launch (DESIGN.md §13).
+
+    Three phases: phase A for every panel, segment by segment; then the
+    level's trailing updates — its solved U rows concatenated in level
+    order, every slice updated in place by one mapped K3/K4 launch; then
+    every diagonal factor, segment by segment.  Panels within a level only
+    read strictly-earlier levels and write their own block, and each
+    output's operation sequence is the per-panel one, so neither segment
+    batching nor the segment order changes a bit of the factors.
 
     Returns per-panel ``(j, n_updates, flops, dropped)`` tuples.
     """
-    out = []
-    bs = []
-    for j in seg:
-        j = int(j)
-        b, dropped, flops = _panel_prepare(store, schedule, j, maps[j])
-        out.append((j, len(schedule.ancestors[j]), flops, dropped))
-        if b is not None:
-            bs.append(b.reshape(-1))
+    bs = {}
+
+    def prepare(seg):
+        out = []
+        for j in seg:
+            j = int(j)
+            b, dropped, flops = _panel_prepare(store, schedule, j, maps[j])
+            out.append((j, len(schedule.ancestors[j]), flops, dropped))
+            if b is not None:
+                bs[j] = b.reshape(-1)
+        return out
+
+    def finish(seg):
+        for j in seg:
+            _panel_finish(store, schedule, int(j), perturb)
+        return ()
+
+    out = _in_segments(segments, clock, prepare)
     if bs:
         _trailing_update(store, upd, int(upd.level_tiles[li]),
-                         int(upd.level_tiles[li + 1]), torch.cat(bs),
-                         backend)
+                         int(upd.level_tiles[li + 1]),
+                         torch.cat([bs[int(j)] for j in schedule.levels[li]
+                                    if int(j) in bs]), backend)
     if _ot.ENABLED:
         _count_batched_gemms(upd, li, 1)
-    for j in seg:
-        _panel_finish(store, schedule, int(j), perturb)
+    _in_segments(segments, clock, finish)
     return out
 
 
@@ -277,7 +351,8 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
                     store_is_zeroed: bool = False,
                     segment_batch: bool = True,
                     perturb: bool = False,
-                    perturb_eps: Optional[float] = None) -> NumericResult:
+                    perturb_eps: Optional[float] = None,
+                    placement=None) -> NumericResult:
     """Scatter CSR-aligned ``values`` into ``store`` and run the
     level-scheduled panel sweep on the store's device.
 
@@ -292,6 +367,17 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     ``perturb_eps``·max|A| (default sqrt(machine eps)) are replaced by that
     signed threshold instead of raising, counted in
     ``NumericResult.perturbed_pivots``.
+
+    ``placement`` (a ``schedule.PanelPlacement``) splits every level into
+    its non-empty per-device segments, in device order: they order the
+    level's phases A and B and its pivot check, each under a
+    ``factor_segment`` span on track ``device d``; the level's trailing
+    updates stay one launch.  On one card a segment is a scheduling order
+    on the store's stream (the reference's behaviour whenever it sees fewer
+    devices than the placement has), so the factors are bitwise the
+    unplaced sweep's at every device count.  With tracing on, each level's
+    ``factor.level_imbalance_measured`` (max / mean segment time) is
+    recorded from CUDA events read once after the sweep.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
@@ -336,17 +422,24 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
     obs_on = _ot.ENABLED
     gemm_bytes = 0
     sweep_t0 = time.perf_counter() if obs_on else 0.0
+    clock = (_SegmentClock(store.device)
+             if obs_on and placement is not None and placement.n_devices > 1
+             else None)
     for li, level in enumerate(schedule.levels):
-        with _ot.span("factor_level"), _ot.span("factor_segment"):
+        segments = _level_segments(placement, level)
+        if clock is not None:
+            clock.levels.append([])
+        with _ot.span("factor_level"):
             if segment_batch and len(level) > 1:
-                panel_stats = _factor_segment_batched(
-                    store, schedule, li, level, backend, maps, update_maps,
-                    pstate)
+                panel_stats = _factor_level_segments(
+                    store, schedule, li, segments, backend, maps,
+                    update_maps, pstate, clock)
             else:
-                panel_stats = [(int(j),) + _factor_panel(
-                    store, schedule, int(j), backend, maps[j], update_maps,
-                    pstate)
-                    for j in level]
+                panel_stats = _in_segments(segments, clock, lambda seg: [
+                    (int(j),) + _factor_panel(
+                        store, schedule, int(j), backend, maps[j],
+                        update_maps, pstate)
+                    for j in seg])
             for j, upd, flops, drop in panel_stats:
                 n_updates += upd
                 gemm_flops += flops
@@ -359,14 +452,17 @@ def factor_on_store(a: Optional[CSRMatrix], values, store: PanelStore,
                     k_ = flops // (2 * nb * w_)
                     gemm_bytes += 8 * (nb * k_ + k_ * w_ + 2 * nb * w_)
             # every pivot this level divided by, in execution order
+            order = [j for _, seg in segments for j in seg]
             cols = np.concatenate([np.arange(*schedule.supernodes[j])
-                                   for j in level])
-            pivs = torch.cat([store.diag_block(j).diagonal() for j in level])
+                                   for j in order])
+            pivs = torch.cat([store.diag_block(j).diagonal() for j in order])
             try:
                 check_pivots(cols, pivs, piv_tol)
             except ZeroPivotError as e:
                 raise e.with_context(panel=int(store.sup_of_col[e.k]),
                                      level=li)
+    if clock is not None:
+        clock.observe()
     perturbed = pstate.total() if pstate is not None else 0
     if obs_on:
         reg = _om.registry()

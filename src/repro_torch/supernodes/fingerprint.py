@@ -132,6 +132,26 @@ class ColumnFingerprints:
             self.subdiag[kept_srcs[rows]] = vals < cols
         return len(keep)
 
+    def merge(self, other: "ColumnFingerprints") -> "ColumnFingerprints":
+        """Fold a disjoint shard's partial fingerprints into this one (each
+        shard accumulates its own sources; partials merge associatively on
+        the host — the oracle of ``runtime.collectives
+        .merge_fingerprint_shards``)."""
+        if self.n != other.n:
+            raise ValueError(f"cannot merge fingerprints of n={other.n} "
+                             f"into n={self.n}")
+        overlap = self.seen & other.seen
+        if overlap.any():
+            raise ValueError(
+                f"cannot merge overlapping fingerprint shards: rows "
+                f"{np.flatnonzero(overlap)[:8].tolist()}... seen on both sides")
+        self.counts += other.counts
+        self.hsum += other.hsum
+        self.hxor ^= other.hxor
+        self.subdiag |= other.subdiag
+        self.seen |= other.seen
+        return self
+
 
 def fingerprints_from_graph(graph, *, concurrency: int = 128,
                             backend: str = "ell", bubble: bool = False,

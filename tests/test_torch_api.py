@@ -1,8 +1,8 @@
 """repro_torch session API: end to end against repro on every generator,
 pickled plans, LUOptions parity with repro.LUOptions, the later-slice
-options (item 10's still raise; analyze takes the robust tier's values and
-the cost model's peaks), and the device rule (the card by default, never a
-silent CPU)."""
+options (``distribute`` and ``runtime="dynamic"`` run on the CPU; analyze
+takes a mesh, the robust tier's values and the cost model's peaks), and the
+device rule (the card by default, never a silent CPU)."""
 import dataclasses
 import pickle
 
@@ -95,14 +95,41 @@ def test_luoptions_validation_matches_reference(bad):
     assert str(got.value) == str(ref.value)
 
 
+def _same_plan(got, want, values):
+    """Structure, fingerprints and factors bitwise."""
+    for key in ("l_counts", "u_counts", "supernodes"):
+        assert np.array_equal(getattr(got.sym, key), getattr(want.sym, key))
+    assert np.array_equal(got.pattern.indptr, want.pattern.indptr)
+    assert np.array_equal(got.pattern.rowind, want.pattern.rowind)
+    for f in ("counts", "hsum", "hxor", "subdiag", "seen"):
+        assert np.array_equal(getattr(got.sym.fingerprints, f),
+                              getattr(want.sym.fingerprints, f))
+    assert torch.equal(got.factorize(values).store.flat,
+                       want.factorize(values).store.flat)
+
+
 @pytest.mark.parametrize("later", [
     dict(distribute=True), dict(runtime="dynamic"),
 ])
 def test_later_slice_options_raise(later):
+    """Item 10's options are accepted, as in the reference, and ``analyze``
+    runs them on the CPU: ``distribute=True`` without a process group is
+    the one-shard mesh, the dynamic runtime one CPU slot; the plan is
+    bitwise the default options' and carries a one-device placement."""
     repro.LUOptions(**later)                    # valid in the reference
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 10"):
-        repro_torch.LUOptions(**later)
+    opts = repro_torch.LUOptions(concurrency=32, **later)
+    a = to_port(GENERATORS["bbd"]())
+    values = generic_values_csr(a)
+    plan = repro_torch.analyze(a, opts, device="cpu")
+    assert plan.options == opts and plan.device == "cpu"
+    assert plan.placement is not None and plan.n_devices == 1
+    base = repro_torch.analyze(a, repro_torch.LUOptions(concurrency=32),
+                               device="cpu")
+    _same_plan(plan, base, values)
+    if later.get("distribute"):
+        assert plan.sym.dist["n_shards"] == 1
+    else:
+        assert plan.sym.runtime["completed"] == plan.sym.runtime["chunks"]
 
 
 def test_analyze_takes_values_and_peaks():
@@ -125,9 +152,18 @@ def test_analyze_takes_values_and_peaks():
 
 
 def test_mesh_raises_not_implemented():
+    """``analyze(mesh=make_flat_mesh())`` with no process group is the
+    one-shard mesh: bitwise the mesh-less plan, with ``sym.dist``."""
+    from repro_torch.launch.mesh import make_flat_mesh
+
     a = to_port(GENERATORS["grid2d"]())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.analyze(a, device="cpu", mesh=object())
+    values = generic_values_csr(a)
+    opts = repro_torch.LUOptions(concurrency=32)
+    plan = repro_torch.analyze(a, opts, mesh=make_flat_mesh(device="cpu"))
+    assert plan.device == "cpu" and plan.n_devices == 1
+    assert plan.sym.dist["n_shards"] == 1
+    assert plan.sym.dist["balance_ratio"] == 1.0
+    _same_plan(plan, repro_torch.analyze(a, opts, device="cpu"), values)
 
 
 def test_default_device_is_the_card(monkeypatch):

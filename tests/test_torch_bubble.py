@@ -237,9 +237,16 @@ def test_oracles_match_reference_and_fixpoint(gen):
 
 
 def test_luoptions_bubble_is_accepted():
+    """Bubble with ``distribute`` or the dynamic runtime is accepted by
+    ``LUOptions``, as in the reference, and ``analyze`` raises the
+    reference's ``ValueError``: chunks there are full-width."""
     assert repro_torch.LUOptions(bubble=True).bubble
+    a = M.grid2d_laplacian(6)
     for later in (dict(bubble=True, distribute=True),
                   dict(bubble=True, runtime="dynamic")):
-        repro.LUOptions(**later)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            repro_torch.LUOptions(**later)
+        with pytest.raises(ValueError) as ref:
+            repro.analyze(a, repro.LUOptions(**later))
+        with pytest.raises(ValueError) as got:
+            repro_torch.analyze(to_port(a), repro_torch.LUOptions(**later),
+                                device="cpu")
+        assert str(got.value) == str(ref.value)

@@ -829,3 +829,118 @@ def test_mapped_update_at_blocked_widths_is_dense_k3(cuda, f32):
                      if f32 else ops.panel_update(acc, lp, up))
             assert torch.equal(got[acc_off:acc_off + m * n].view(m, n),
                                dense)
+
+
+def _bbd_400():
+    from repro_torch.sparse import bordered_block_diagonal
+
+    return bordered_block_diagonal(400, block=16, border=16, seed=2)
+
+
+def _structure(plan):
+    return (plan.sym.l_counts, plan.sym.u_counts, plan.sym.supernodes,
+            plan.pattern.indptr, plan.pattern.rowind,
+            plan.sym.fingerprints.hsum, plan.sym.fingerprints.hxor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ell", "kernel"])
+def test_dynamic_scheduler_stream_slots_on_card(cuda, backend):
+    """Four executor slots on one card, each a worker thread with its own
+    CUDA stream: the dynamic analyze's structure is bitwise the static
+    one's, every chunk completes, and on the kernel backend K1 and K2 run
+    on the slots' streams."""
+    import repro_torch
+    from repro_torch.core.gsofa import prepare_graph
+    from repro_torch.runtime.scheduler import DynamicScheduler
+    from repro_torch.supernodes import ColumnFingerprints
+
+    a = _bbd_400()
+    opts = repro_torch.LUOptions(concurrency=32, backend=backend)
+    static = repro_torch.analyze(a, opts, device=cuda)
+    dyn = repro_torch.analyze(a, opts.replace(runtime="dynamic"), device=cuda)
+    for got, want in zip(_structure(dyn), _structure(static)):
+        assert np.array_equal(got, want)
+    assert dyn.sym.runtime["completed"] == dyn.sym.runtime["chunks"]
+    graph = prepare_graph(a, dense_block=128 if backend == "kernel" else None,
+                          device=cuda)
+    fp = ColumnFingerprints(n=a.n)
+    ops.reset_launches()
+    sched = DynamicScheduler(graph, devices=[torch.device("cuda", 0)] * 4,
+                             concurrency=32, backend=backend,
+                             on_chunk=fp.update)
+    out = sched.run()
+    counts = ops.launch_counts()
+    assert out["completed"] == out["chunks"] == 13
+    assert np.array_equal(out["l_counts"], static.sym.l_counts)
+    assert np.array_equal(fp.hsum, static.sym.fingerprints.hsum)
+    assert counts["column_fingerprints"] == 13
+    assert (counts["minmax_relax"] > 0) == (backend == "kernel")
+
+
+def _cuda_world_rank(rank, world):
+    """A rank of a gloo world on the card (every rank on cuda:0 when there
+    is one card): the sharded analyze, factors and a solve, on the host."""
+    import repro_torch
+    from repro_torch.launch.mesh import make_flat_mesh
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = _bbd_400()
+    mesh = make_flat_mesh()
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=32, backend="kernel"), mesh=mesh)
+    f = plan.factorize(generic_values_csr(a))
+    x = f.solve(np.ones(a.n)).x
+    return {"device": str(mesh.device), "plan_device": plan.device,
+            "structure": [np.asarray(t) for t in _structure(plan)],
+            "flat": f.store.flat.cpu().numpy(), "x": x.cpu().numpy(),
+            "dist": plan.sym.dist, "n_devices": plan.n_devices}
+
+
+@pytest.mark.cuda
+def test_gloo_world_of_two_ranks_on_card(cuda, tmp_path):
+    """Two ranks over gloo, each on ``cuda:(rank % device_count)``: both
+    get the single-process plan's structure, factors and solve bitwise."""
+    import repro_torch
+    from _torch_world import run_world
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = _bbd_400()
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=32, backend="kernel"), device=cuda)
+    f = plan.factorize(generic_values_csr(a))
+    x = f.solve(np.ones(a.n)).x.cpu().numpy()
+    outs = run_world(2, _cuda_world_rank, workdir=tmp_path / "world")
+    n_cards = torch.cuda.device_count()
+    for rank, out in enumerate(outs):
+        assert out["device"] == f"cuda:{rank % n_cards}"
+        assert out["n_devices"] == 2 and out["dist"]["n_shards"] == 2
+        for got, want in zip(out["structure"], _structure(plan)):
+            assert np.array_equal(got, want)
+        assert np.array_equal(out["flat"], f.store.flat.cpu().numpy())
+        assert np.array_equal(out["x"], x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_place_four_on_card_bitwise(cuda, backend):
+    """``plan.place(4)`` on the card: factors and solves bitwise the
+    unplaced plan's, the mapped K3/K4 still once per level."""
+    import repro_torch
+    from repro_torch.sparse.numeric import generic_values_csr
+
+    a = _bbd_400()
+    values = generic_values_csr(a)
+    b = np.random.default_rng(0).standard_normal((a.n, 2))
+    plan = repro_torch.analyze(a, repro_torch.LUOptions(
+        concurrency=64, numeric_backend=backend), device=cuda)
+    base = plan.factorize(values)
+    before = ops.panel_update_mapped.launches
+    placed = plan.place(4).factorize(values)
+    levels = sum(any(plan.gather_maps[j] is not None for j in lv)
+                 for lv in plan.schedule.levels)
+    assert ops.panel_update_mapped.launches == before + levels
+    assert torch.equal(placed.store.flat, base.store.flat)
+    assert torch.equal(placed.solve(b).x, base.solve(b).x)
+    assert torch.equal(placed.solve(b, batched=False).x,
+                       base.solve(b, batched=False).x)
