@@ -12,12 +12,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   bitwise against K3 per slice, in float32 and float64; the
                   mapped K3/K4 in place on ragged slices with absent rows
                   within tolerance of its plain version and bitwise dense
-                  K3 per slice, both element modes, and over 8 systems in
+                  K3 per slice, both element modes, and over 4 systems in
                   one launch (padded system strides), each system bitwise
                   its own one-system launch; K5
                   at the standing prefill and decode shapes, at D = 128 and
                   at the serve paths' grouped shapes over caches whose
-                  unused slots hold NaN, within 2e-5, and in bfloat16).
+                  unused slots hold NaN, within 2e-5, and in bfloat16; K5
+                  at gemma3-4b's D = 256: the windowed prefill at windows
+                  1024, 1000, 40 and 2048 (the last bitwise the unwindowed
+                  call), with an offset, the global prefill, ring, global
+                  and windowed decodes, float32 and bfloat16, within 2e-5
+                  of the plain version's float32 result beyond the
+                  bfloat16 output's one rounding).
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
@@ -39,15 +45,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   full-width chunk): chunk widths, ``analyze_s``,
                   supersteps, K1/K2 launches, structure bitwise phase 3's.
    ``batched``  — the batched tier on phase 3's plan: ``factorize_batch``
-                  of 8 value sets (``generic_values_csr`` seeds 0..7), each
+                  of 4 value sets (``generic_values_csr`` seeds 0..3;
+                  ``BATCH``, cut from 8), each
                   system's factors' sha256 equal to a sequential
                   ``factorize`` of it, the mapped K3/K4 once per level for
-                  all 8 (12 launches, as one sequential sweep), walls
-                  against the 8 sequential ones; ``solve_batch`` on (8, n)
-                  and (8, n, 4) bitwise the sequential solves (x, residual
+                  all 4 (12 launches, as one sequential sweep), walls
+                  against the 4 sequential ones; ``solve_batch`` on (4, n)
+                  and (4, n, 4) bitwise the sequential solves (x, residual
                   history, accepted count), residuals <= 1e-10; systems 0
-                  and 7 again on phase 4's plan (float32 updates); one
-                  batched sweep of systems 0 and 1 under ``torch.profiler``
+                  and 3 again on phase 4's plan (float32 updates); one
+                  batched sweep of system 0 under ``torch.profiler``
                   (``PROFILED_SYSTEMS``); whether batched
                   cuBLAS products and triangular solves are bitwise per
                   slice at the sweep's shapes (reported, not required: the
@@ -73,9 +80,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   ``breakdown_default``'s), and the blocked replan of phase
                   4's plan (float32 updates).
    ``serve_lu`` — ``SolverEngine(LUOptions(concurrency=512), capacity=2,
-                  batch_slots=8)``: a flush of 8 requests on bbd-20k and 2
-                  on a second bbd-20k pattern (2 misses, 2 dispatches at
-                  occupancy 8/8 and 2/8), a flush of 3 on bbd-20k (a hit,
+                  batch_slots=4)`` (``ENGINE_SLOTS``, cut from 8): a flush
+                  of 4 requests on bbd-20k and 2 on a second bbd-20k
+                  pattern (2 misses, 2 dispatches at occupancy 4/4 and
+                  2/4), a flush of 3 on bbd-20k (a hit,
                   no analyze); one request per pattern bitwise the
                   sequential API, every residual <= 1e-10, the mapped
                   launches once per level per dispatch.
@@ -128,33 +136,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   card-vs-CPU check on its first 2 layers (attention +
                   mamba).
 12. ``breakdown_serve_jamba`` — phase 8 for the jamba period.
+13. ``serve_gemma3`` — phase 9 for gemma3-4b whole (34 layers: 28 local
+                  with a 1024-token window and ring caches, 6 global; D =
+                  256) serving 8 requests of 1536 prompt tokens (past the
+                  window) and 32 greedy tokens: K5 1088 launches, no other
+                  kernel; the card-vs-CPU check on its first 6 layers (5
+                  local, 1 global) with a 1016-token prompt and 16
+                  teacher-forced steps, the rings wrapping at the 9th.
+14. ``breakdown_serve_gemma3`` — phase 8 for gemma3-4b.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
-serve paths' grouped shapes with SDPA's beside them, an empty kernel's
+serve paths' grouped shapes with SDPA's beside them, and at gemma3's
+windowed prefill, ring decode and global decode, an empty kernel's
 device time, and dense K4 float64 against ``baddbmm`` in turns), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
-mapped, once per element type, and the mapped one over 8 systems in
-float64; ``ms`` and ``library_ms`` are the device
+mapped, once per element type, and the mapped one over 4 systems in
+float64; K5's gemma3 windowed prefill; ``ms`` and ``library_ms`` are the device
 time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
-The launch counters are reset just before each of phases 3, 4, 7, 9 and
-11, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+The launch counters are reset just before each of phases 3, 4, 7, 9, 11
+and 13, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
 just after it, so each path reports its own launches (phase 3: K2 and the
 float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped K3/K4;
 ``bubble``: K2, and K1 on the kernel backend; ``batched``: the float64
-mapped K3/K4 over 8 systems; ``robust``: K2 and the float64 mapped K3/K4;
+mapped K3/K4 over 4 systems; ``robust``: K2 and the float64 mapped K3/K4;
 ``blocking``: the mapped K3/K4 (no fixpoint runs); ``serve_lu``: K2 on
-each miss and the mapped K3/K4 over 8 systems; ``distributed``: K2 (and
+each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
 K1 on the kernel options) on each rank and each dynamic run, the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
-phase 11: K6 and K5; the dense K3/K4 entry points are off the paths since
+phase 11: K6 and K5; phase 13: K5; the dense K3/K4 entry points are off
+the paths since
 the sweep runs the mapped form), split by stage in ``launches_by_stage``
 for the LU paths; the ``kernels`` line takes each row's launches from the
 path that runs it, K1's, K2's and the mapped K3/K4's rows add
@@ -197,13 +215,22 @@ PEAK_SFU_S = 132 * 16 * 1.98e9
 SPIN_CYCLES = 100_000_000
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
 # value sets of the batched phase (and systems of the mapped update's
-# system-stride check)
-BATCH = 8
+# system-stride check): 4, cut from 8 to keep the smoke inside its time
+# limit as the serve phases grow (the batched phase took 161 s of the 798
+# at 8 on an H100 80GB HBM3 at 700 W, most of it the sequential
+# factorizations and solves it is compared with)
+BATCH = 4
+# the serving engine's dispatch slots (the serve_lu phase): 4, cut from 8
+# to keep the smoke inside its time limit (its first flush, 8 + 2
+# requests, took 57 s of the phase's 91 on an H100 80GB HBM3 at 700 W,
+# most of it the host driving each system's sweep and solve)
+ENGINE_SLOTS = 4
 # systems of the batched phase's profiled sweep: the profiler's host-side
 # processing costs about 0.2 ms an event on the card machine (H100 80GB
 # HBM3, 700 W), and a sweep makes about 55,000 device calls a system, so
-# a sweep of all 8 spent some 90 s of the smoke's time limit there
-PROFILED_SYSTEMS = 2
+# a sweep of all 8 spent some 90 s of the smoke's time limit there, and
+# one of 2 some 29 s
+PROFILED_SYSTEMS = 1
 # the robust phase's n, cut from the main path's 20,000: at 20,000 the
 # indefinite generator's rescue ends at a relative residual near 7e-3
 # after refinement (above the 1e-8 gate: element growth, not a port fault;
@@ -216,6 +243,13 @@ ROBUST_N = 8_000
 # max |CPU logit| (float32 sums in another order give ~1e-6; TF32 anywhere
 # on the path would exceed it)
 CHECK_PROMPT, CHECK_STEPS, CHECK_TOL = 128, 8, 1e-4
+# gemma3-4b's serve run: prompts longer than its 1024-token window, so the
+# windowed prefill cuts every local layer's keys and the local rings are
+# full after the prefill and wrap at every decode step; its card-vs-CPU
+# check: the first 6 layers (5 local, 1 global), a 1016-token prompt and
+# 16 teacher-forced steps, so the rings wrap at the 9th step
+GEMMA3_PROMPT = 1536
+GEMMA3_CHECK_LAYERS, GEMMA3_CHECK_PROMPT, GEMMA3_CHECK_STEPS = 6, 1016, 16
 SOURCES = {
     "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
                      "src/repro/kernels/gsofa_relax.py:60"),
@@ -446,6 +480,35 @@ def kernel_checks(torch, ops, plain, adj_real):
     out["K5_bf16_prefill_err"] = err
     out["K5_tol"] = K5_TOL
 
+    # K5 at gemma3-4b's shapes (D = 256): the windowed prefill at several
+    # window / tile alignments, the unwindowed (global) prefill, the ring
+    # and global decodes over caches whose unused slots hold NaN, and a
+    # windowed decode; float32 and bfloat16.  A window of at least kv_len
+    # (here S) is the unwindowed call, bitwise.
+    for tag, (shape, window) in K5_GEMMA3_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kw = gqa_inputs(torch, rng, *shape, window=window,
+                                     dtype=dtype)
+            got = ops.flash_attention(q, k, v, **kw)
+            err, excess = k5_error(torch, plain, got, q, k, v, kw)
+            name = f"K5_gemma3_{tag}_{str(dtype)[6:]}"
+            check(got.shape == q.shape and got.dtype == dtype
+                  and excess <= K5_TOL
+                  and not bool(got[:, kw["live_heads"]:].any()),
+                  f"{name} {shape} window={window}: err {err}, excess over "
+                  f"the output's rounding {excess} > {K5_TOL}, or a padded "
+                  f"head is not zero")
+            out[f"{name}_err"] = err
+            if dtype == torch.bfloat16:
+                out[f"{name}_excess"] = excess
+            if window and window >= shape[6]:     # >= kv_len
+                kw.pop("window")
+                same = torch.equal(got, ops.flash_attention(q, k, v, **kw))
+                check(same, f"{name}: window {window} >= kv_len differs "
+                      f"from the unwindowed call")
+                out[f"{name}_equals_unwindowed"] = same
+    out["K5_bf16_rounding_step"] = BF16_U
+
     # K7 and K6 at their serve paths' prefill and decode shapes, from a
     # zero and from a non-zero state, output and final state
     for name, shapes, inputs in (("K7", K7_SHAPES, rwkv6_inputs),
@@ -481,6 +544,42 @@ K5_GQA_SHAPES = {"smollm_prefill": (8, 16, 9, 3, 512, 512, 512, 64),
                  "jamba_decode": (8, 64, 64, 8, 1, 544, 514, 128)}
 
 
+# K5 at gemma3-4b's shapes ((B, H, live heads, KV heads, S, cache slots,
+# kv_len, D), window): 8 requests of 1536 prompt tokens, 16 query heads (8
+# live) on 4 KV heads, D = 256.  The serve path's windowed prefill (window
+# 1024) and global prefill; windows of 1000 (not a multiple of the 32-key
+# tile), 40 (below the 64-row query tile) and 2048 (>= S), and a window
+# with queries the last 100 of 1540 keys, at 2 requests; decode over a
+# full ring of 1024 slots and over a global cache (1540 of 1568 slots
+# valid), and a windowed decode (S = 1: the last 1000 keys).
+K5_GEMMA3_SHAPES = {
+    "prefill_w1024": ((8, 16, 8, 4, 1536, 1536, 1536, 256), 1024),
+    "prefill_global": ((8, 16, 8, 4, 1536, 1536, 1536, 256), None),
+    "prefill_w1000": ((2, 16, 8, 4, 1536, 1536, 1536, 256), 1000),
+    "prefill_w40": ((2, 16, 8, 4, 1536, 1536, 1536, 256), 40),
+    "prefill_w2048": ((2, 16, 8, 4, 1536, 1536, 1536, 256), 2048),
+    "prefill_offset_w1000": ((2, 16, 8, 4, 100, 1568, 1540, 256), 1000),
+    "decode_ring": ((8, 16, 8, 4, 1, 1024, 1024, 256), None),
+    "decode_global": ((8, 16, 8, 4, 1, 1568, 1540, 256), None),
+    "decode_w1000": ((8, 16, 8, 4, 1, 1568, 1540, 256), 1000)}
+# bfloat16's unit roundoff: K5 and the plain version agree within K5_TOL
+# in float32, and K5 then rounds its output to bfloat16 once
+BF16_U = 2.0 ** -8
+
+
+def k5_error(torch, plain, got, q, k, v, kw):
+    """(max |K5 - plain|, its excess over the output's rounding): the
+    plain version in float32 on the same inputs; the excess subtracts
+    ``BF16_U * |plain|`` per element for a bfloat16 output (nothing for
+    float32), so it is held to K5_TOL in both types."""
+    want = plain.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    step = BF16_U if got.dtype == torch.bfloat16 else 0.0
+    return (float(diff.max()),
+            float((diff - step * want.abs()).max()))
+
+
 def attn_inputs(torch, rng, b, h, s, t, d):
     import numpy as np
 
@@ -490,16 +589,22 @@ def attn_inputs(torch, rng, b, h, s, t, d):
                  for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
 
 
-def gqa_inputs(torch, rng, b, h, live, hkv, s, t_alloc, kv_len, d):
-    """q (B, H, S, D) and k, v (B, Hkv, t_alloc, D) on the card, the cache
-    slots >= kv_len NaN (K5 must not read them), and K5's keywords."""
+def gqa_inputs(torch, rng, b, h, live, hkv, s, t_alloc, kv_len, d, *,
+               window=None, dtype=None):
+    """q (B, H, S, D) and k, v (B, Hkv, t_alloc, D) on the card (float32,
+    or ``dtype``), the cache slots >= kv_len NaN (K5 must not read them),
+    and K5's keywords."""
     import numpy as np
 
     q = rng.standard_normal((b, h, s, d)).astype(np.float32)
     kv = rng.standard_normal((2, b, hkv, t_alloc, d)).astype(np.float32)
     kv[:, :, :, kv_len:] = np.nan
-    q, k, v = (torch.as_tensor(x, device="cuda") for x in (q, *kv))
-    return q, k, v, {"causal": True, "kv_len": kv_len, "live_heads": live}
+    q, k, v = (torch.as_tensor(x, device="cuda").to(dtype or torch.float32)
+               for x in (q, *kv))
+    kw = {"causal": True, "kv_len": kv_len, "live_heads": live}
+    if window:
+        kw["window"] = window
+    return q, k, v, kw
 
 
 # K7's shapes (B, L, H, K): rwkv6-7b's serve path (8 requests, 64 heads
@@ -571,15 +676,18 @@ def mamba_work(b, l, di, n):
             6 * b * l * di * n + 3 * b * l * di, b * l * di * n)
 
 
-def attn_work(b, h, s, t, d, live=None, hkv=None):
+def attn_work(b, h, s, t, d, live=None, hkv=None, window=None):
     """(bytes, useful float ops) of causal float32 attention over t keys:
-    the live heads' q, the unique k and v (hkv heads) read once and the
-    output (all h heads) written once; QK^T and PV over the visible
-    (query, key) pairs of the live heads only."""
+    the live heads' q, the unique k and v (hkv heads) read once (with a
+    window, only the keys some query sees) and the output (all h heads)
+    written once; QK^T and PV over the visible (query, key) pairs of the
+    live heads only: query i sees min(i + t - s + 1, window) keys."""
     live = h if live is None else live
     hkv = h if hkv is None else hkv
-    pairs = s * (t - s) + s * (s + 1) // 2
-    return (4 * (b * live * s * d + b * h * s * d + 2 * b * hkv * t * d),
+    window = window or t
+    pairs = sum(min(i + t - s + 1, window) for i in range(s))
+    keys = min(t, s - 1 + window)
+    return (4 * (b * live * s * d + b * h * s * d + 2 * b * hkv * keys * d),
             4 * d * pairs * b * live)
 
 
@@ -928,7 +1036,7 @@ def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
     sha256, walls), the mapped K3/K4 once per level for all systems (the
     counters reset just before the batched sweep and read just after),
     ``solve_batch`` on (B, n) and (B, n, 4) against the sequential
-    solves, bitwise; systems 0 and 7 again on the kernel plan; one
+    solves, bitwise; systems 0 and BATCH - 1 again on the kernel plan; one
     batched sweep under torch.profiler."""
     import numpy as np
 
@@ -1019,10 +1127,13 @@ def batched_phase(torch, repro_torch, ops, a, plan, plan_k,
     return out, counts
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, *, cross_check=False):
     """``fn()`` once under torch.profiler: (its result, {wall_ms,
     device_busy_ms, idle_share, device_calls, top, profiler_host_s}), the
-    last the seconds the profiler's stop and summary took on the host."""
+    last the seconds the profiler's stop and summary took on the host.
+    ``cross_check`` also holds the summary's per-name calls and device
+    time against ``key_averages()`` (slow on large profiles)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1034,6 +1145,21 @@ def profiled(torch, fn):
         wall = (t1 - t0) * 1e3
     summary = device_summary(prof, wall)
     summary["profiler_host_s"] = time.perf_counter() - t1
+    if cross_check:
+        calls, us = Counter(), Counter()
+        for name, dur in device_events(prof):
+            calls[name] += 1
+            us[name] += dur
+        avg = {ev.key: ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)}
+        # key_averages() keeps whole microseconds: < 1 us an event apart
+        check(calls and set(avg) == set(calls) and all(
+            avg[k].count == calls[k]
+            and abs(avg[k].device_time_total - us[k]) <= calls[k] + 1e-6
+            * us[k] for k in calls),
+            "the raw device events disagree with key_averages()")
+        summary["device_events_match_key_averages"] = True
     return result, summary
 
 
@@ -1225,10 +1351,11 @@ def blocking_phase(torch, repro_torch, ops, plan, values, res, plan_k,
 
 def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
     """The sparse-LU serving engine: ``SolverEngine(LUOptions(concurrency=
-    512), capacity=2, batch_slots=8)``.  First flush: 8 requests on
-    bbd-20k (values ``generic_values_csr`` seeds 0..7) and 2 on another
-    bbd-20k pattern (seed 4): 2 misses, 2 dispatches at occupancy 8/8 and
-    2/8.  Second flush: 3 requests on bbd-20k, a cache hit with no
+    512), capacity=2, batch_slots=ENGINE_SLOTS)``.  First flush:
+    ENGINE_SLOTS requests on bbd-20k (values ``generic_values_csr`` seeds
+    0, 1, ...) and 2 on another bbd-20k pattern (seed 4): 2 misses, 2
+    dispatches, one full and one at 2 of ENGINE_SLOTS.  Second flush: 3
+    requests on bbd-20k, a cache hit with no
     analyze.  One request per pattern bitwise the sequential API
     (``plan.factorize(v).solve(b)``), every residual <= 1e-10; launch
     counters reset just before each flush and read just after."""
@@ -1239,7 +1366,7 @@ def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
     a4 = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
                                         seed=4)
     eng = SolverEngine(repro_torch.LUOptions(concurrency=CONCURRENCY),
-                       capacity=2, batch_slots=BATCH)
+                       capacity=2, batch_slots=ENGINE_SLOTS)
     rng = np.random.default_rng(9)
     reqs = {}
 
@@ -1251,7 +1378,7 @@ def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
         return rid
 
     out = {}
-    for tag, stream in (("flush_1", [(a0, s) for s in range(BATCH)]
+    for tag, stream in (("flush_1", [(a0, s) for s in range(ENGINE_SLOTS)]
                          + [(a4, 0), (a4, 1)]),
                         ("flush_2", [(a0, s) for s in (10, 11, 12)])):
         before = dict(eng.stats)
@@ -1289,7 +1416,7 @@ def serve_lu_phase(torch, repro_torch, ops, sparse, plan, generic_values_csr):
         out[tag]["results"] = results
     s1, s2 = out["flush_1"]["stats"], out["flush_2"]["stats"]
     check(s1["cache_misses"] == 2 and s1["batches"] == 2
-          and s1["padded_slots"] == BATCH - 2,
+          and s1["padded_slots"] == ENGINE_SLOTS - 2,
           f"serve_lu flush_1: {s1}")
     check(s2["cache_hits"] == 1 and s2["cache_misses"] == 0
           and s2["analyze_s"] == 0.0 and s2["batches"] == 1
@@ -1623,6 +1750,19 @@ def reference_check(torch, repro_torch, sparse, generic_values_csr):
     return out
 
 
+def device_events(prof):
+    """A finished profile's device-side events (kernels, copies, fills) as
+    (name, microseconds), read from the profiler's raw results: building
+    its Python event tree for ``key_averages()`` costs the host some 0.1
+    ms an event, and one sweep of bbd-20k makes some 10^5 of them."""
+    from torch.autograd import DeviceType
+
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() == DeviceType.CUDA
+                and not ev.is_user_annotation()):
+            yield ev.name(), ev.duration_ns() / 1e3
+
+
 def profile_kernels(torch, fn):
     """Run ``fn`` under torch.profiler; return ({kernel name: (calls,
     device ms)}, fn's result)."""
@@ -1632,14 +1772,11 @@ def profile_kernels(torch, fn):
         result = fn()
         torch.cuda.synchronize()
     seen = {}
-    for ev in prof.key_averages():
+    for key, us in device_events(prof):
         for name in PROFILED:
-            if name in ev.key:
-                dev_us = (ev.device_time_total
-                          if hasattr(ev, "device_time_total")
-                          else ev.cuda_time_total)
+            if name in key:
                 calls, ms = seen.get(name, (0, 0.0))
-                seen[name] = (calls + ev.count, ms + dev_us / 1e3)
+                seen[name] = (calls + 1, ms + us / 1e3)
     return seen, result
 
 
@@ -1647,19 +1784,18 @@ def device_summary(prof, wall_ms: float, k: int = 5) -> dict:
     """A profile's device side, from one pass over its events: busy
     milliseconds of every kernel, copy and fill (one stream, so they never
     overlap), the idle share of ``wall_ms``, the device calls, and the
-    ``k`` events with the most time as [name, calls, ms]."""
-    from torch.autograd import DeviceType
-
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA
-           and not getattr(ev, "is_user_annotation", False)]
-    busy = sum(ev.device_time_total for ev in evs) / 1e3
-    evs.sort(key=lambda ev: ev.device_time_total, reverse=True)
+    ``k`` names with the most time as [name, calls, ms]."""
+    calls, us = Counter(), Counter()
+    for name, dur in device_events(prof):
+        calls[name] += 1
+        us[name] += dur
+    busy = sum(us.values()) / 1e3
+    top = sorted(us, key=us.get, reverse=True)[:k]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms,
-            "device_calls": sum(ev.count for ev in evs),
-            "top": [[ev.key[:80], ev.count, ev.device_time_total / 1e3]
-                    for ev in evs[:k]]}
+            "device_calls": sum(calls.values()),
+            "top": [[name[:80], calls[name], us[name] / 1e3]
+                    for name in top]}
 
 
 def breakdown(torch, repro_torch, a, values, opts, *, sweep: bool):
@@ -1703,9 +1839,9 @@ def greedy(torch, tf, fp32_highest, cfg, params, prompt, gen_len):
     return torch.stack(toks, dim=1).cpu(), logits.cpu()
 
 
-def serve_run(torch, ops, cfg):
+def serve_run(torch, ops, cfg, *, prompt_len=SERVE_PROMPT):
     """The serve path at full width on the card: draw the parameters, warm
-    up, then serve SERVE_REQUESTS x (SERVE_PROMPT + SERVE_GEN) with the
+    up, then serve SERVE_REQUESTS x (prompt_len + SERVE_GEN) with the
     launch counters set to 0 just before.  Returns the parameters and the
     phase line's common keys."""
     from repro_torch.launch import serve
@@ -1720,14 +1856,14 @@ def serve_run(torch, ops, cfg):
     serve.serve(cfg, requests=1, prompt_len=64, gen_len=2, params=params)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = serve.serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+    res = serve.serve(cfg, requests=SERVE_REQUESTS, prompt_len=prompt_len,
                       gen_len=SERVE_GEN, params=params)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     toks = res["tokens"]
     check(toks.shape == (SERVE_REQUESTS, SERVE_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab, f"serve tokens {toks.shape}")
-    b, p, g = SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN
+    b, p, g = SERVE_REQUESTS, prompt_len, SERVE_GEN
     return params, {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.hp, cfg.n_kv_heads], "hd": cfg.hd,
@@ -1803,21 +1939,30 @@ def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced):
     return torch.cat(logits).cpu(), states
 
 
-def ssm_serve_phase(torch, ops, cfg, *, cut, kernel, check_layers):
-    """Phases 9 and 11: the serve path at full width on the card (launch
-    counts checked exactly), then the first ``check_layers`` layers of the
-    same parameters on the card and on the CPU, teacher-forced.  Returns
-    the parameters (the breakdown phase reuses them) and the phase line."""
+# the kernel each mixer launches once a prefill and once a decode step
+MIXER_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
+                "rwkv6": "rwkv6_scan", "mamba": "mamba_scan"}
+
+
+def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
+                        prompt_len=SERVE_PROMPT, check_prompt=CHECK_PROMPT,
+                        check_steps=CHECK_STEPS):
+    """Phases 9, 11 and 13: the serve path at full width on the card (each
+    kernel launched once per layer that runs it, a prefill and every
+    decode step, and no other kernel: checked exactly), then the first
+    ``check_layers`` layers of the same parameters on the card and on the
+    CPU, a ``check_prompt``-token prompt and ``check_steps`` teacher-forced
+    decode steps.  Returns the parameters (the breakdown phase reuses
+    them) and the phase line."""
     import numpy as np
     from repro_torch.kernels.plain import fp32_highest
     from repro_torch.models import transformer as tf
 
-    params, line = serve_run(torch, ops, cfg)
+    params, line = serve_run(torch, ops, cfg, prompt_len=prompt_len)
     launches = line["launches"]
-    n_ssm = sum(m != "attn" for m, _ in cfg.pattern) * cfg.n_groups
     want = {name: 0 for name in launches}
-    want[kernel] = n_ssm * SERVE_GEN       # prefill + (gen - 1) decode steps
-    want["flash_attention"] = (cfg.n_layers - n_ssm) * SERVE_GEN
+    for mixer, _ in cfg.pattern:           # prefill + (gen - 1) decode steps
+        want[MIXER_KERNEL[mixer]] += cfg.n_groups * SERVE_GEN
     check(launches == want, f"{cfg.name}: launches {launches}, not {want}")
 
     # the first layers on the card and, copied, on the CPU
@@ -1830,7 +1975,7 @@ def ssm_serve_phase(torch, ops, cfg, *, cut, kernel, check_layers):
                      for gp in params["groups"][:n_groups]]
     rng = np.random.default_rng(1)
     prompt, forced = (torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)))
-                      for n in (CHECK_PROMPT, CHECK_STEPS))
+                      for n in (check_prompt, check_steps))
     card_logits, card_states = teacher_forced(torch, tf, fp32_highest,
                                               sub_cfg, sub, prompt, forced)
     host = tf.to_device(sub, "cpu")
@@ -1848,37 +1993,41 @@ def ssm_serve_phase(torch, ops, cfg, *, cut, kernel, check_layers):
     agree = int((card_logits.argmax(1) == host_logits.argmax(1)).sum())
     check(max(step_rel) <= CHECK_TOL,
           f"{cfg.name}: card vs CPU logits {step_rel} > {CHECK_TOL}")
-    check(state_rel and max(state_rel.values()) <= CHECK_TOL,
+    recurrent = any(MIXER_KERNEL[m] != "flash_attention" for m, _ in pattern)
+    check(bool(state_rel) == recurrent
+          and all(r <= CHECK_TOL for r in state_rel.values()),
           f"{cfg.name}: card vs CPU final states {state_rel}")
+    kinds = ({"ssm": dataclasses.asdict(cfg.ssm)} if recurrent
+             else {"sliding_window": cfg.sliding_window})
     return params, {
         **line, "cut": cut, "pattern": [list(lk) for lk in cfg.pattern],
-        "d_ff": cfg.d_ff, "ssm": dataclasses.asdict(cfg.ssm),
+        "d_ff": cfg.d_ff, **kinds,
         "param_bytes": sum(t.numel() * t.element_size()
                            for t in tf._leaves(params)),
         "check_layers": f"the first {check_layers} layers "
                         f"({', '.join(m for m, _ in pattern)}), full width",
-        "check_prompt": CHECK_PROMPT,
-        "check_teacher_forced_steps": CHECK_STEPS,
+        "check_prompt": check_prompt,
+        "check_teacher_forced_steps": check_steps,
         "check_logits_rel_per_step": step_rel,
         "check_logits_tol": CHECK_TOL, "check_state_rel": state_rel,
-        "check_greedy_agree": f"{agree}/{CHECK_STEPS + 1}",
+        "check_greedy_agree": f"{agree}/{check_steps + 1}",
         "check_cpu_s": t_host}
 
 
-def breakdown_serve(torch, cfg, params):
-    """Phases 8, 10 and 12: the serve path's prefill and one decode step
-    (after one warm decode step) under torch.profiler."""
+def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
+    """Phases 8, 10, 12 and 14: the serve path's prefill and one decode
+    step (after one warm decode step) under torch.profiler."""
     import numpy as np
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    prefill = make_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_GEN)
+    prefill = make_prefill_step(cfg, cache_len=prompt_len + SERVE_GEN)
     decode = make_decode_step(cfg)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)), device="cuda")
+        0, cfg.vocab, (SERVE_REQUESTS, prompt_len)), device="cuda")
     out = {}
 
     def stage(name, fn):
-        result, out[name] = profiled(torch, fn)
+        result, out[name] = profiled(torch, fn, cross_check=True)
         return result
 
     tok, caches = stage("prefill", lambda: prefill(params, {"tokens": tokens}))
@@ -2034,20 +2183,27 @@ def main() -> int:
           **breakdown_serve(torch, get_config(SERVE_ARCH), params)})
     del params
 
-    ssm_launches = {}
-    for tag, cfg, cut, kernel, layers in (
-            ("rwkv6", get_config("rwkv6-7b"), "none: the whole model",
-             "rwkv6_scan", 4),
+    serve_launches = {}
+    for tag, cfg, cut, layers, kw in (
+            ("rwkv6", get_config("rwkv6-7b"), "none: the whole model", 4,
+             {}),
             ("jamba", dense_period(get_config("jamba-1.5-large-398b")),
              "one 8-layer period of 72 (1 attention + 7 mamba), each MoE "
              "FFN (16 experts) replaced by the dense MLP of the same width",
-             "mamba_scan", 2)):
-        params, res = ssm_serve_phase(torch, ops, cfg, cut=cut,
-                                      kernel=kernel, check_layers=layers)
-        ssm_launches[kernel] = res["launches"][kernel]
+             2, {}),
+            ("gemma3", get_config("gemma3-4b"), "none: the whole model",
+             GEMMA3_CHECK_LAYERS,
+             {"prompt_len": GEMMA3_PROMPT,
+              "check_prompt": GEMMA3_CHECK_PROMPT,
+              "check_steps": GEMMA3_CHECK_STEPS})):
+        params, res = checked_serve_phase(torch, ops, cfg, cut=cut,
+                                          check_layers=layers, **kw)
+        serve_launches[tag] = res["launches"]
         emit({"phase": f"serve_{tag}", **res})
         emit({"phase": f"breakdown_serve_{tag}",
-              **breakdown_serve(torch, cfg, params)})
+              **breakdown_serve(torch, cfg, params,
+                                prompt_len=kw.get("prompt_len",
+                                                  SERVE_PROMPT))})
         del params
         torch.cuda.empty_cache()
 
@@ -2257,6 +2413,9 @@ def main() -> int:
             row("flash_attention", serve_res["launches"]["flash_attention"],
                 err, *fns, nbytes, 3 * flops, lib, peak_ops=PEAK_TF32_S,
                 plain_kw={"inner": 5})
+            kern[-1]["launches_on_new_paths"] = {
+                f"serve_{path}": serve_launches[path]["flash_attention"]
+                for path in ("jamba", "gemma3")}
             shapes_line["flash_attention_bound_cuda_cores"] = dict(zip(
                 ("bound_ms", "bound_by"), bound(nbytes, flops)))
         else:
@@ -2282,15 +2441,53 @@ def main() -> int:
                       "D": d_},
             "max_abs_err": err, **t}
 
+    # K5 at gemma3-4b's serve shapes (D = 256): the windowed prefill (a
+    # row of its own, its launches the gemma3 serve run's), the ring decode
+    # and the global decode, their errors phase 2's; the bound counts the
+    # (query, key) pairs and keys the window leaves; SDPA over the live
+    # heads with enable_gqa, the band as a boolean mask, is the yardstick
+    for tag in ("prefill_w1024", "decode_ring", "decode_global"):
+        shape, window = K5_GEMMA3_SHAPES[tag]
+        b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
+        qg, kg, vg, kw = gqa_inputs(torch, rng, *shape, window=window)
+        err = checks[f"K5_gemma3_{tag}_float32_err"]
+        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv, window)
+        ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
+        band = None
+        if s_ > 1:
+            ones = torch.ones((s_, kv_len), dtype=torch.bool, device=dev)
+            band = ones.tril(kv_len - s_)
+            if window:
+                band &= ~ones.tril(kv_len - s_ - window)
+        args = (lambda: ops.flash_attention(qg, kg, vg, **kw),
+                lambda: plain.flash_attention_plain(qg, kg, vg, **kw),
+                nbytes, 3 * flops if s_ > 1 else flops,
+                lambda: sdpa(qg[:, :live], ks, vs, attn_mask=band,
+                             enable_gqa=True))
+        tkw = {"peak_ops": PEAK_TF32_S if s_ > 1 else PEAK_OPS_S,
+               "plain_kw": {"inner": 5}}
+        shapes_line[f"flash_attention_gemma3_{tag}"] = {
+            "shape": {"B": b_, "H": h_, "live_heads": live, "Hkv": hkv,
+                      "S": s_, "T_alloc": t_alloc, "kv_len": kv_len,
+                      "D": d_, "window": window}, "max_abs_err": err}
+        if tag == "prefill_w1024":
+            row("flash_attention (gemma3-4b: D = 256, window 1024)",
+                serve_launches["gemma3"]["flash_attention"], err, *args,
+                kernel="flash_attention", **tkw)
+        else:
+            shapes_line[f"flash_attention_gemma3_{tag}"].update(
+                timing(*args, **tkw))
+        del qg, kg, vg, ks, vs, band
+
     # K6 and K7 from a zero state at their serve paths' prefill shapes
     # (their rows) and from a non-zero state at the decode shapes, their
     # errors those of phase 2 at the same shapes and states; no one
     # PyTorch call computes either scan (library_ms null)
-    for name, key, shapes, inputs, work, fn, ref in (
-            ("mamba_scan", "K6", K6_SHAPES, mamba_inputs, mamba_work,
-             ops.mamba_scan, plain.mamba_scan_plain),
-            ("rwkv6_scan", "K7", K7_SHAPES, rwkv6_inputs, rwkv6_work,
-             ops.rwkv6_scan, plain.rwkv6_scan_plain)):
+    for name, key, path, shapes, inputs, work, fn, ref in (
+            ("mamba_scan", "K6", "jamba", K6_SHAPES, mamba_inputs,
+             mamba_work, ops.mamba_scan, plain.mamba_scan_plain),
+            ("rwkv6_scan", "K7", "rwkv6", K7_SHAPES, rwkv6_inputs,
+             rwkv6_work, ops.rwkv6_scan, plain.rwkv6_scan_plain)):
         for tag, state in (("prefill", "zero"), ("decode", "state")):
             shape = shapes[tag]
             args = inputs(torch, rng, *shape, zero_state=state == "zero")
@@ -2300,7 +2497,7 @@ def main() -> int:
             kw = {"sfu_ops": sfu[0] if sfu else 0, "plain_kw": {"reps": 3}}
             if tag == "prefill":
                 shapes_line[name] = list(shape)
-                row(name, ssm_launches[name], err, *t, **kw)
+                row(name, serve_launches[path][name], err, *t, **kw)
             else:
                 shapes_line[f"{name}_decode"] = {
                     "shape": list(shape), "max_abs_err": err,

@@ -2,7 +2,9 @@
 // K/V cache in place.
 //
 //   out[b, h, s] = softmax_t(scale * q[b, h, s] . k[b, h / G, t]) @ v[b, h / G, t]
-//   over keys t < kv_len, and t <= s + (kv_len - S) when causal,
+//   over keys t < kv_len, and t <= s + (kv_len - S) when causal, and
+//   t > s + (kv_len - S) - window when a window is given (causal only: the
+//   reference's sliding-window mask, models/attention.py::_causal_mask),
 //   for query heads h < live (G = live / Hkv, jnp.repeat order);
 //   out[b, h] = 0 for h >= live (the reference's zero-padded heads)
 //
@@ -45,9 +47,14 @@
 //     keys of each 8-key step permuted (position t <-> key 2t, t + 4 <->
 //     2t + 1) so that the accumulator layout is the operand layout, and V
 //     read in the same order;
-//   * causal tiles past a query tile's last visible key are skipped, the
-//     heaviest query tiles are scheduled first, and heads >= live only
-//     write zeros.
+//   * causal tiles past a query tile's last visible key are skipped, and
+//     with a window so are the tiles before its first one (a block starts
+//     at the tile holding key q0 + off - window + 1); the heaviest query
+//     tiles are scheduled first, and heads >= live only write zeros;
+//   * at D = 256 the split Q of a block (128 KB) and double-buffered K/V
+//     (130 KB) would exceed the 227 KB a block may hold, so Q is kept
+//     unsplit (64 KB, 195 KB in all) and split at each use; one block fits
+//     an SM.
 //
 // Decode (S = 1).  One query row per head over a kv_len-deep cache: bound by
 // reading K and V once.  Split-KV ("flash decoding"): one block per
@@ -55,7 +62,8 @@
 // cp.async and computes, for all G query heads of the group at once, a
 // partial (max, sum, unnormalised output) on the CUDA cores; a second small
 // kernel merges the chunks of each head and writes the zeros of the padded
-// heads.  The cache is read once per group, not once per query head.
+// heads.  The cache is read once per group, not once per query head.  With
+// a window only the last `window` keys are read (the k, v rows are offset).
 #include <cstddef>
 #include <cstdint>
 
@@ -72,7 +80,7 @@ struct Args {
   const void* v;
   void* out;
   float* part;  // decode: (B, live, n_chunks, D + 2) partial results
-  int B, H, Hkv, S, kv_len, live, causal;
+  int B, H, Hkv, S, kv_len, live, causal, window;  // window 0: none
   float scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_ss;
@@ -210,13 +218,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// shared-memory layout of the prefill kernel, in floats
+// shared-memory layout of the prefill kernel, in floats; Q is stored split
+// (hi|lo) up to D = 128 and unsplit above, where the split would not fit
 template <int D>
 struct PfSmem {
+  static constexpr bool kSplitQ = D <= 128;
+  static constexpr int QW = kSplitQ ? 256 : 128;  // floats a warp's k-step
   static constexpr int LDK = D + 8;          // padded K row
   static constexpr int LDV = D + 4;          // padded V row
-  static constexpr int kQ = 0;               // [warp][kstep][hi|lo][lane][4]
-  static constexpr int kK = kQ + BQ * D * 2;  // [buf][BKV][LDK]
+  static constexpr int kQ = 0;               // [warp][kstep][(hi|lo)][lane][4]
+  static constexpr int kK = kQ + BQ * D * QW / 128;  // [buf][BKV][LDK]
   static constexpr int kV = kK + 2 * BKV * LDK;  // [buf][BKV][LDV]
   static constexpr size_t bytes =
       sizeof(float) * static_cast<size_t>(kV + 2 * BKV * LDV);
@@ -227,6 +238,8 @@ __global__ void __launch_bounds__(PF_THREADS)
 flash_prefill_kernel(const Args a) {
   constexpr int LDK = PfSmem<D>::LDK;
   constexpr int LDV = PfSmem<D>::LDV;
+  constexpr bool kSplitQ = PfSmem<D>::kSplitQ;
+  constexpr int QW = PfSmem<D>::QW;
   constexpr int KS = D / 8;  // k-steps of Q K^T, and n-tiles of P V
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) float smem[];
@@ -261,19 +274,23 @@ flash_prefill_kernel(const Args a) {
   const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
 
+  const int window = a.window;
   int n_tiles = (kv_len + BKV - 1) / BKV;
   if (a.causal) n_tiles = min(n_tiles, (min(q0 + BQ, S) - 1 + off) / BKV + 1);
+  // the block's lowest visible key is row q0's first one in its window
+  const int it0 = window > 0 ? max(0, q0 + off - window + 1) / BKV : 0;
 
-  stage_rows<D, BKV, LDK, PF_THREADS>(sK, k, a.k_st, 0, kv_len, tid);
-  stage_rows<D, BKV, LDV, PF_THREADS>(sV, v, a.v_st, 0, kv_len, tid);
+  stage_rows<D, BKV, LDK, PF_THREADS>(sK, k, a.k_st, it0 * BKV, kv_len, tid);
+  stage_rows<D, BKV, LDV, PF_THREADS>(sV, v, a.v_st, it0 * BKV, kv_len, tid);
   cp_async_commit();
 
   // this warp's 16 query rows, times scale * log2(e) (the softmax runs in
-  // base 2), as hi/lo TF32 A-fragments in fragment order.  Within each
-  // 8-wide k-step the fragment positions (t, t + 4) hold the dimensions
-  // (2t, 2t + 1), so that a lane's two K values are one 8-byte load.
+  // base 2), as hi/lo TF32 A-fragments in fragment order (unsplit above
+  // D = 128).  Within each 8-wide k-step the fragment positions (t, t + 4)
+  // hold the dimensions (2t, 2t + 1), so that a lane's two K values are one
+  // 8-byte load.
   const float qs = a.scale * LOG2E;
-  float* myq = sQ + warp * (KS * 256);
+  float* myq = sQ + warp * (KS * QW);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const int c = kk * 8 + 2 * t;
@@ -281,13 +298,18 @@ flash_prefill_kernel(const Args a) {
                         r1 < S ? to_f32(q[r1 * a.q_ss + c]) * qs : 0.0f,
                         r0 < S ? to_f32(q[r0 * a.q_ss + c + 1]) * qs : 0.0f,
                         r1 < S ? to_f32(q[r1 * a.q_ss + c + 1]) * qs : 0.0f};
-    uint32_t hi[4], lo[4];
+    if constexpr (kSplitQ) {
+      uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(x[e], hi[e], lo[e]);
-    reinterpret_cast<uint4*>(myq + kk * 256)[lane] =
-        make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    reinterpret_cast<uint4*>(myq + kk * 256 + 128)[lane] =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      for (int e = 0; e < 4; ++e) split_tf32(x[e], hi[e], lo[e]);
+      reinterpret_cast<uint4*>(myq + kk * QW)[lane] =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      reinterpret_cast<uint4*>(myq + kk * QW + 128)[lane] =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      reinterpret_cast<float4*>(myq + kk * QW)[lane] =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
   }
 
   float o[KS][4];
@@ -295,8 +317,8 @@ flash_prefill_kernel(const Args a) {
   for (int n = 0; n < KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;  // rows r0 and r1
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
+  for (int it = it0; it < n_tiles; ++it) {
+    const int buf = (it - it0) & 1;
     if (it + 1 < n_tiles) {
       stage_rows<D, BKV, LDK, PF_THREADS>(sK + (buf ^ 1) * BKV * LDK, k,
                                           a.k_st, (it + 1) * BKV, kv_len,
@@ -319,11 +341,20 @@ flash_prefill_kernel(const Args a) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      const uint4 qh = reinterpret_cast<const uint4*>(myq + kk * 256)[lane];
-      const uint4 ql =
-          reinterpret_cast<const uint4*>(myq + kk * 256 + 128)[lane];
-      const uint32_t a_hi[4] = {qh.x, qh.y, qh.z, qh.w};
-      const uint32_t a_lo[4] = {ql.x, ql.y, ql.z, ql.w};
+      uint32_t a_hi[4], a_lo[4];
+      if constexpr (kSplitQ) {
+        const uint4 qh = reinterpret_cast<const uint4*>(myq + kk * QW)[lane];
+        const uint4 ql =
+            reinterpret_cast<const uint4*>(myq + kk * QW + 128)[lane];
+        a_hi[0] = qh.x, a_hi[1] = qh.y, a_hi[2] = qh.z, a_hi[3] = qh.w;
+        a_lo[0] = ql.x, a_lo[1] = ql.y, a_lo[2] = ql.z, a_lo[3] = ql.w;
+      } else {
+        const float4 qx = reinterpret_cast<const float4*>(myq + kk * QW)[lane];
+        split_tf32(qx.x, a_hi[0], a_lo[0]);
+        split_tf32(qx.y, a_hi[1], a_lo[1]);
+        split_tf32(qx.z, a_hi[2], a_lo[2]);
+        split_tf32(qx.w, a_hi[3], a_lo[3]);
+      }
 #pragma unroll
       for (int n = 0; n < NKG; ++n) {
         const float2 kr = *reinterpret_cast<const float2*>(
@@ -337,10 +368,13 @@ flash_prefill_kernel(const Args a) {
 
     // mask, online softmax on the fragments (fragment (n, e) is key
     // k0 + 8n + 2t + e of row r0 for e < 2, of row r1 for e >= 2); a tile
-    // that every row of the warp sees whole skips the mask
+    // that every row of the warp sees whole skips the mask: its last key
+    // is visible to the warp's first row and, in a window, its first key
+    // to the warp's last row
     uint32_t vis0 = (1u << (2 * NKG)) - 1, vis1 = vis0;
-    if (k0 + BKV > kv_len ||
-        (a.causal && k0 + BKV - 1 > q0 + warp * 16 + off)) {
+    const int w0 = q0 + warp * 16 + off;  // the warp's first row's position
+    if (k0 + BKV > kv_len || (a.causal && k0 + BKV - 1 > w0) ||
+        (window > 0 && k0 <= w0 + 15 - window)) {
       vis0 = vis1 = 0;
 #pragma unroll
       for (int n = 0; n < NKG; ++n) {
@@ -348,8 +382,10 @@ flash_prefill_kernel(const Args a) {
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + n * 8 + 2 * t + e;
           const bool in = key < kv_len;
-          const bool ok0 = in && (!a.causal || key <= r0 + off);
-          const bool ok1 = in && (!a.causal || key <= r1 + off);
+          const bool ok0 = in && (!a.causal || key <= r0 + off) &&
+                           (window <= 0 || key > r0 + off - window);
+          const bool ok1 = in && (!a.causal || key <= r1 + off) &&
+                           (window <= 0 || key > r1 + off - window);
           vis0 |= static_cast<uint32_t>(ok0) << (2 * n + e);
           vis1 |= static_cast<uint32_t>(ok1) << (2 * n + e);
           if (!ok0) s[n][e] = NEG;
@@ -516,31 +552,33 @@ flash_decode_kernel(const Args a, int n_chunks) {
   }
   __syncthreads();
 
-  // unnormalised P V of the chunk, and its (max, sum), per head
-  constexpr int NG = DC_THREADS / D;  // head groups over the threads
+  // unnormalised P V of the chunk, and its (max, sum), per head; above
+  // D = 128 a thread takes D / 128 dimensions
+  constexpr int NG = D < DC_THREADS ? DC_THREADS / D : 1;  // head groups
   constexpr int RB = 4;               // heads per thread and pass
-  const int d = tid % D;
   float* part = a.part + static_cast<size_t>(b) * a.live * n_chunks * (D + 2);
-  for (int i0 = tid / D; i0 < G; i0 += NG * RB) {
-    float acc[RB] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < CH; ++j) {
-      const float vv = sV[j * D + d];
+  for (int d = tid % D; d < D; d += DC_THREADS) {
+    for (int i0 = tid / D; i0 < G; i0 += NG * RB) {
+      float acc[RB] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = 0; j < CH; ++j) {
+        const float vv = sV[j * D + d];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const int i = i0 + r * NG;
+          if (i < G) acc[r] = fmaf(sP[i * (CH + 1) + j], vv, acc[r]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         const int i = i0 + r * NG;
-        if (i < G) acc[r] = fmaf(sP[i * (CH + 1) + j], vv, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int i = i0 + r * NG;
-      if (i < G) {
-        float* dst = part + (static_cast<size_t>(hk * G + i) * n_chunks +
-                             chunk) * (D + 2);
-        dst[d] = acc[r];
-        if (d == 0) {
-          dst[D] = sM[i];
-          dst[D + 1] = sL[i];
+        if (i < G) {
+          float* dst = part + (static_cast<size_t>(hk * G + i) * n_chunks +
+                               chunk) * (D + 2);
+          dst[d] = acc[r];
+          if (d == 0) {
+            dst[D] = sM[i];
+            dst[D + 1] = sL[i];
+          }
         }
       }
     }
@@ -572,8 +610,14 @@ __global__ void flash_decode_merge_kernel(const Args a, int n_chunks, int D) {
 }
 
 template <typename T, int D>
-int launch(const Args& a, cudaStream_t st) {
+int launch(Args a, cudaStream_t st) {
   if (a.S == 1) {
+    if (a.window > 0 && a.kv_len > a.window) {  // read the last window keys
+      const int lo = a.kv_len - a.window;
+      a.k = static_cast<const T*>(a.k) + lo * a.k_st;
+      a.v = static_cast<const T*>(a.v) + lo * a.v_st;
+      a.kv_len = a.window;
+    }
     // above 48 KB a block's shared memory must be asked for, once per kernel
     static const cudaError_t attr = cudaFuncSetAttribute(
         flash_decode_kernel<T, D>,
@@ -606,6 +650,7 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
     case 16: return launch<T, 16>(a, st);
     case 64: return launch<T, 64>(a, st);
     case 128: return launch<T, 128>(a, st);
+    case 256: return launch<T, 256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -615,22 +660,26 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
 // q (B, H, S, D), k/v (B, Hkv, >= kv_len, D), out (B, H, S, D), each by its
 // (b, h, row) strides in elements with unit stride along D, every row
 // 16-byte aligned; all float32 (bf16 = 0) or all bfloat16 (bf16 = 1);
-// D in {16, 64, 128}; Hkv divides live <= H, live / Hkv <= 64; kv_len >= S
-// when causal; `part` holds B * live * ceil(kv_len / 64) * (D + 2) floats
-// when S == 1 (unused otherwise).  Returns the cudaError_t of the launches
-// (0 on success).
+// D in {16, 64, 128, 256}; Hkv divides live <= H, live / Hkv <= 64;
+// kv_len >= S when causal; window > 0 (causal only) limits query s to the
+// last `window` keys up to its own position, 0 means none; `part` holds
+// B * live * ceil(min(kv_len, window) / 64) * (D + 2) floats when S == 1
+// (unused otherwise).  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, void* part, int B,
     int H, int Hkv, int S, int kv_len, int live, int D, int causal,
-    float scale, int bf16, long long q_sb, long long q_sh, long long q_ss,
+    int window, float scale, int bf16, long long q_sb, long long q_sh,
+    long long q_ss,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh,
     long long o_ss, void* stream) {
-  const Args a{q,    k,    v,    out,  static_cast<float*>(part),
-               B,    H,    Hkv,  S,    kv_len,
-               live, causal, scale, q_sb, q_sh,
-               q_ss, k_sb, k_sh, k_st, v_sb,
-               v_sh, v_st, o_sb, o_sh, o_ss};
+  const Args a{q,    k,      v,      out,    static_cast<float*>(part),
+               B,    H,      Hkv,    S,      kv_len,
+               live, causal, window, scale,  q_sb,
+               q_sh, q_ss,   k_sb,   k_sh,   k_st,
+               v_sb, v_sh,   v_st,   o_sb,   o_sh,
+               o_ss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_d<__nv_bfloat16>(a, D, st);
   return launch_d<float>(a, D, st);

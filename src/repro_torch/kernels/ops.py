@@ -355,14 +355,14 @@ def panel_update_empty(blocks: int, device) -> None:
             torch.cuda.current_stream(device).cuda_stream)
 
 
-FLASH_HEAD_DIMS = (16, 64, 128)   # K5's instantiations of D
+FLASH_HEAD_DIMS = (16, 64, 128, 256)   # K5's instantiations of D
 FLASH_MAX_GROUP = 64              # query heads per KV head on the card
 FLASH_DECODE_CHUNK = 64           # keys per block of K5's decode kernel
 
 
-def _attention_shapes(q, k, v, causal: bool, kv_len, live_heads):
-    """Checks K5's shapes; returns (kv_len, live_heads) with their
-    defaults (T, H) filled in."""
+def _attention_shapes(q, k, v, causal: bool, kv_len, live_heads, window):
+    """Checks K5's shapes; returns (kv_len, live_heads, window) with their
+    defaults (T, H, 0: none) filled in."""
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"attention takes q (B, H, S, D) and k, v "
                          f"(B, Hkv, T, D), got q {tuple(q.shape)}, k "
@@ -384,7 +384,11 @@ def _attention_shapes(q, k, v, causal: bool, kv_len, live_heads):
         raise ValueError(f"causal attention needs T >= S (the queries are "
                          f"the last S of kv_len positions), got S={s}, "
                          f"kv_len={kv_len}")
-    return kv_len, live
+    window = 0 if window is None else int(window)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window} must be >= 1 and causal (the "
+                         f"reference's sliding window), or None")
+    return kv_len, live, window
 
 
 def _rows_16b(t: torch.Tensor) -> bool:
@@ -397,7 +401,8 @@ def _rows_16b(t: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     kv_len: int | None = None,
-                    live_heads: int | None = None) -> torch.Tensor:
+                    live_heads: int | None = None,
+                    window: int | None = None) -> torch.Tensor:
     """K5: (B, H, S, D) online-softmax attention of q over the first
     ``kv_len`` (default T) rows of k, v (B, Hkv, T, D), float32 or
     bfloat16, accumulated in float32, returned in q's dtype.
@@ -406,17 +411,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (live_heads // Hkv)`` (``jnp.repeat`` order); heads
     ``>= live_heads`` come out exactly zero (the reference's zero-padded
     heads).  Causal queries are the last S of kv_len positions: query s
-    sees keys ``<= s + (kv_len - S)``.  ``scale`` defaults to
+    sees keys ``<= s + (kv_len - S)``, and with a ``window`` (causal only)
+    just the last ``window`` of them: keys ``> s + (kv_len - S) - window``
+    (the reference's sliding-window mask).  ``scale`` defaults to
     ``D ** -0.5``.  On the card q, k and v are read in place through their
     strides (unit stride along D, 16-byte aligned rows; anything else is
     copied first), D is one of ``FLASH_HEAD_DIMS`` and a KV head serves at
     most ``FLASH_MAX_GROUP`` query heads; the result is a (B, H, S, D) view
     of a (B, S, H, D) tensor, so merging the heads is free."""
-    kv_len, live = _attention_shapes(q, k, v, causal, kv_len, live_heads)
+    kv_len, live, window = _attention_shapes(q, k, v, causal, kv_len,
+                                             live_heads, window)
     if _on_cpu(q, k, v):
         return plain.flash_attention_plain(q, k, v, causal=causal,
                                            scale=scale, kv_len=kv_len,
-                                           live_heads=live)
+                                           live_heads=live,
+                                           window=window or None)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -441,12 +450,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     part = None
     if s == 1:       # the decode kernel's per-chunk partial results
-        chunks = -(-kv_len // FLASH_DECODE_CHUNK)
+        read = min(kv_len, window) if window else kv_len
+        chunks = -(-read // FLASH_DECODE_CHUNK)
         part = torch.empty((b, live, chunks, d + 2), dtype=torch.float32,
                            device=q.device)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), 0 if part is None else part.data_ptr(), b, h,
-            hkv, s, kv_len, live, d, int(causal),
+            hkv, s, kv_len, live, d, int(causal), window,
             d ** -0.5 if scale is None else float(scale),
             int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], _stream(q))

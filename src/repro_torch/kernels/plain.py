@@ -131,15 +131,18 @@ def panel_update_mapped_plain(flat: torch.Tensor, u: torch.Tensor,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, scale: float | None = None,
                           kv_len: int | None = None,
-                          live_heads: int | None = None) -> torch.Tensor:
+                          live_heads: int | None = None,
+                          window: int | None = None) -> torch.Tensor:
     """Softmax attention of q (B, H, S, D) over the first ``kv_len``
     (default T) rows of k, v (B, Hkv, T, D), in float32, returned in q's
     dtype.  The KV heads are repeated ``live_heads // Hkv`` times
     (``jnp.repeat`` order) for the first ``live_heads`` (default H) query
     heads; the heads after them are zero.  Query s sees keys
     ``<= s + (kv_len - S)`` when ``causal`` (the queries are the last S
-    positions), else all kv_len.  ``scale`` defaults to ``D ** -0.5``.
-    The (S, kv_len) scores are formed in full."""
+    positions), else all kv_len; with a ``window`` (causal only) just the
+    keys ``> s + (kv_len - S) - window``, the band ``tril(t - s) &
+    ~tril(t - s - window)``.  ``scale`` defaults to ``D ** -0.5``.  The
+    (S, kv_len) scores are formed in full."""
     h, s = q.shape[1], q.shape[-2]
     live = h if live_heads is None else live_heads
     t = k.shape[-2] if kv_len is None else kv_len
@@ -150,8 +153,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with fp32_highest():
         logits = q[:, :live].float() @ k.float().transpose(-1, -2) * scale
         if causal:
-            visible = torch.ones((s, t), dtype=torch.bool,
-                                 device=q.device).tril(t - s)
+            ones = torch.ones((s, t), dtype=torch.bool, device=q.device)
+            visible = ones.tril(t - s)
+            if window:
+                visible &= ~ones.tril(t - s - window)
             logits = logits.masked_fill(~visible, float("-inf"))
         probs = torch.softmax(logits, dim=-1)
         out = (probs @ v.float()).to(q.dtype)

@@ -1,5 +1,6 @@
-"""GQA attention with a KV cache for decode, through the flash-attention
-kernel K5 (``kernels/ops.py::flash_attention``).
+"""GQA attention, global or sliding-window (local), with a KV cache for
+decode, through the flash-attention kernel K5
+(``kernels/ops.py::flash_attention``).
 
 The port of the GQA half of the JAX package's ``models/attention.py``.
 Weights and layouts are the reference's, 1:1: q heads are zero-padded from
@@ -10,27 +11,35 @@ itself: it takes the (B, n_kv_heads, ., hd) K/V as they are, maps query
 head h to KV head ``h // (n_heads // n_kv_heads)`` and returns exact zeros
 for the padded heads (``live_heads=n_heads``), so no repeated or padded
 copy of K/V is ever made.  Prefill attends causally over its own S
-positions (K/V read in place through their strides), decode with S = 1
-over the cache's valid prefix ``[0, idx]`` (the reference's ``_sdpa``
-under the mask ``pos <= idx``), passing the cache tensors themselves with
-``kv_len = idx + 1``.
+positions (K/V read in place through their strides), a local layer only
+over the last ``window`` of them (K5's ``window``: the reference's
+``_causal_mask(s, t, window)``).  Decode attends with S = 1 over the
+cache's valid slots (the reference's ``_sdpa`` under the mask ``pos <=
+idx``, and ``pos > idx - window`` on a local layer), passing the cache
+tensors themselves with ``kv_len`` the number of valid slots.
 
-Cache contract: ``{"k", "v"}`` of shape (B, n_kv_heads, max_len, hd) and
+Cache contract: ``{"k", "v"}`` of shape (B, n_kv_heads, t, hd) and
 ``idx``, the number of positions written, one host int for the whole
-batch.  Decode writes the new token's K/V into the cache tensors IN PLACE
-(the reference returns new arrays) and returns the same tensors with
-``idx + 1``: a serving loop holds one cache, and a copy per token would
-move the whole cache.  Slots ``>= idx + 1`` are never read.  Without
-sliding windows the valid slots are exactly ``[0, idx]``, so the port keeps
-no per-slot position array.
+batch; ``t = max_len`` for a global layer and ``min(max_len, window)``
+for a local one, whose cache is a ring (position p in slot ``p % t``, as
+the reference's).  Decode writes the new token's K/V into the cache
+tensors IN PLACE (the reference returns new arrays) and returns the same
+tensors with ``idx + 1``: a serving loop holds one cache, and a copy per
+token would move the whole cache.  The valid slots are ``[0, min(idx,
+t - 1)]``: a global cache fills in order, and a ring holds exactly the
+positions ``(idx - t, idx]`` once it has wrapped, all inside the window
+since ``t <= window``.  So the port keeps no per-slot position array (the
+reference's ``pos``).  A ring's slots are not in position order, so decode
+passes no window to K5: every valid slot is visible, and the softmax, a
+sum over slots, does not depend on their order beyond the last bits.
 
-Not ported yet: sliding-window (local) layers and their ring caches,
-cross-attention and MLA (``models/transformer.py::check_supported`` raises
-for them, naming their ROADMAP item).
+Not ported yet: cross-attention and MLA
+(``models/transformer.py::check_supported`` raises for them, naming their
+ROADMAP item).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -87,9 +96,10 @@ def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                return_kv: bool = False):
+                window: Optional[int] = None, return_kv: bool = False):
     """Full-sequence (prefill) causal GQA over x (B, S, d) at positions
-    ``[0, S)``.
+    ``[0, S)``; with a ``window`` each position sees the last ``window``
+    positions up to itself (a local layer).
 
     ``return_kv`` additionally returns the rotated (B, n_kv_heads, S, hd)
     K and V for the prefill cache.
@@ -98,7 +108,7 @@ def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
     out = kops.flash_attention(q, k, v, causal=True, scale=cfg.hd ** -0.5,
-                               live_heads=cfg.n_heads)
+                               live_heads=cfg.n_heads, window=window)
     y = _merge_heads(out) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -106,40 +116,57 @@ def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                   dtype=torch.float32, device=None) -> Dict:
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+                   window: Optional[int] = None, dtype=torch.float32,
+                   device=None) -> Dict:
+    """A zeroed cache of ``max_len`` slots, or of ``min(max_len, window)``
+    ring slots for a local layer."""
+    t = min(max_len, window) if window else max_len
+    shape = (batch, cfg.n_kv_heads, t, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "idx": 0}
 
 
-def fill_gqa_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
+def fill_gqa_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int] = None) -> Dict:
     """Write a prefill segment (rotated K/V, (B, n_kv_heads, S, hd)) into
-    slots ``[0, S)`` of a fresh cache, in place."""
+    a fresh cache, in place: slots ``[0, S)``, or for a ring (``window``)
+    the last ``t`` positions, position p in slot ``p % t``."""
     s = k.shape[2]
     t = cache["k"].shape[2]
-    if s > t:
+    if s > t and not window:
         raise ValueError(f"a {s}-token prefill does not fit a {t}-slot cache")
-    cache["k"][:, :, :s] = k
-    cache["v"][:, :, :s] = v
+    for buf, x in ((cache["k"], k), (cache["v"], v)):
+        if s > t:
+            # positions [s - t, s) in slots (s - t + j) % t: a rotation by
+            # s % t, written as two slices
+            r = s % t
+            buf[:, :, r:] = x[:, :, s - t:s - r]
+            buf[:, :, :r] = x[:, :, s - r:]
+        else:
+            buf[:, :, :s] = x
     return {"k": cache["k"], "v": cache["v"], "idx": s}
 
 
 def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+               cfg: ModelConfig, *, window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, d); the token sits at position
-    ``cache["idx"]`` and attends over slots ``[0, idx]``."""
+    ``cache["idx"]``, is written to slot ``idx`` (``idx % t`` on a ring,
+    ``window`` set) and attends over the valid slots ``[0, min(idx,
+    t - 1)]``."""
     b = x.shape[0]
     idx = cache["idx"]
     t = cache["k"].shape[2]
-    if idx >= t:
+    if not window and idx >= t:
         raise ValueError(f"the {t}-slot KV cache is full")
+    slot = idx % t
     pos = torch.full((b, 1), idx, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, pos)
-    cache["k"][:, :, idx] = k[:, :, 0]
-    cache["v"][:, :, idx] = v[:, :, 0]
+    cache["k"][:, :, slot] = k[:, :, 0]
+    cache["v"][:, :, slot] = v[:, :, 0]
     out = kops.flash_attention(q, cache["k"], cache["v"], causal=True,
-                               scale=cfg.hd ** -0.5, kv_len=idx + 1,
+                               scale=cfg.hd ** -0.5, kv_len=min(idx + 1, t),
                                live_heads=cfg.n_heads)
     new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     return _merge_heads(out) @ params["wo"], new_cache

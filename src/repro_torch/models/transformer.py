@@ -2,8 +2,9 @@
 final norm, in prefill and decode.
 
 The port of the JAX package's ``models/transformer.py`` for patterns made
-of ``("attn", "mlp")``, ``("rwkv6", "mlp")`` and ``("mamba", "mlp")``
-layers: the dense GQA family (smollm, qwen3), rwkv6-7b, and jamba's period
+of ``("attn", "mlp")``, ``("local", "mlp")``, ``("rwkv6", "mlp")`` and
+``("mamba", "mlp")`` layers: the dense GQA family (smollm, qwen3), gemma3's
+sliding-window (local) and global layers, rwkv6-7b, and jamba's period
 with dense FFNs.  A model is a sequence of layer groups, each one copy of
 ``cfg.pattern``; ``params["groups"]`` is a LIST of per-group dicts (the reference stacks
 them along a leading ``n_groups`` axis for ``lax.scan``; a Python loop over
@@ -16,7 +17,8 @@ sharding constraints ``constrain`` / ``step_context`` (one device holds
 every tensor).
 
 Modes: ``prefill`` (full sequence, returns the caches: KV caches for
-attention layers, recurrent states for rwkv6 and mamba layers) and
+attention layers, ring caches of ``min(cache_len, sliding_window)`` slots
+for local ones, recurrent states for rwkv6 and mamba layers) and
 ``decode`` (one token against them).  ``train``, and the layer kinds and
 model parts not ported yet, raise ``NotImplementedError`` naming their
 ROADMAP item.
@@ -34,10 +36,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-LAYER_KINDS = (("attn", "mlp"), ("rwkv6", "mlp"), ("mamba", "mlp"))
+LAYER_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rwkv6", "mlp"),
+               ("mamba", "mlp"))
+ATTN_KINDS = ("attn", "local")
 _TODO = {  # what is not ported yet -> its ROADMAP Queue A item
-    "local": "sliding-window (local) attention is not ported yet (ROADMAP "
-             "Queue A item 12.4)",
     "mla": "MLA attention is not ported yet (ROADMAP Queue A item 12.5)",
     "moe": "MoE layers are not ported yet (ROADMAP Queue A item 12.6)",
     "encdec": "encoder-decoder models and cross-attention are not ported "
@@ -69,7 +71,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
                dtype) -> Dict:
-    init_mixer = {"attn": attn.init_gqa, "rwkv6": rwkv_mod.init_rwkv6,
+    init_mixer = {"attn": attn.init_gqa, "local": attn.init_gqa,
+                  "rwkv6": rwkv_mod.init_rwkv6,
                   "mamba": mamba_mod.init_mamba}[mixer]
     return {
         "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
@@ -81,27 +84,24 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
                 device=None) -> Dict:
-    """Random parameters at the reference's scales, drawn on the CPU from
-    a ``torch.Generator`` seeded with ``seed`` (so every device gets the
-    same numbers).  Each layer, the embedding and the head move to
-    ``device`` (``None``: the card) as soon as they are drawn, so the host
-    holds one of them at a time, not the model."""
+    """Random parameters at the reference's scales, drawn on ``device``
+    (``None``: the card) from a ``torch.Generator`` there seeded with
+    ``seed``.  The card's generator gives other numbers than the CPU's:
+    to run the same parameters on both, draw once and copy with
+    ``to_device``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict = {
-        "embed": to_device(
-            L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype), dev),
+        "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
-        "groups": [{f"l{i}": to_device(init_layer(gen, cfg, mixer, dtype),
-                                       dev)
+        "groups": [{f"l{i}": init_layer(gen, cfg, mixer, dtype)
                     for i, (mixer, _) in enumerate(cfg.pattern)}
                    for _ in range(cfg.n_groups)],
     }
     if not cfg.tie_embeddings:
-        params["head"] = to_device(
-            {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
-                                cfg.d_model ** -0.5, dtype)}, dev)
+        params["head"] = {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
+                                             cfg.d_model ** -0.5, dtype)}
     return params
 
 
@@ -135,10 +135,16 @@ def n_params(params) -> int:
 # caches
 # ---------------------------------------------------------------------------
 
+def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
+    """The sliding window of a local layer, None for a global one."""
+    return cfg.sliding_window if mixer == "local" else None
+
+
 def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
                  dtype, device) -> Dict:
-    if mixer == "attn":
+    if mixer in ATTN_KINDS:
         return {"self": attn.init_gqa_cache(cfg, batch, cache_len,
+                                            window=_window(cfg, mixer),
                                             dtype=dtype, device=device)}
     init_state = {"rwkv6": rwkv_mod.init_rwkv6_state,
                   "mamba": mamba_mod.init_mamba_state}[mixer]
@@ -148,7 +154,8 @@ def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.float32, device=None) -> List[Dict]:
     """Per-group list of per-layer caches, zeroed, on ``device``: a KV
-    cache of ``cache_len`` slots for an attention layer, the recurrent
+    cache of ``cache_len`` slots for a global attention layer, a ring of
+    ``min(cache_len, sliding_window)`` slots for a local one, the recurrent
     state for an rwkv6 or mamba layer."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -168,17 +175,21 @@ _SSM_FORWARD = {"rwkv6": rwkv_mod.rwkv6_forward,
 def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
            mixer: str, *, mode: str) -> Tuple[torch.Tensor, Dict]:
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if mixer != "attn":
+    window = _window(cfg, mixer)
+    if mixer not in ATTN_KINDS:
         # prefill runs from the fresh cache's zero state, decode from the
         # state the previous step returned
         o, state = _SSM_FORWARD[mixer](lp["mixer"], h, cfg, ce["state"])
         new_cache = {"state": state}
     elif mode == "decode":
-        o, self_cache = attn.gqa_decode(lp["mixer"], h, ce["self"], cfg)
+        o, self_cache = attn.gqa_decode(lp["mixer"], h, ce["self"], cfg,
+                                        window=window)
         new_cache = {"self": self_cache}
     else:
-        o, (k, v) = attn.gqa_forward(lp["mixer"], h, cfg, return_kv=True)
-        new_cache = {"self": attn.fill_gqa_cache(ce["self"], k, v)}
+        o, (k, v) = attn.gqa_forward(lp["mixer"], h, cfg, window=window,
+                                     return_kv=True)
+        new_cache = {"self": attn.fill_gqa_cache(ce["self"], k, v,
+                                                 window=window)}
     x = x + o
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
     return x + L.mlp(lp["ffn"], h2), new_cache

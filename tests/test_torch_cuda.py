@@ -391,6 +391,118 @@ def test_flash_attention_kernel_grouped_cache(cuda, dtype, d, b, h, live,
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+def _k5_excess(got, q, k, v, kw):
+    """max |K5 - plain| beyond the output's rounding: the plain version in
+    float32 on the same inputs, less one bfloat16 rounding (2^-8 of the
+    value) for a bfloat16 output."""
+    want = plain.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    step = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    return float(((got.float() - want).abs() - step * want.abs()).max())
+
+
+# gemma3-4b's head size, D = 256: 8 live query heads of 16 on 4 KV heads;
+# a prefill, a decode over a cache whose unused slots hold NaN, a decode
+# over a full ring, windowed prefills and a windowed decode
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t_alloc,kv_len,window", [
+    (200, 200, 200, None), (1, 300, 257, None), (1, 128, 128, None),
+    (200, 200, 200, 64), (70, 300, 257, 100), (1, 300, 257, 100)])
+def test_flash_attention_kernel_d256(cuda, dtype, s, t_alloc, kv_len,
+                                     window):
+    q, k, v = _gqa_cache_inputs(2, 16, 4, s, t_alloc, kv_len, 256,
+                                seed=s + kv_len, device=cuda, dtype=dtype)
+    kw = {"causal": True, "kv_len": kv_len, "live_heads": 8,
+          "window": window}
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert not bool(got[:, 8:].any())
+    # float32 sums in another order than cuBLAS's, then (bfloat16) the
+    # output's one rounding
+    assert _k5_excess(got, q, k, v, kw) <= 2e-5
+
+
+# the windowed prefill at the window / tile alignments chip_smoke.py
+# checks at gemma3's shapes (tiles of 64 query rows and 32 keys): a
+# multiple of the key tile, not a multiple, below the query tile, one
+# key, queries the last 70 of 300 keys; and a window >= kv_len (= S), which
+# is the unwindowed call bitwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 256])
+@pytest.mark.parametrize("s,kv_len,window", [
+    (300, 300, 128), (300, 300, 100), (300, 300, 40), (300, 300, 1),
+    (70, 300, 100), (300, 300, 512)])
+def test_flash_attention_kernel_window(cuda, d, s, kv_len, window):
+    q, k, v = _gqa_cache_inputs(1, 16, 4, s, kv_len + 20, kv_len, d,
+                                seed=s + window + d, device=cuda)
+    kw = {"causal": True, "kv_len": kv_len, "live_heads": 8}
+    got = ops.flash_attention(q, k, v, window=window, **kw)
+    assert _k5_excess(got, q, k, v, {**kw, "window": window}) <= 2e-5
+    if window >= kv_len:
+        assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_gemma3_serving_on_card_matches_cpu(cuda):
+    """gemma3-4b reduced to one 17-layer period (window 8): a 12-token
+    prompt (past the window) and 8 teacher-forced decode steps, the rings
+    wrapping, on the card (K5 in every layer) against the same parameters
+    on the CPU: hidden states within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config("gemma3-4b").reduced(), n_layers=17)
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)))
+    out = {}
+    ops.reset_launches()
+    for dev, params in (("cuda", card), ("cpu", host)):
+        with torch.inference_mode(), fp32_highest():
+            h, caches = tf.forward(params, cfg, toks[:, :12].to(dev),
+                                   mode="prefill", cache_len=20)
+            hs = [h[:, -1]]
+            for t in range(12, 20):
+                h, caches = tf.forward(params, cfg, toks[:, t:t + 1].to(dev),
+                                       mode="decode", caches=caches)
+                hs.append(h[:, 0])
+        out[dev] = torch.stack(hs).cpu()
+        if dev == "cuda":
+            counts = ops.launch_counts()
+    assert caches[0]["l0"]["self"]["k"].shape[2] == cfg.sliding_window
+    assert counts["flash_attention"] == 9 * cfg.n_layers
+    assert sum(counts.values()) == counts["flash_attention"]
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_init_params_draws_on_card(cuda):
+    """``init_params`` draws on the card from the card's generator: every
+    leaf on the card, the same numbers for the same seed, other numbers
+    for another, each weight at the scale of the CPU draw's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("gemma3-4b").reduced()
+    a, b = (tf.init_params(cfg, seed=0, device=cuda) for _ in range(2))
+    c = tf.init_params(cfg, seed=1, device=cuda)
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    for x, y, z, h in zip(*(tf._leaves(p) for p in (a, b, c, host))):
+        assert x.device.type == "cuda" and x.shape == h.shape
+        assert torch.equal(x, y)
+        if h.numel() >= 256 and float(h.std()) > 0:
+            assert not torch.equal(x, z)
+            ratio = float(x.std()) / float(h.std())
+            assert 0.8 <= ratio <= 1.25, (x.shape, ratio)
+
+
 @pytest.mark.cuda
 def test_smollm_prefill_on_card_matches_cpu(cuda):
     """Full-width smollm-135m prefill through K5 on the card against the
