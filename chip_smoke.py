@@ -144,6 +144,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   local, 1 global) with a 1016-token prompt and 16
                   teacher-forced steps, the rings wrapping at the 9th.
 14. ``breakdown_serve_gemma3`` — phase 8 for gemma3-4b.
+15. ``serve_deepseek`` — the serve run for deepseek-v3-671b at full width
+                  cut to one of its 61 (MLA, MoE) layers (13.36 G
+                  parameters, 53.4 GB, drawn after gemma3's are freed): 8
+                  requests of 512 + 32 tokens, no kernel of the port
+                  launched (the reference computes MLA and MoE outside any
+                  Pallas kernel), the MoE drop fractions of the prefill and
+                  of decode (0: a decode row never overflows its 8 slots);
+                  then the card-vs-CPU check by parts, the layer not being
+                  copied to the host: (a) the MLA mixer over a 128-token
+                  prompt and 8 teacher-forced steps, (b) the MoE FFN on
+                  the serve prefill's inputs (router logits, routing equal
+                  or differing only at near-ties, every 16th expert's
+                  SwiGLU over the card's dispatch rows and the combine
+                  recomputed on the CPU), each within 1e-4, and (c) the
+                  whole layer's greedy tokens on the card.
+16. ``breakdown_serve_deepseek`` — phase 8 for the deepseek layer.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
@@ -158,8 +174,8 @@ calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
-The launch counters are reset just before each of phases 3, 4, 7, 9, 11
-and 13, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+The launch counters are reset just before each of phases 3, 4, 7, 9, 11,
+13 and 15, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
@@ -171,9 +187,9 @@ mapped K3/K4 over 4 systems; ``robust``: K2 and the float64 mapped K3/K4;
 each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
 K1 on the kernel options) on each rank and each dynamic run, the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
-phase 11: K6 and K5; phase 13: K5; the dense K3/K4 entry points are off
-the paths since
-the sweep runs the mapped form), split by stage in ``launches_by_stage``
+phase 11: K6 and K5; phase 13: K5; phase 15: none; the dense K3/K4
+entry points are off the paths since the sweep runs the mapped form),
+split by stage in ``launches_by_stage``
 for the LU paths; the ``kernels`` line takes each row's launches from the
 path that runs it, K1's, K2's and the mapped K3/K4's rows add
 ``launches_on_new_paths``, and two rows time the mapped K3/K4 at the
@@ -250,6 +266,15 @@ CHECK_PROMPT, CHECK_STEPS, CHECK_TOL = 128, 8, 1e-4
 # 16 teacher-forced steps, so the rings wrap at the 9th step
 GEMMA3_PROMPT = 1536
 GEMMA3_CHECK_LAYERS, GEMMA3_CHECK_PROMPT, GEMMA3_CHECK_STEPS = 6, 1016, 16
+# deepseek-v3-671b's serve run: the model at full width cut in depth to one
+# layer (13.36 G parameters, 53.4 GB in float32 with its 45 GB of experts:
+# two layers would need ~98 GB); its card-vs-CPU check by parts samples
+# every 16th expert, and a routing pick that differs between the card and
+# the CPU passes only where two of the token's k + 1 largest logits lie
+# within 1e-5 of the largest logit (float32 sums in another order move a
+# logit by ~1e-6)
+DEEPSEEK_CUT = "1 of 61 layers; float32 experts ~45 GB a layer"
+DEEPSEEK_EXPERT_STRIDE, DEEPSEEK_GAP_TOL = 16, 1e-5
 SOURCES = {
     "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
                      "src/repro/kernels/gsofa_relax.py:60"),
@@ -1133,7 +1158,6 @@ def profiled(torch, fn, *, cross_check=False):
     last the seconds the profiler's stop and summary took on the host.
     ``cross_check`` also holds the summary's per-name calls and device
     time against ``key_averages()`` (slow on large profiles)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1146,21 +1170,36 @@ def profiled(torch, fn, *, cross_check=False):
     summary = device_summary(prof, wall)
     summary["profiler_host_s"] = time.perf_counter() - t1
     if cross_check:
-        calls, us = Counter(), Counter()
-        for name, dur in device_events(prof):
-            calls[name] += 1
-            us[name] += dur
-        avg = {ev.key: ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False)}
-        # key_averages() keeps whole microseconds: < 1 us an event apart
-        check(calls and set(avg) == set(calls) and all(
-            avg[k].count == calls[k]
-            and abs(avg[k].device_time_total - us[k]) <= calls[k] + 1e-6
-            * us[k] for k in calls),
-            "the raw device events disagree with key_averages()")
+        diff = key_averages_diff(prof)
+        check(not diff, "the raw device events disagree with "
+              f"key_averages(): {diff[:8]}")
         summary["device_events_match_key_averages"] = True
     return result, summary
+
+
+def key_averages_diff(prof) -> list:
+    """Where a finished profile's raw device events (``device_events``)
+    and ``key_averages()`` disagree, per name: [name, raw calls, calls,
+    raw us, us]; an empty list when they agree.  ``key_averages()`` keeps
+    whole microseconds: < 1 us an event apart."""
+    from torch.autograd import DeviceType
+
+    calls, us = Counter(), Counter()
+    for name, dur in device_events(prof):
+        calls[name] += 1
+        us[name] += dur
+    if not calls:
+        return [["no device events", 0, 0, 0.0, 0.0]]
+    avg = {ev.key: ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)}
+    diff = []
+    for k in sorted(set(avg) | set(calls)):
+        n, t = (avg[k].count, avg[k].device_time_total) if k in avg else (
+            0, 0.0)
+        if n != calls[k] or abs(t - us[k]) > calls[k] + 1e-6 * us[k]:
+            diff.append([k[:120], calls[k], n, us[k], t])
+    return diff
 
 
 def robust_phase(torch, repro_torch, ops, matrices, generic_values_csr):
@@ -1754,12 +1793,15 @@ def device_events(prof):
     """A finished profile's device-side events (kernels, copies, fills) as
     (name, microseconds), read from the profiler's raw results: building
     its Python event tree for ``key_averages()`` costs the host some 0.1
-    ms an event, and one sweep of bbd-20k makes some 10^5 of them."""
+    ms an event, and one sweep of bbd-20k makes some 10^5 of them.  The
+    events ``key_averages()`` leaves out (hidden ones) are left out here
+    too."""
     from torch.autograd import DeviceType
 
     for ev in prof.profiler.kineto_results.events():
         if (ev.device_type() == DeviceType.CUDA
-                and not ev.is_user_annotation()):
+                and not ev.is_user_annotation()
+                and not getattr(ev, "is_hidden_event", lambda: False)()):
             yield ev.name(), ev.duration_ns() / 1e3
 
 
@@ -1827,13 +1869,13 @@ def greedy(torch, tf, fp32_highest, cfg, params, prompt, gen_len):
     parameters' device; returns (tokens (B, gen_len), the last step's
     float32 logits), both on the host."""
     with torch.inference_mode(), fp32_highest():
-        h, caches = tf.forward(params, cfg, prompt, mode="prefill",
-                               cache_len=prompt.shape[1] + gen_len)
+        h, caches, _ = tf.forward(params, cfg, prompt, mode="prefill",
+                                  cache_len=prompt.shape[1] + gen_len)
         logits = tf.logits_last(params, cfg, h)
         toks = [logits.argmax(-1)]
         for _ in range(gen_len - 1):
-            h, caches = tf.forward(params, cfg, toks[-1][:, None],
-                                   mode="decode", caches=caches)
+            h, caches, _ = tf.forward(params, cfg, toks[-1][:, None],
+                                      mode="decode", caches=caches)
             logits = tf.logits_last(params, cfg, h)
             toks.append(logits.argmax(-1))
     return torch.stack(toks, dim=1).cpu(), logits.cpu()
@@ -1864,6 +1906,9 @@ def serve_run(torch, ops, cfg, *, prompt_len=SERVE_PROMPT):
     check(toks.shape == (SERVE_REQUESTS, SERVE_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab, f"serve tokens {toks.shape}")
     b, p, g = SERVE_REQUESTS, prompt_len, SERVE_GEN
+    moe_keys = ({k: res[k] for k in ("moe_drop_frac_prefill",
+                                     "moe_drop_frac_decode")}
+                if cfg.moe else {})
     return params, {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.hp, cfg.n_kv_heads], "hd": cfg.hd,
@@ -1880,7 +1925,7 @@ def serve_run(torch, ops, cfg, *, prompt_len=SERVE_PROMPT):
         "max_memory_allocated": peak,
         # the serve run's own peak: parameters, caches and activations
         "serve_peak_bytes": peak - held, "launches": launches,
-        "sample_tokens": toks[0].tolist()}
+        **moe_keys, "sample_tokens": toks[0].tolist()}
 
 
 def serve_phase(torch, ops):
@@ -1925,12 +1970,12 @@ def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced):
     {(group, layer, leaf): tensor}, all on the host."""
     dev = params["embed"]["table"].device
     with torch.inference_mode(), fp32_highest():
-        h, caches = tf.forward(params, cfg, prompt.to(dev), mode="prefill",
-                               cache_len=prompt.shape[1] + forced.shape[1])
+        h, caches, _ = tf.forward(params, cfg, prompt.to(dev), mode="prefill",
+                                  cache_len=prompt.shape[1] + forced.shape[1])
         logits = [tf.logits_last(params, cfg, h)]
         for t in range(forced.shape[1]):
-            h, caches = tf.forward(params, cfg, forced[:, t:t + 1].to(dev),
-                                   mode="decode", caches=caches)
+            h, caches, _ = tf.forward(params, cfg, forced[:, t:t + 1].to(dev),
+                                      mode="decode", caches=caches)
             logits.append(tf.logits_last(params, cfg, h))
     states = {(g, name, key): leaf.cpu()
               for g, cg in enumerate(caches) for name, ce in cg.items()
@@ -1939,9 +1984,21 @@ def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced):
     return torch.cat(logits).cpu(), states
 
 
-# the kernel each mixer launches once a prefill and once a decode step
+# the kernel each mixer launches once a prefill and once a decode step;
+# MLA none: the reference computes it with plain einsums outside any
+# Pallas kernel, and so does the port
 MIXER_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
-                "rwkv6": "rwkv6_scan", "mamba": "mamba_scan"}
+                "rwkv6": "rwkv6_scan", "mamba": "mamba_scan", "mla": None}
+
+
+def expected_launches(cfg, launches):
+    """The serve run's launches: each mixer's kernel once per layer in the
+    prefill and in every decode step, no other kernel."""
+    want = {name: 0 for name in launches}
+    for mixer, _ in cfg.pattern:           # prefill + (gen - 1) decode steps
+        if MIXER_KERNEL[mixer] is not None:
+            want[MIXER_KERNEL[mixer]] += cfg.n_groups * SERVE_GEN
+    return want
 
 
 def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
@@ -1960,9 +2017,7 @@ def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
 
     params, line = serve_run(torch, ops, cfg, prompt_len=prompt_len)
     launches = line["launches"]
-    want = {name: 0 for name in launches}
-    for mixer, _ in cfg.pattern:           # prefill + (gen - 1) decode steps
-        want[MIXER_KERNEL[mixer]] += cfg.n_groups * SERVE_GEN
+    want = expected_launches(cfg, launches)
     check(launches == want, f"{cfg.name}: launches {launches}, not {want}")
 
     # the first layers on the card and, copied, on the CPU
@@ -2014,6 +2069,184 @@ def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
         "check_cpu_s": t_host}
 
 
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want|, on the host."""
+    got, want = got.cpu().float(), want.cpu().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def mla_check(torch, cfg, params, tf, attention, layers, fp32_highest):
+    """(a) of the deepseek phase: the MLA mixer of the layer on the card
+    and, copied, on the CPU: a CHECK_PROMPT-token prefill of the layer's
+    own mixer inputs (the normed embeddings of random tokens, made on the
+    card) into a latent cache, then CHECK_STEPS teacher-forced decode
+    steps.  Returns each output's max |card - CPU| / max |CPU|, the
+    prefill's first."""
+    import numpy as np
+
+    lp = params["groups"][0]["l0"]
+    n = CHECK_PROMPT + CHECK_STEPS
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, n)), device="cuda")
+    with torch.inference_mode():
+        x_card = layers.rmsnorm(lp["norm1"], layers.embed(
+            params["embed"], toks), cfg.norm_eps)
+    outs = {}
+    for dev, mixer, x in (("cuda", lp["mixer"], x_card),
+                          ("cpu", tf.to_device(lp["mixer"], "cpu"),
+                           x_card.cpu())):
+        with torch.inference_mode(), fp32_highest():
+            y, (ckv, krope) = attention.mla_forward(
+                mixer, x[:, :CHECK_PROMPT], cfg, return_latent=True)
+            cache = attention.fill_mla_cache(attention.init_mla_cache(
+                cfg, 1, n, device=dev), ckv, krope)
+            ys = [y]
+            for t in range(CHECK_PROMPT, n):
+                y, cache = attention.mla_decode(mixer, x[:, t:t + 1], cache,
+                                                cfg)
+                ys.append(y)
+        outs[dev] = [y.cpu() for y in ys]
+    return [rel_err(torch, c, h) for c, h in zip(outs["cuda"], outs["cpu"])]
+
+
+def moe_check(torch, cfg, params, tf, attention, layers, moe, fp32_highest):
+    """(b) of the deepseek phase: the MoE FFN of the layer on the serve
+    prefill's own inputs (SERVE_REQUESTS x SERVE_PROMPT tokens, the normed
+    residual after MLA, made on the card).  The router logits on the card
+    and on the CPU; the routing of both (expert ids, positions, keep mask)
+    equal, or else every differing token's smallest gap between adjacent
+    logits of its k + 1 largest (the k-th/(k+1)-th gap, or the gap of two
+    picks whose order swapped) below DEEPSEEK_GAP_TOL of the largest
+    logit; every DEEPSEEK_EXPERT_STRIDE-th expert's SwiGLU over the card's
+    dispatch rows recomputed on the CPU; and the combine of the card's expert outputs with the card's routing
+    plus the shared expert recomputed on the CPU against the card's
+    ``moe_forward``.  The 45 GB of experts stay on the card."""
+    import numpy as np
+
+    m = cfg.moe
+    lp = params["groups"][0]["l0"]
+    ffn = lp["ffn"]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)), device="cuda")
+    cap = moe._capacity(SERVE_PROMPT, cfg)
+    with torch.inference_mode(), fp32_highest():
+        x = layers.embed(params["embed"], toks)
+        o = attention.mla_forward(lp["mixer"], layers.rmsnorm(
+            lp["norm1"], x, cfg.norm_eps), cfg)
+        h2 = layers.rmsnorm(lp["norm2"], x + o, cfg.norm_eps)
+        # why a row's tokens route alike under random weights: the MLA
+        # output's share of the residual and its alignment within a row
+        skew = {"mla_rms_over_embedding_rms": float(
+                    o.pow(2).mean().sqrt() / x.pow(2).mean().sqrt()),
+                "cos_to_row_mean": float(torch.nn.functional
+                                         .cosine_similarity(
+                    h2, h2.mean(1, keepdim=True), dim=-1).mean())}
+        del x, o
+        y_card, metrics = moe.moe_forward(ffn, h2, cfg)
+        logits = h2.float() @ ffn["router"]
+        r_card = moe.route(logits, cap, m.top_k)
+        disp = moe.dispatch(h2, r_card, cap, m.n_experts)
+        h_out = moe.expert_swiglu(ffn, disp)
+        sample = torch.arange(0, m.n_experts, DEEPSEEK_EXPERT_STRIDE)
+        disp_sample = disp[sample.cuda()].cpu()
+        del disp
+        out = {"moe_check_inputs": list(h2.shape), "capacity": cap,
+               "moe_drop_frac": float(metrics["moe_drop_frac"]),
+               "moe_aux_loss": float(metrics["moe_aux_loss"]),
+               "routing_skew": skew}
+
+    host = {"router": ffn["router"].cpu(),
+            **{k: ffn[k][sample.cuda()].cpu()
+               for k in ("w_gate", "w_up", "w_down")}}
+    shared = tf.to_device(ffn["shared"], "cpu")
+    h2_host = h2.cpu()
+    with torch.inference_mode():
+        logits_host = h2_host.float() @ host["router"]
+        out["router_logits_rel"] = rel_err(torch, logits, logits_host)
+        r_host = moe.route(logits_host, cap, m.top_k)
+        card = [t.cpu() for t in r_card]
+        r_card_host = moe.Route(*card)
+        # a token routes alike when its expert ids agree; a pick that
+        # differs moves the positions of later pairs of those experts
+        differ = (card[0] != r_host.expert).any(-1)          # (B, S)
+        top = torch.topk(logits_host, m.top_k + 1, dim=-1).values
+        gap = ((top[..., :-1] - top[..., 1:]).amin(-1)
+               / logits_host.abs().max())
+        out["routing_equal"] = bool(
+            not differ.any() and torch.equal(card[2], r_host.pos)
+            and torch.equal(card[3], r_host.keep))
+        out["routing_tokens_differing"] = int(differ.sum())
+        out["routing_differing_topk_gaps"] = gap[differ].tolist()
+        out["routing_min_topk_gap"] = float(gap.min())
+        check(out["routing_equal"] or (
+            differ.any() and bool((gap[differ] < DEEPSEEK_GAP_TOL).all())),
+            f"deepseek: card vs CPU routing differs: {out}")
+        h_sample = moe.expert_swiglu(host, disp_sample)[:-1]
+        out["experts_checked"] = sample.tolist()
+        out["experts_rel"] = rel_err(torch, h_out[sample.cuda()], h_sample)
+        y_host = moe.combine(h_out.cpu(), r_card_host, cap) + layers.mlp(
+            shared, h2_host.view(-1, cfg.d_model)).view(h2_host.shape)
+        out["combine_rel"] = rel_err(torch, y_card, y_host)
+    check(out["router_logits_rel"] <= CHECK_TOL
+          and out["experts_rel"] <= CHECK_TOL
+          and out["combine_rel"] <= CHECK_TOL,
+          f"deepseek: card vs CPU MoE beyond {CHECK_TOL}: {out}")
+    return out
+
+
+def deepseek_phase(torch, ops, cfg):
+    """Phase 15: deepseek-v3-671b at full width cut to one (MLA, MoE)
+    layer: the serve run (no kernel of the port launched: the reference
+    computes MLA and MoE outside any Pallas kernel), then its card-vs-CPU
+    check by parts (the 53.4 GB layer is not copied to the host): (a) the
+    MLA mixer, (b) the MoE FFN's routing, sampled experts and combine, (c)
+    the whole layer's greedy tokens, on the card only."""
+    import numpy as np
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import attention, layers, moe
+    from repro_torch.models import transformer as tf
+
+    params, line = serve_run(torch, ops, cfg)
+    launches = line["launches"]
+    check(launches == expected_launches(cfg, launches)
+          and not any(launches.values()),
+          f"deepseek: launches {launches}, not all 0")
+    # param_count() leaves out the norms' scales
+    check(line["n_params"] >= cfg.param_count(),
+          f"deepseek: {line['n_params']} parameters, fewer than "
+          f"{cfg.param_count()}")
+    check(line["moe_drop_frac_decode"] == 0.0,
+          f"deepseek: decode dropped {line['moe_drop_frac_decode']}")
+
+    t0 = time.perf_counter()
+    mla_rel = mla_check(torch, cfg, params, tf, attention, layers,
+                        fp32_highest)
+    check(max(mla_rel) <= CHECK_TOL,
+          f"deepseek: card vs CPU MLA outputs {mla_rel} > {CHECK_TOL}")
+    t_mla = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_res = moe_check(torch, cfg, params, tf, attention, layers, moe,
+                        fp32_highest)
+    t_moe = time.perf_counter() - t0
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, CHECK_PROMPT)), device="cuda")
+    toks, logits = greedy(torch, tf, fp32_highest, cfg, params, prompt,
+                          CHECK_STEPS)
+    check(bool(torch.isfinite(logits).all()) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"deepseek: layer tokens {toks}")
+    return params, {
+        **line, "cut": DEEPSEEK_CUT, "pattern": [list(lk) for lk in
+                                                 cfg.pattern],
+        "mla": dataclasses.asdict(cfg.mla), "moe": dataclasses.asdict(cfg.moe),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in tf._leaves(params)),
+        "check_mla": f"the layer's MLA mixer, a {CHECK_PROMPT}-token prompt "
+                     f"and {CHECK_STEPS} teacher-forced steps",
+        "check_mla_rel_per_output": mla_rel, "check_tol": CHECK_TOL,
+        "check_mla_s": t_mla, "check_moe": moe_res,
+        "check_moe_s": t_moe, "check_layer_tokens": toks[0].tolist()}
+
+
 def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
     """Phases 8, 10, 12 and 14: the serve path's prefill and one decode
     step (after one warm decode step) under torch.profiler."""
@@ -2030,8 +2263,9 @@ def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
         result, out[name] = profiled(torch, fn, cross_check=True)
         return result
 
-    tok, caches = stage("prefill", lambda: prefill(params, {"tokens": tokens}))
-    tok, caches = decode(params, caches, tok[:, None])
+    tok, caches, _ = stage("prefill",
+                           lambda: prefill(params, {"tokens": tokens}))
+    tok, caches, _ = decode(params, caches, tok[:, None])
     stage("decode_step", lambda: decode(params, caches, tok[:, None]))
     return out
 
@@ -2206,6 +2440,17 @@ def main() -> int:
                                                   SERVE_PROMPT))})
         del params
         torch.cuda.empty_cache()
+
+    # after the gemma3 parameters are freed: the deepseek layer holds
+    # 53.4 GB
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=1)
+    params, res = deepseek_phase(torch, ops, cfg)
+    serve_launches["deepseek"] = res["launches"]
+    emit({"phase": "serve_deepseek", **res})
+    emit({"phase": "breakdown_serve_deepseek",
+          **breakdown_serve(torch, cfg, params)})
+    del params
+    torch.cuda.empty_cache()
 
     # per-kernel times at the main paths' shapes: the kernel and the
     # library call on the device alone (device_ms), the plain version with

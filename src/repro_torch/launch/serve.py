@@ -38,8 +38,10 @@ def serve(cfg, *, requests: int, prompt_len: int, gen_len: int,
           params: Optional[Dict] = None) -> Dict:
     """Prefill ``requests`` random prompts of ``prompt_len`` tokens and
     decode ``gen_len`` greedy tokens each.  Returns the generated tokens
-    (requests, gen_len) as numpy int32 and the host-clock seconds of the
-    prefill and of the decode loop, each ending in a device synchronize.
+    (requests, gen_len) as numpy int32, the host-clock seconds of the
+    prefill and of the decode loop, each ending in a device synchronize,
+    and the MoE drop fractions (summed over the MoE layers, 0 without):
+    the prefill's and the mean of the decode steps'.
     The prompts come from numpy's generator seeded with 0, as the
     reference's; ``params`` defaults to ``tf.init_params(cfg, seed=0)``."""
     dev = resolve_device(device)
@@ -57,19 +59,25 @@ def serve(cfg, *, requests: int, prompt_len: int, gen_len: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    next_tok, caches = prefill(params, {"tokens": tokens})
+    next_tok, caches, aux_prefill = prefill(params, {"tokens": tokens})
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    out = [next_tok]
+    out, aux = [next_tok], [aux_prefill]
     t1 = time.perf_counter()
     for _ in range(gen_len - 1):
-        next_tok, caches = decode(params, caches, next_tok[:, None])
+        next_tok, caches, aux_step = decode(params, caches,
+                                            next_tok[:, None])
         out.append(next_tok)
+        aux.append(aux_step)
     _sync(dev)
     t_decode = time.perf_counter() - t1
+    drop = torch.stack(aux)[:, 1].tolist()
     return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
-            "prefill_s": t_prefill, "decode_s": t_decode}
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "moe_drop_frac_prefill": drop[0],
+            "moe_drop_frac_decode": (sum(drop[1:]) / (gen_len - 1)
+                                     if gen_len > 1 else 0.0)}
 
 
 def main(argv=None) -> None:

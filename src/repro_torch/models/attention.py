@@ -1,8 +1,10 @@
 """GQA attention, global or sliding-window (local), with a KV cache for
 decode, through the flash-attention kernel K5
-(``kernels/ops.py::flash_attention``).
+(``kernels/ops.py::flash_attention``); and DeepSeek's multi-head latent
+attention (MLA) with its latent cache.
 
-The port of the GQA half of the JAX package's ``models/attention.py``.
+The port of the GQA and MLA parts of the JAX package's
+``models/attention.py``.
 Weights and layouts are the reference's, 1:1: q heads are zero-padded from
 ``n_heads`` up to ``cfg.hp`` (``wq`` gains zero columns, ``wo`` zero rows).
 The reference repeats the K/V heads ``n_heads // n_kv_heads`` times
@@ -33,9 +35,27 @@ reference's ``pos``).  A ring's slots are not in position order, so decode
 passes no window to K5: every valid slot is visible, and the softmax, a
 sum over slots, does not depend on their order beyond the last bits.
 
-Not ported yet: cross-attention and MLA
-(``models/transformer.py::check_supported`` raises for them, naming their
-ROADMAP item).
+MLA (``init_mla`` .. ``mla_decode``) is the reference's absorbed form:
+queries and keys share a ``kv_lora_rank``-wide latent ``c_kv`` and one
+rotated key ``k_rope`` of ``rope_head_dim`` for all heads; ``q_nope`` is
+folded into the latent through the k part of ``wkv_b``, the logits are
+taken against ``c_kv`` plus the shared rope key, scaled by ``(nope_head_dim
++ rope_head_dim) ** -0.5`` with the softmax in float32, and the output is
+taken in the latent and then expanded through the v part of ``wkv_b``.
+The reference computes it with plain einsums outside any Pallas kernel,
+so here it is plain products too (K5 has no head size of 576 / 512).
+Per batch the products are ``(H * S, r)`` by ``(r, T)`` matrices: the one
+latent is shared by every head, and no per-head copy of it is made.  Its
+cache is ``{"ckv": (B, t, kv_lora_rank), "krope": (B, 1, t,
+rope_head_dim), "idx"}`` under the same contract as the GQA cache: the
+prefill fills slots ``[0, S)`` in place, decode writes slot ``idx`` in
+place and attends over the slots ``[0, idx]`` (the reference's mask ``pos
+<= idx``, whose masked logits weigh exactly 0).  MLA has no window.  The
+reference's ``q_chunk`` (prefill queries in chunks under ``lax.scan``)
+bounds a trace's memory at 32k-token shapes and has no counterpart here.
+
+Not ported yet: cross-attention (``models/transformer.py::check_supported``
+raises for it, naming its ROADMAP item).
 """
 from __future__ import annotations
 
@@ -46,6 +66,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import _normal, apply_rope, init_rmsnorm, rmsnorm
+
+NEG = -1e30     # the reference's masked logit: exp(NEG - max) is 0
 
 
 def init_gqa(gen: torch.Generator, cfg: ModelConfig,
@@ -170,3 +192,138 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict,
                                live_heads=cfg.n_heads)
     new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     return _merge_heads(out) @ params["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = d ** -0.5
+    qd = m.nope_head_dim + m.rope_head_dim
+    dev = gen.device
+    return {
+        "wq_a": _normal(gen, (d, m.q_lora_rank), s, dtype),
+        "q_norm": init_rmsnorm(m.q_lora_rank, dtype, dev),
+        "wq_b": _normal(gen, (m.q_lora_rank, h * qd),
+                        m.q_lora_rank ** -0.5, dtype),
+        "wkv_a": _normal(gen, (d, m.kv_lora_rank + m.rope_head_dim), s,
+                         dtype),
+        "kv_norm": init_rmsnorm(m.kv_lora_rank, dtype, dev),
+        "wkv_b": _normal(gen, (m.kv_lora_rank,
+                               h * (m.nope_head_dim + m.v_head_dim)),
+                         m.kv_lora_rank ** -0.5, dtype),
+        "wo": _normal(gen, (h * m.v_head_dim, d),
+                      (h * m.v_head_dim) ** -0.5, dtype),
+    }
+
+
+def _mla_qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor):
+    """q_nope (B, H, S, nope), rotated q_rope (B, H, S, rd), the normed
+    latent c_kv (B, S, r) and the rotated shared key k_rope (B, 1, S,
+    rd)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps) \
+        @ params["wq_b"]
+    q = q.view(b, s, cfg.n_heads, -1).transpose(1, 2)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ params["wkv_a"]).split(
+        [m.kv_lora_rank, m.rope_head_dim], dim=-1)
+    c_kv = rmsnorm(params["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(params: Dict, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ModelConfig,
+                causal: bool) -> torch.Tensor:
+    """The absorbed attention of queries (B, H, S, .) over the T latent
+    positions of ``c_kv`` (B, T, r) and ``k_rope`` (B, 1, T, rd); with
+    ``causal`` query i sees positions ``[0, T - S + i]``, else all T."""
+    m = cfg.mla
+    b, h, s, _ = q_nope.shape
+    t = c_kv.shape[1]
+    kvb = params["wkv_b"].view(m.kv_lora_rank, h,
+                               m.nope_head_dim + m.v_head_dim)
+    k_nope_w = kvb[:, :, :m.nope_head_dim]                 # (r, H, nope)
+    v_w = kvb[:, :, m.nope_head_dim:]                      # (r, H, vdim)
+    # absorb the k projection into q: attend in the latent space
+    q_lat = torch.einsum("bhsn,rhn->bhsr", q_nope, k_nope_w)
+    logits = torch.bmm(q_lat.reshape(b, h * s, -1).float(),
+                       c_kv.float().transpose(1, 2))
+    logits += torch.bmm(q_rope.reshape(b, h * s, -1).float(),
+                        k_rope[:, 0].float().transpose(1, 2))
+    logits = logits.view(b, h, s, t) * (
+        (m.nope_head_dim + m.rope_head_dim) ** -0.5)
+    if causal:
+        q_ids = torch.arange(s, device=c_kv.device)[:, None] + (t - s)
+        hidden = torch.arange(t, device=c_kv.device)[None, :] > q_ids
+        logits = logits.masked_fill(hidden, NEG)
+    probs = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+    out_lat = torch.bmm(probs.view(b, h * s, t), c_kv).view(b, h, s, -1)
+    out = torch.einsum("bhsr,rhv->bhsv", out_lat, v_w)
+    return _merge_heads(out) @ params["wo"]
+
+
+def mla_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                return_latent: bool = False):
+    """Full-sequence (prefill) causal MLA over x (B, S, d) at positions
+    ``[0, S)``.  ``return_latent`` additionally returns ``(c_kv, k_rope)``
+    for the prefill cache."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    out = _mla_attend(params, q_nope, q_rope, c_kv, k_rope, cfg,
+                      causal=True)
+    if return_latent:
+        return out, (c_kv, k_rope)
+    return out
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   dtype=torch.float32, device=None) -> Dict:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, 1, max_len, m.rope_head_dim),
+                                 dtype=dtype, device=device),
+            "idx": 0}
+
+
+def fill_mla_cache(cache: Dict, c_kv: torch.Tensor,
+                   k_rope: torch.Tensor) -> Dict:
+    """Write a prefill's latents (c_kv (B, S, r), k_rope (B, 1, S, rd))
+    into slots ``[0, S)`` of a fresh cache, in place."""
+    s = c_kv.shape[1]
+    if s > cache["ckv"].shape[1]:
+        raise ValueError(f"a {s}-token prefill does not fit a "
+                         f"{cache['ckv'].shape[1]}-slot cache")
+    cache["ckv"][:, :s] = c_kv
+    cache["krope"][:, :, :s] = k_rope
+    return {"ckv": cache["ckv"], "krope": cache["krope"], "idx": s}
+
+
+def mla_decode(params: Dict, x: torch.Tensor, cache: Dict,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (B, 1, d); the token sits at position
+    ``cache["idx"]``, is written to that slot and attends over ``[0,
+    idx]``."""
+    b = x.shape[0]
+    idx = cache["idx"]
+    t = cache["ckv"].shape[1]
+    if idx >= t:
+        raise ValueError(f"the {t}-slot latent cache is full")
+    pos = torch.full((b, 1), idx, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, pos)
+    cache["ckv"][:, idx] = c_kv[:, 0]
+    cache["krope"][:, :, idx] = k_rope[:, :, 0]
+    out = _mla_attend(params, q_nope, q_rope, cache["ckv"][:, :idx + 1],
+                      cache["krope"][:, :, :idx + 1], cfg, causal=False)
+    return out, {"ckv": cache["ckv"], "krope": cache["krope"],
+                 "idx": idx + 1}

@@ -17,10 +17,12 @@ import torch.nn.functional as F
 
 def _normal(gen: torch.Generator, shape, scale: float,
             dtype=torch.float32) -> torch.Tensor:
-    """float32 N(0, scale^2) on the generator's device, cast to ``dtype``."""
+    """float32 N(0, scale^2) on the generator's device, cast to ``dtype``.
+    Scaled in place: an expert stack of deepseek-v3 is 15 GB in float32,
+    and a second buffer of its size would be drawn beside it."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

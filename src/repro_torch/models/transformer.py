@@ -1,15 +1,17 @@
 """Transformer assembly for serving: embed -> ``n_groups`` x pattern ->
 final norm, in prefill and decode.
 
-The port of the JAX package's ``models/transformer.py`` for patterns made
-of ``("attn", "mlp")``, ``("local", "mlp")``, ``("rwkv6", "mlp")`` and
-``("mamba", "mlp")`` layers: the dense GQA family (smollm, qwen3), gemma3's
-sliding-window (local) and global layers, rwkv6-7b, and jamba's period
-with dense FFNs.  A model is a sequence of layer groups, each one copy of
-``cfg.pattern``; ``params["groups"]`` is a LIST of per-group dicts (the reference stacks
-them along a leading ``n_groups`` axis for ``lax.scan``; a Python loop over
-the list takes its place here, and ``models/convert.py`` unstacks a
-reference tree).  The caches are a list of per-group dicts in the same way.
+The port of the JAX package's ``models/transformer.py`` for layers of
+any mixer among ``"attn"``, ``"local"``, ``"mla"``, ``"rwkv6"`` and
+``"mamba"`` with a dense (``"mlp"``) or MoE (``"moe"``) FFN: the dense GQA
+family (smollm, qwen3), gemma3's sliding-window (local) and global layers,
+rwkv6-7b, moonshot's attention + MoE layers, deepseek-v3's MLA + MoE
+layers, and jamba's period with its MoE FFNs.  A model is a sequence of
+layer groups, each one copy of ``cfg.pattern``; ``params["groups"]`` is a
+LIST of per-group dicts (the reference stacks them along a leading
+``n_groups`` axis for ``lax.scan``; a Python loop over the list takes its
+place here, and ``models/convert.py`` unstacks a reference tree).  The
+caches are a list of per-group dicts in the same way.
 
 What has no counterpart on one card: ``lax.scan`` and remat (PyTorch runs
 eagerly, and serving keeps no activations for a backward pass), and the
@@ -18,10 +20,11 @@ every tensor).
 
 Modes: ``prefill`` (full sequence, returns the caches: KV caches for
 attention layers, ring caches of ``min(cache_len, sliding_window)`` slots
-for local ones, recurrent states for rwkv6 and mamba layers) and
-``decode`` (one token against them).  ``train``, and the layer kinds and
-model parts not ported yet, raise ``NotImplementedError`` naming their
-ROADMAP item.
+for local ones, latent caches for MLA layers, recurrent states for rwkv6
+and mamba layers) and ``decode`` (one token against them).  Both also
+return the reference's MoE auxiliaries, summed over the MoE layers.
+``train``, and the model parts not ported yet (encoder-decoder, VLM
+inputs), raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,14 +37,14 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-LAYER_KINDS = (("attn", "mlp"), ("local", "mlp"), ("rwkv6", "mlp"),
-               ("mamba", "mlp"))
+MIXERS = ("attn", "local", "mla", "rwkv6", "mamba")
+LAYER_KINDS = tuple((mixer, ffn) for mixer in MIXERS
+                    for ffn in ("mlp", "moe"))
 ATTN_KINDS = ("attn", "local")
 _TODO = {  # what is not ported yet -> its ROADMAP Queue A item
-    "mla": "MLA attention is not ported yet (ROADMAP Queue A item 12.5)",
-    "moe": "MoE layers are not ported yet (ROADMAP Queue A item 12.6)",
     "encdec": "encoder-decoder models and cross-attention are not ported "
               "yet (ROADMAP Queue A item 12.7)",
     "vlm": "patch-embedding (VLM) inputs are not ported yet (ROADMAP Queue "
@@ -58,9 +61,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.n_patches:
         raise NotImplementedError(_TODO["vlm"])
     for mixer, ffn in cfg.pattern:
-        for kind in (mixer, ffn):
-            if kind in _TODO:
-                raise NotImplementedError(f"{cfg.name}: {_TODO[kind]}")
         if (mixer, ffn) not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
 
@@ -70,14 +70,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
-               dtype) -> Dict:
+               ffn: str, dtype) -> Dict:
     init_mixer = {"attn": attn.init_gqa, "local": attn.init_gqa,
-                  "rwkv6": rwkv_mod.init_rwkv6,
+                  "mla": attn.init_mla, "rwkv6": rwkv_mod.init_rwkv6,
                   "mamba": mamba_mod.init_mamba}[mixer]
     return {
         "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
         "mixer": init_mixer(gen, cfg, dtype),
-        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": (moe_mod.init_moe(gen, cfg, dtype) if ffn == "moe"
+                else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)),
         "norm2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
     }
 
@@ -95,8 +96,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     params: Dict = {
         "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
-        "groups": [{f"l{i}": init_layer(gen, cfg, mixer, dtype)
-                    for i, (mixer, _) in enumerate(cfg.pattern)}
+        "groups": [{f"l{i}": init_layer(gen, cfg, mixer, ffn, dtype)
+                    for i, (mixer, ffn) in enumerate(cfg.pattern)}
                    for _ in range(cfg.n_groups)],
     }
     if not cfg.tie_embeddings:
@@ -146,6 +147,9 @@ def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
         return {"self": attn.init_gqa_cache(cfg, batch, cache_len,
                                             window=_window(cfg, mixer),
                                             dtype=dtype, device=device)}
+    if mixer == "mla":
+        return {"self": attn.init_mla_cache(cfg, batch, cache_len,
+                                            dtype=dtype, device=device)}
     init_state = {"rwkv6": rwkv_mod.init_rwkv6_state,
                   "mamba": mamba_mod.init_mamba_state}[mixer]
     return {"state": init_state(cfg, batch, dtype, device)}
@@ -155,8 +159,9 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.float32, device=None) -> List[Dict]:
     """Per-group list of per-layer caches, zeroed, on ``device``: a KV
     cache of ``cache_len`` slots for a global attention layer, a ring of
-    ``min(cache_len, sliding_window)`` slots for a local one, the recurrent
-    state for an rwkv6 or mamba layer."""
+    ``min(cache_len, sliding_window)`` slots for a local one, a latent
+    cache of ``cache_len`` slots for an MLA layer, the recurrent state for
+    an rwkv6 or mamba layer."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [{f"l{i}": _layer_cache(cfg, mixer, batch, cache_len, dtype, dev)
@@ -173,10 +178,21 @@ _SSM_FORWARD = {"rwkv6": rwkv_mod.rwkv6_forward,
 
 
 def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
-           mixer: str, *, mode: str) -> Tuple[torch.Tensor, Dict]:
+           mixer: str, ffn: str, *, mode: str
+           ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """One layer: (x, its new cache, its [moe_aux_loss, moe_drop_frac],
+    None for a dense FFN: no device call on the dense models' path)."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     window = _window(cfg, mixer)
-    if mixer not in ATTN_KINDS:
+    if mixer == "mla":
+        if mode == "decode":
+            o, self_cache = attn.mla_decode(lp["mixer"], h, ce["self"], cfg)
+        else:
+            o, (c_kv, k_rope) = attn.mla_forward(lp["mixer"], h, cfg,
+                                                 return_latent=True)
+            self_cache = attn.fill_mla_cache(ce["self"], c_kv, k_rope)
+        new_cache = {"self": self_cache}
+    elif mixer not in ATTN_KINDS:
         # prefill runs from the fresh cache's zero state, decode from the
         # state the previous step returned
         o, state = _SSM_FORWARD[mixer](lp["mixer"], h, cfg, ce["state"])
@@ -192,21 +208,25 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
                                                  window=window)}
     x = x + o
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp(lp["ffn"], h2), new_cache
+    if ffn == "mlp":
+        return x + L.mlp(lp["ffn"], h2), new_cache, None
+    f, mm = moe_mod.moe_forward(lp["ffn"], h2, cfg)
+    return (x + f, new_cache,
+            torch.stack([mm["moe_aux_loss"], mm["moe_drop_frac"]]))
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str, caches: Optional[List[Dict]] = None,
             cache_len: Optional[int] = None
-            ) -> Tuple[torch.Tensor, List[Dict]]:
-    """Returns (hidden (B, S, d) after the final norm, new caches).
+            ) -> Tuple[torch.Tensor, List[Dict], torch.Tensor]:
+    """Returns (hidden (B, S, d) after the final norm, new caches, aux).
 
     ``prefill`` builds caches of ``cache_len`` slots (default: the prompt
     length) from ``tokens`` (B, S); ``decode`` runs ``tokens`` (B, 1)
     against ``caches`` (KV caches updated in place, see
-    ``models/attention.py``; recurrent states replaced).
-    The reference also returns MoE auxiliaries; with no MoE ported there
-    are none.
+    ``models/attention.py``; recurrent states replaced).  ``aux`` is the
+    reference's float32 (2,) ``[moe_aux_loss, moe_drop_frac]`` summed over
+    the MoE layers, zeros without any.
     """
     if mode == "train":
         raise NotImplementedError(_TODO["train"])
@@ -219,14 +239,19 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if mode == "prefill":
         caches = init_caches(cfg, x.shape[0], cache_len or x.shape[1],
                              dtype=x.dtype, device=x.device)
-    new_caches = []
+    new_caches, aux = [], None
     for gp, cg in zip(params["groups"], caches):
         nc = {}
-        for i, (mixer, _) in enumerate(cfg.pattern):
-            x, nc[f"l{i}"] = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg, mixer,
-                                    mode=mode)
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            x, nc[f"l{i}"], aux_i = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg,
+                                           mixer, ffn, mode=mode)
+            if aux_i is not None:
+                aux = aux_i if aux is None else aux + aux_i
         new_caches.append(nc)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_caches
+    if aux is None:
+        aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+    return (L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_caches,
+            aux)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ package's ``train/steps.py``.  There is no ``jit``, mesh or sharding on one
 card: a step is a function that runs the model eagerly under
 ``torch.inference_mode`` with float32 matrix products in full float32 (no
 TF32, as the reference's float32 default), and returns
-``(tokens int32 (B,), caches)``.  The train step is not ported yet (ROADMAP
-Queue A item 12.9).
+``(tokens int32 (B,), caches, aux)``: the reference's steps drop
+``forward``'s MoE auxiliaries ``aux`` (float32 ``[moe_aux_loss,
+moe_drop_frac]``), and these pass them on, left on the device, so that a
+serving loop can report its drop fraction.  The train step is not ported
+yet (ROADMAP Queue A item 12.9).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.plain import fp32_highest
 from repro_torch.models import transformer as tf
 
-Step = Callable[..., Tuple[torch.Tensor, List[Dict]]]
+Step = Callable[..., Tuple[torch.Tensor, List[Dict], torch.Tensor]]
 
 
 def _greedy(params: Dict, cfg: ModelConfig, hidden: torch.Tensor
@@ -29,29 +32,30 @@ def _greedy(params: Dict, cfg: ModelConfig, hidden: torch.Tensor
 def make_prefill_step(cfg: ModelConfig, *,
                       cache_len: Optional[int] = None) -> Step:
     """``prefill(params, batch)`` with ``batch["tokens"]`` (B, S): the
-    first greedy token of every request and caches of ``cache_len`` slots
-    (default: S)."""
+    first greedy token of every request, caches of ``cache_len`` slots
+    (default: S) and the MoE auxiliaries."""
     tf.check_supported(cfg)
 
     def prefill_step(params: Dict, batch: Dict):
         with torch.inference_mode(), fp32_highest():
-            hidden, caches = tf.forward(params, cfg, batch["tokens"],
-                                        mode="prefill", cache_len=cache_len)
-            return _greedy(params, cfg, hidden), caches
+            hidden, caches, aux = tf.forward(params, cfg, batch["tokens"],
+                                             mode="prefill",
+                                             cache_len=cache_len)
+            return _greedy(params, cfg, hidden), caches, aux
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig) -> Step:
     """``decode(params, caches, tokens)`` with ``tokens`` (B, 1): the next
-    greedy token of every request; the caches are updated in place and
-    returned."""
+    greedy token of every request, the caches (updated in place) and the
+    MoE auxiliaries."""
     tf.check_supported(cfg)
 
     def decode_step(params: Dict, caches: List[Dict], tokens: torch.Tensor):
         with torch.inference_mode(), fp32_highest():
-            hidden, caches = tf.forward(params, cfg, tokens, mode="decode",
-                                        caches=caches)
-            return _greedy(params, cfg, hidden), caches
+            hidden, caches, aux = tf.forward(params, cfg, tokens,
+                                             mode="decode", caches=caches)
+            return _greedy(params, cfg, hidden), caches, aux
 
     return decode_step

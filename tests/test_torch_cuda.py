@@ -466,12 +466,13 @@ def test_gemma3_serving_on_card_matches_cpu(cuda):
     ops.reset_launches()
     for dev, params in (("cuda", card), ("cpu", host)):
         with torch.inference_mode(), fp32_highest():
-            h, caches = tf.forward(params, cfg, toks[:, :12].to(dev),
-                                   mode="prefill", cache_len=20)
+            h, caches, _ = tf.forward(params, cfg, toks[:, :12].to(dev),
+                                      mode="prefill", cache_len=20)
             hs = [h[:, -1]]
             for t in range(12, 20):
-                h, caches = tf.forward(params, cfg, toks[:, t:t + 1].to(dev),
-                                       mode="decode", caches=caches)
+                h, caches, _ = tf.forward(params, cfg,
+                                          toks[:, t:t + 1].to(dev),
+                                          mode="decode", caches=caches)
                 hs.append(h[:, 0])
         out[dev] = torch.stack(hs).cpu()
         if dev == "cuda":
@@ -480,6 +481,92 @@ def test_gemma3_serving_on_card_matches_cpu(cuda):
     assert counts["flash_attention"] == 9 * cfg.n_layers
     assert sum(counts.values()) == counts["flash_attention"]
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4
+
+
+def _deepseek_small():
+    """Reduced deepseek-v3-671b, one layer, widened to 16 experts top-4
+    at deepseek-v3's capacity factor, so that the prefill drops pairs."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    return dataclasses.replace(
+        cfg, n_layers=1, d_model=128, n_heads=8, n_kv_heads=8,
+        moe=dataclasses.replace(cfg.moe, n_experts=16, top_k=4,
+                                capacity_factor=1.25))
+
+
+@pytest.mark.cuda
+def test_mla_and_moe_layers_on_card_match_cpu(cuda):
+    """The MLA mixer (a 12-token prefill and 4 decode steps) and the MoE
+    FFN (24 tokens a row, some pairs dropped) on the card against the same
+    weights on the CPU: routing (expert ids, positions, keep mask) equal,
+    outputs within 1e-5 of the largest."""
+    from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tf
+
+    cfg = _deepseek_small()
+    gen = torch.Generator().manual_seed(0)
+    host = {"mla": attention.init_mla(gen, cfg), "moe": moe.init_moe(gen, cfg)}
+    card = tf.to_device(host, cuda)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32))
+    out = {}
+    ops.reset_launches()
+    for key, dev, p in (("card", cuda, card), ("host", "cpu", host)):
+        xd = x.to(dev)
+        with torch.inference_mode(), fp32_highest():
+            y, (ckv, krope) = attention.mla_forward(
+                p["mla"], xd[:, :12], cfg, return_latent=True)
+            c = attention.fill_mla_cache(attention.init_mla_cache(
+                cfg, 2, 16, device=dev), ckv, krope)
+            ys = [y]
+            for t in range(12, 16):
+                y, c = attention.mla_decode(p["mla"], xd[:, t:t + 1], c, cfg)
+                ys.append(y)
+            logits = xd @ p["moe"]["router"]
+            r = moe.route(logits, moe._capacity(24, cfg), cfg.moe.top_k)
+            f, metrics = moe.moe_forward(p["moe"], xd, cfg)
+        out[key] = ([y.cpu() for y in ys], [t.cpu() for t in r], f.cpu(),
+                    float(metrics["moe_drop_frac"]), logits.cpu())
+    assert not any(ops.launch_counts().values())
+    (ys_c, r_c, f_c, drop_c, lg), (ys_h, r_h, f_h, drop_h, _) = (
+        out["card"], out["host"])
+    top = torch.topk(lg, cfg.moe.top_k + 1, dim=-1).values
+    gap = float((top[..., :-1] - top[..., 1:]).min() / lg.abs().max())
+    assert gap > 1e-4, f"a near-tie in the inputs: top-k gap {gap}"
+    for a, b in zip(ys_c, ys_h):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for i in (0, 2, 3):                        # expert, pos, keep
+        assert torch.equal(r_c[i], r_h[i])
+    assert drop_c == drop_h > 0
+    assert float((f_c - f_h).abs().max()) <= 1e-5 * float(f_h.abs().max())
+
+
+@pytest.mark.cuda
+def test_deepseek_serving_on_card_matches_cpu(cuda):
+    """Reduced deepseek-v3-671b (two MLA + MoE layers) served on the card
+    and on the CPU with the same parameters: the same greedy tokens, the
+    same drop fractions, no kernel of the port launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    ops.reset_launches()
+    res = {key: serve.serve(cfg, requests=2, prompt_len=16, gen_len=6,
+                            device=dev, params=params)
+           for key, dev, params in (("card", cuda, card),
+                                    ("host", "cpu", host))}
+    assert not any(ops.launch_counts().values())
+    np.testing.assert_array_equal(res["card"]["tokens"],
+                                  res["host"]["tokens"])
+    for key in ("moe_drop_frac_prefill", "moe_drop_frac_decode"):
+        assert res["card"][key] == res["host"][key] == 0.0
 
 
 @pytest.mark.cuda
@@ -519,14 +606,14 @@ def test_smollm_prefill_on_card_matches_cpu(cuda):
         0, cfg.vocab, (2, 128)))
     step = make_prefill_step(cfg, cache_len=136)
     before = ops.flash_attention.launches
-    tok_card, caches = step(params, {"tokens": toks.to(cuda)})
+    tok_card, caches, _ = step(params, {"tokens": toks.to(cuda)})
     assert ops.flash_attention.launches == before + cfg.n_layers
-    tok_host, _ = step(host, {"tokens": toks})
+    tok_host, _, _ = step(host, {"tokens": toks})
     assert torch.equal(tok_card.cpu(), tok_host)
     assert caches[0]["l0"]["self"]["k"].shape == (2, cfg.n_kv_heads, 136, 64)
     with torch.inference_mode():
-        h_card, _ = tf.forward(params, cfg, toks.to(cuda), mode="prefill")
-        h_host, _ = tf.forward(host, cfg, toks, mode="prefill")
+        h_card, _, _ = tf.forward(params, cfg, toks.to(cuda), mode="prefill")
+        h_host, _, _ = tf.forward(host, cfg, toks, mode="prefill")
         lg_card = tf.logits_last(params, cfg, h_card).cpu()
         lg_host = tf.logits_last(host, cfg, h_host)
     assert float((h_card.cpu() - h_host).abs().max()) <= 1e-3
@@ -764,12 +851,13 @@ def test_ssm_serving_on_card_matches_cpu(cuda, name):
     ops.reset_launches()
     for dev, params in (("cuda", card), ("cpu", host)):
         with torch.inference_mode(), fp32_highest():
-            h, caches = tf.forward(params, cfg, toks[:, :17].to(dev),
-                                   mode="prefill", cache_len=20)
+            h, caches, _ = tf.forward(params, cfg, toks[:, :17].to(dev),
+                                      mode="prefill", cache_len=20)
             hs = [h[:, -1]]
             for t in range(17, 20):
-                h, caches = tf.forward(params, cfg, toks[:, t:t + 1].to(dev),
-                                       mode="decode", caches=caches)
+                h, caches, _ = tf.forward(params, cfg,
+                                          toks[:, t:t + 1].to(dev),
+                                          mode="decode", caches=caches)
                 hs.append(h[:, 0])
         states = [leaf.cpu() for cg in caches for ce in cg.values()
                   if "state" in ce for key, leaf in ce["state"].items()

@@ -187,7 +187,7 @@ def test_ring_fill_and_decode_match_reference(s):
 
 def test_global_cache_fills_and_a_ring_wraps():
     _, cfg = _configs()
-    p = tf.init_layer(torch.Generator().manual_seed(0), cfg, "local",
+    p = tf.init_layer(torch.Generator().manual_seed(0), cfg, "local", "mlp",
                       torch.float32)["mixer"]
     x = torch.randn(1, 1, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
@@ -227,8 +227,8 @@ def test_gemma3_prefill_and_decode_match_reference(prompt, steps, padded):
                                  scan=False)
     jtok = np.asarray(jnp.argmax(jtf.logits_last(jparams, jcfg, jh), -1))
     with torch.inference_mode():
-        h, caches = tf.forward(params, cfg, _t(toks), mode="prefill",
-                               cache_len=cache_len)
+        h, caches, _ = tf.forward(params, cfg, _t(toks), mode="prefill",
+                                  cache_len=cache_len)
         tok = tf.logits_last(params, cfg, h).argmax(-1)
     for i, (mixer, _) in enumerate(cfg.pattern):
         t = caches[0][f"l{i}"]["self"]["k"].shape[2]
@@ -243,8 +243,8 @@ def test_gemma3_prefill_and_decode_match_reference(prompt, steps, padded):
                                      scan=False)
         jtok = np.asarray(jnp.argmax(jtf.logits_last(jparams, jcfg, jh), -1))
         with torch.inference_mode():
-            h, caches = tf.forward(params, cfg, tok[:, None], mode="decode",
-                                   caches=caches)
+            h, caches, _ = tf.forward(params, cfg, tok[:, None], mode="decode",
+                                      caches=caches)
             tok = tf.logits_last(params, cfg, h).argmax(-1)
         np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-4,
                                    atol=1e-4)
@@ -271,16 +271,16 @@ def test_gemma3_decode_matches_teacher_forcing():
         0, cfg.vocab, (2, 14)))
     prefill = make_prefill_step(cfg, cache_len=15)
     decode = make_decode_step(cfg)
-    _, caches = prefill(params, {"tokens": toks[:, :6]})
+    _, caches, _ = prefill(params, {"tokens": toks[:, :6]})
     for i in range(6, 14):                       # idx 8 wraps the ring
         with torch.inference_mode():
-            h_dec, caches = tf.forward(params, cfg, toks[:, i:i + 1],
-                                       mode="decode", caches=caches)
-            h_full, _ = tf.forward(params, cfg, toks[:, :i + 1],
-                                   mode="prefill")
+            h_dec, caches, _ = tf.forward(params, cfg, toks[:, i:i + 1],
+                                          mode="decode", caches=caches)
+            h_full, _, _ = tf.forward(params, cfg, toks[:, :i + 1],
+                                      mode="prefill")
         np.testing.assert_allclose(h_dec[:, 0].numpy(), h_full[:, -1].numpy(),
                                    rtol=2e-5, atol=2e-5)
-    nxt, caches = decode(params, caches, toks[:, -1:])
+    nxt, caches, _ = decode(params, caches, toks[:, -1:])
     assert nxt.shape == (2,) and caches[0]["l0"]["self"]["idx"] == 15
 
 

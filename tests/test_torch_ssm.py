@@ -281,11 +281,11 @@ def test_prefill_and_greedy_decode_match_reference(name):
                                  mode="prefill", cache_len=cache_len,
                                  scan=False)
     with torch.inference_mode():
-        h, _ = tf.forward(params, cfg, _t(toks), mode="prefill")
+        h, _, _ = tf.forward(params, cfg, _t(toks), mode="prefill")
     _close(h.numpy(), jh)
     jtok = np.asarray(jnp.argmax(jtf.logits_last(jparams, jcfg, jh), -1))
-    tok, caches = make_prefill_step(cfg, cache_len=cache_len)(
-        params, {"tokens": _t(toks)})
+    tok, caches, _ = make_prefill_step(cfg, cache_len=cache_len)(
+           params, {"tokens": _t(toks)})
     np.testing.assert_array_equal(tok.numpy(), jtok)
     decode = make_decode_step(cfg)
     for _ in range(4):
@@ -294,7 +294,7 @@ def test_prefill_and_greedy_decode_match_reference(name):
                                      mode="decode", caches=jcaches,
                                      scan=False)
         jtok = np.asarray(jnp.argmax(jtf.logits_last(jparams, jcfg, jh), -1))
-        tok, caches = decode(params, caches, tok[:, None])
+        tok, caches, _ = decode(params, caches, tok[:, None])
         np.testing.assert_array_equal(tok.numpy(), jtok)
     n_ssm = sum(m != "attn" for m, _ in cfg.pattern)
     states = _final_states(caches)
@@ -318,14 +318,14 @@ def test_decode_matches_teacher_forcing(name):
     toks = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab, (2, 11)))
     with torch.inference_mode():
-        _, caches = tf.forward(params, cfg, toks[:, :8], mode="prefill",
-                               cache_len=11)
+        _, caches, _ = tf.forward(params, cfg, toks[:, :8], mode="prefill",
+                                  cache_len=11)
         dec = []
         for t in range(8, 11):
-            h, caches = tf.forward(params, cfg, toks[:, t:t + 1],
-                                   mode="decode", caches=caches)
+            h, caches, _ = tf.forward(params, cfg, toks[:, t:t + 1],
+                                      mode="decode", caches=caches)
             dec.append(h[:, 0])
-        h_full, full = tf.forward(params, cfg, toks, mode="prefill")
+        h_full, full, _ = tf.forward(params, cfg, toks, mode="prefill")
     _close(torch.stack(dec, 1).numpy(), h_full[:, 8:].numpy(), 2e-5)
     for (g, lname, key, leaf), (_, _, _, want) in zip(
             _final_states(caches), _final_states(full)):
