@@ -23,7 +23,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   call), with an offset, the global prefill, ring, global
                   and windowed decodes, float32 and bfloat16, within 2e-5
                   of the plain version's float32 result beyond the
-                  bfloat16 output's one rounding).
+                  bfloat16 output's one rounding); K5 at whisper-tiny's
+                  non-causal shapes (the encoder over 1500 positions, the
+                  cross-attention of a 4-token prompt and of a decode
+                  step) and internvl2-26b's group of 6 (prefill and
+                  decode), within 2e-5).
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
@@ -144,7 +148,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   local, 1 global) with a 1016-token prompt and 16
                   teacher-forced steps, the rings wrapping at the 9th.
 14. ``breakdown_serve_gemma3`` — phase 8 for gemma3-4b.
-15. ``serve_deepseek`` — the serve run for deepseek-v3-671b at full width
+15. ``serve_whisper`` — phase 9 for whisper-tiny whole (4 encoder layers
+                  over 1500 frame embeddings, 4 decoder layers with
+                  cross-attention): 8 requests of 1500 frames and a
+                  4-token prompt, 32 greedy tokens: K5 260 launches (4
+                  encoder layers, then self- and cross-attention in each
+                  decoder layer in the prefill and every decode step), no
+                  other kernel; the card-vs-CPU check on the whole model,
+                  one request's frames, a 4-token prompt and 16
+                  teacher-forced steps.
+16. ``breakdown_serve_whisper`` — phase 8 for whisper-tiny.
+17. ``serve_internvl`` — phase 9 for internvl2-26b at full width cut to 24
+                  of its 48 layers (42.0 GB): 8 requests of 256 patch
+                  embeddings and 512 tokens, 32 greedy tokens: K5 768
+                  launches (48 query heads on 8 KV heads, D = 128); the
+                  card-vs-CPU check on its first 2 layers with the same
+                  patches, a 128-token prompt and 8 steps.
+18. ``breakdown_serve_internvl`` — phase 8 for internvl2-26b.
+19. ``serve_deepseek`` — the serve run for deepseek-v3-671b at full width
                   cut to one of its 61 (MLA, MoE) layers (13.36 G
                   parameters, 53.4 GB, drawn after gemma3's are freed): 8
                   requests of 512 + 32 tokens, no kernel of the port
@@ -159,23 +180,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   SwiGLU over the card's dispatch rows and the combine
                   recomputed on the CPU), each within 1e-4, and (c) the
                   whole layer's greedy tokens on the card.
-16. ``breakdown_serve_deepseek`` — phase 8 for the deepseek layer.
+20. ``breakdown_serve_deepseek`` — phase 8 for the deepseek layer.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
-serve paths' grouped shapes with SDPA's beside them, and at gemma3's
-windowed prefill, ring decode and global decode, an empty kernel's
+serve paths' grouped shapes with SDPA's beside them, at gemma3's
+windowed prefill, ring decode and global decode, and at whisper's and
+internvl's prefill and decode shapes, an empty kernel's
 device time, and dense K4 float64 against ``baddbmm`` in turns), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
 mapped, once per element type, and the mapped one over 4 systems in
-float64; K5's gemma3 windowed prefill; ``ms`` and ``library_ms`` are the device
+float64; K5's gemma3 windowed prefill, whisper encoder and internvl
+prefill; ``ms`` and ``library_ms`` are the device
 time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9, 11,
-13 and 15, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+13, 15, 17 and 19, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
@@ -187,7 +210,8 @@ mapped K3/K4 over 4 systems; ``robust``: K2 and the float64 mapped K3/K4;
 each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
 K1 on the kernel options) on each rank and each dynamic run, the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
-phase 11: K6 and K5; phase 13: K5; phase 15: none; the dense K3/K4
+phase 11: K6 and K5; phases 13, 15 and 17: K5; phase 19: none; the
+dense K3/K4
 entry points are off the paths since the sweep runs the mapped form),
 split by stage in ``launches_by_stage``
 for the LU paths; the ``kernels`` line takes each row's launches from the
@@ -266,6 +290,16 @@ CHECK_PROMPT, CHECK_STEPS, CHECK_TOL = 128, 8, 1e-4
 # 16 teacher-forced steps, so the rings wrap at the 9th step
 GEMMA3_PROMPT = 1536
 GEMMA3_CHECK_LAYERS, GEMMA3_CHECK_PROMPT, GEMMA3_CHECK_STEPS = 6, 1016, 16
+# whisper-tiny's serve run: the whole model, 1500 frame embeddings a
+# request and a 4-token prompt (the length of whisper's start-of-transcript
+# sequence); its card-vs-CPU check: the whole model, one request's frames,
+# the 4-token prompt and 16 teacher-forced steps
+WHISPER_PROMPT, WHISPER_CHECK_STEPS = 4, 16
+# internvl2-26b's serve run: full width cut to 24 of its 48 layers (all 48
+# are 79.45 GB of float32 parameters, which leaves under 6 GB of the card),
+# 256 patch embeddings and 512 tokens a request
+INTERNVL_LAYERS = 24
+INTERNVL_CUT = "24 of 48 layers: 79.45 GB of float32 parameters whole"
 # deepseek-v3-671b's serve run: the model at full width cut in depth to one
 # layer (13.36 G parameters, 53.4 GB in float32 with its 45 GB of experts:
 # two layers would need ~98 GB); its card-vs-CPU check by parts samples
@@ -534,6 +568,16 @@ def kernel_checks(torch, ops, plain, adj_real):
                 out[f"{name}_equals_unwindowed"] = same
     out["K5_bf16_rounding_step"] = BF16_U
 
+    # K5 at whisper's non-causal and internvl's grouped serve shapes
+    for tag, (shape, causal) in K5_SERVE_SHAPES.items():
+        q, k, v, kw = gqa_inputs(torch, rng, *shape, causal=causal)
+        got = ops.flash_attention(q, k, v, **kw)
+        err = k5_error(torch, plain, got, q, k, v, kw)[0]
+        check(got.shape == q.shape and bool(torch.isfinite(got).all())
+              and err <= K5_TOL, f"K5 {tag} {shape} causal={causal}: err "
+              f"{err} > {K5_TOL}")
+        out[f"K5_{tag}_err"] = err
+
     # K7 and K6 at their serve paths' prefill and decode shapes, from a
     # zero and from a non-zero state, output and final state
     for name, shapes, inputs in (("K7", K7_SHAPES, rwkv6_inputs),
@@ -587,6 +631,19 @@ K5_GEMMA3_SHAPES = {
     "decode_ring": ((8, 16, 8, 4, 1, 1024, 1024, 256), None),
     "decode_global": ((8, 16, 8, 4, 1, 1568, 1540, 256), None),
     "decode_w1000": ((8, 16, 8, 4, 1, 1568, 1540, 256), 1000)}
+# K5 at the encoder-decoder and VLM serve paths' shapes ((B, H, live heads,
+# KV heads, S, cache slots, kv_len, D), causal): whisper-tiny (8 requests,
+# 6 heads of 64 over its 1500 encoder positions: 23 key tiles and a ragged
+# 24th) non-causal in the encoder, in the cross-attention of the 4-token
+# prompt and of a decode step; internvl2-26b (48 query heads on 8 KV
+# heads, a group of 6, D = 128) in the 768-position prefill (256 patches +
+# 512 tokens) and a decode step over 790 of its 800 cache slots
+K5_SERVE_SHAPES = {
+    "whisper_encoder": ((8, 6, 6, 6, 1500, 1500, 1500, 64), False),
+    "whisper_cross_prefill": ((8, 6, 6, 6, 4, 1500, 1500, 64), False),
+    "whisper_cross_decode": ((8, 6, 6, 6, 1, 1500, 1500, 64), False),
+    "internvl_prefill": ((8, 48, 48, 8, 768, 768, 768, 128), True),
+    "internvl_decode": ((8, 48, 48, 8, 1, 800, 790, 128), True)}
 # bfloat16's unit roundoff: K5 and the plain version agree within K5_TOL
 # in float32, and K5 then rounds its output to bfloat16 once
 BF16_U = 2.0 ** -8
@@ -615,7 +672,7 @@ def attn_inputs(torch, rng, b, h, s, t, d):
 
 
 def gqa_inputs(torch, rng, b, h, live, hkv, s, t_alloc, kv_len, d, *,
-               window=None, dtype=None):
+               window=None, dtype=None, causal=True):
     """q (B, H, S, D) and k, v (B, Hkv, t_alloc, D) on the card (float32,
     or ``dtype``), the cache slots >= kv_len NaN (K5 must not read them),
     and K5's keywords."""
@@ -626,7 +683,7 @@ def gqa_inputs(torch, rng, b, h, live, hkv, s, t_alloc, kv_len, d, *,
     kv[:, :, :, kv_len:] = np.nan
     q, k, v = (torch.as_tensor(x, device="cuda").to(dtype or torch.float32)
                for x in (q, *kv))
-    kw = {"causal": True, "kv_len": kv_len, "live_heads": live}
+    kw = {"causal": causal, "kv_len": kv_len, "live_heads": live}
     if window:
         kw["window"] = window
     return q, k, v, kw
@@ -701,17 +758,18 @@ def mamba_work(b, l, di, n):
             6 * b * l * di * n + 3 * b * l * di, b * l * di * n)
 
 
-def attn_work(b, h, s, t, d, live=None, hkv=None, window=None):
-    """(bytes, useful float ops) of causal float32 attention over t keys:
-    the live heads' q, the unique k and v (hkv heads) read once (with a
-    window, only the keys some query sees) and the output (all h heads)
-    written once; QK^T and PV over the visible (query, key) pairs of the
-    live heads only: query i sees min(i + t - s + 1, window) keys."""
+def attn_work(b, h, s, t, d, live=None, hkv=None, window=None, causal=True):
+    """(bytes, useful float ops) of float32 attention over t keys: the live
+    heads' q, the unique k and v (hkv heads) read once (with a window, only
+    the keys some query sees) and the output (all h heads) written once;
+    QK^T and PV over the visible (query, key) pairs of the live heads only:
+    causal query i sees min(i + t - s + 1, window) keys, else all t."""
     live = h if live is None else live
     hkv = h if hkv is None else hkv
     window = window or t
-    pairs = sum(min(i + t - s + 1, window) for i in range(s))
-    keys = min(t, s - 1 + window)
+    pairs = (sum(min(i + t - s + 1, window) for i in range(s)) if causal
+             else s * t)
+    keys = min(t, s - 1 + window) if causal else t
     return (4 * (b * live * s * d + b * h * s * d + 2 * b * hkv * keys * d),
             4 * d * pairs * b * live)
 
@@ -1963,15 +2021,19 @@ def serve_phase(torch, ops):
         "check_cpu_s": t_host}
 
 
-def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced):
-    """Prefill ``prompt`` (1, P), then decode the tokens of ``forced``
-    (1, T) one at a time, whatever the model predicts.  Returns every
-    step's float32 logits (T + 1, V) and the final recurrent states
-    {(group, layer, leaf): tensor}, all on the host."""
+def teacher_forced(torch, tf, fp32_highest, cfg, params, prompt, forced,
+                   inputs):
+    """Prefill ``prompt`` (1, P) with ``inputs`` (the model's frames or
+    patches, {} for neither), then decode the tokens of ``forced`` (1, T)
+    one at a time, whatever the model predicts.  Returns every step's
+    float32 logits (T + 1, V) and the final recurrent states {(group,
+    layer, leaf): tensor}, all on the host."""
     dev = params["embed"]["table"].device
     with torch.inference_mode(), fp32_highest():
-        h, caches, _ = tf.forward(params, cfg, prompt.to(dev), mode="prefill",
-                                  cache_len=prompt.shape[1] + forced.shape[1])
+        h, caches, _ = tf.forward(
+            params, cfg, prompt.to(dev), mode="prefill",
+            cache_len=cfg.n_patches + prompt.shape[1] + forced.shape[1],
+            **{k: x.to(dev) for k, x in inputs.items()})
         logits = [tf.logits_last(params, cfg, h)]
         for t in range(forced.shape[1]):
             h, caches, _ = tf.forward(params, cfg, forced[:, t:t + 1].to(dev),
@@ -1993,26 +2055,34 @@ MIXER_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
 
 def expected_launches(cfg, launches):
     """The serve run's launches: each mixer's kernel once per layer in the
-    prefill and in every decode step, no other kernel."""
+    prefill and in every decode step, and in an encoder-decoder model K5
+    once more per attention layer (the cross-attention) and once per
+    encoder layer in the prefill; no other kernel."""
     want = {name: 0 for name in launches}
     for mixer, _ in cfg.pattern:           # prefill + (gen - 1) decode steps
         if MIXER_KERNEL[mixer] is not None:
-            want[MIXER_KERNEL[mixer]] += cfg.n_groups * SERVE_GEN
+            cross = cfg.encdec is not None and mixer in ("attn", "local")
+            want[MIXER_KERNEL[mixer]] += ((1 + cross) * cfg.n_groups
+                                          * SERVE_GEN)
+    if cfg.encdec is not None:
+        want["flash_attention"] += cfg.encdec.n_enc_layers
     return want
 
 
 def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
                         prompt_len=SERVE_PROMPT, check_prompt=CHECK_PROMPT,
                         check_steps=CHECK_STEPS):
-    """Phases 9, 11 and 13: the serve path at full width on the card (each
-    kernel launched once per layer that runs it, a prefill and every
-    decode step, and no other kernel: checked exactly), then the first
-    ``check_layers`` layers of the same parameters on the card and on the
-    CPU, a ``check_prompt``-token prompt and ``check_steps`` teacher-forced
-    decode steps.  Returns the parameters (the breakdown phase reuses
-    them) and the phase line."""
+    """Phases 9, 11, 13, 15 and 17: the serve path at full width on the
+    card (each kernel launched once per layer that runs it, a prefill and
+    every decode step, and no other kernel: checked exactly), then the
+    first ``check_layers`` layers of the same parameters (and the whole
+    encoder) on the card and on the CPU, a ``check_prompt``-token prompt
+    (with one request's frames or patches) and ``check_steps``
+    teacher-forced decode steps.  Returns the parameters (the breakdown
+    phase reuses them) and the phase line."""
     import numpy as np
     from repro_torch.kernels.plain import fp32_highest
+    from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
     params, line = serve_run(torch, ops, cfg, prompt_len=prompt_len)
@@ -2029,14 +2099,15 @@ def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
     sub["groups"] = [{f"l{i}": gp[f"l{i}"] for i in range(len(pattern))}
                      for gp in params["groups"][:n_groups]]
     rng = np.random.default_rng(1)
-    prompt, forced = (torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)))
-                      for n in (check_prompt, check_steps))
-    card_logits, card_states = teacher_forced(torch, tf, fp32_highest,
-                                              sub_cfg, sub, prompt, forced)
+    inputs = serve.draw_batch(cfg, rng, 1, check_prompt, device="cpu")
+    prompt = inputs.pop("tokens")
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab, (1, check_steps)))
+    card_logits, card_states = teacher_forced(
+        torch, tf, fp32_highest, sub_cfg, sub, prompt, forced, inputs)
     host = tf.to_device(sub, "cpu")
     t0 = time.perf_counter()
-    host_logits, host_states = teacher_forced(torch, tf, fp32_highest,
-                                              sub_cfg, host, prompt, forced)
+    host_logits, host_states = teacher_forced(
+        torch, tf, fp32_highest, sub_cfg, host, prompt, forced, inputs)
     t_host = time.perf_counter() - t0
     del host
     step_rel = ((card_logits - host_logits).abs().amax(dim=1)
@@ -2052,15 +2123,23 @@ def checked_serve_phase(torch, ops, cfg, *, cut, check_layers,
     check(bool(state_rel) == recurrent
           and all(r <= CHECK_TOL for r in state_rel.values()),
           f"{cfg.name}: card vs CPU final states {state_rel}")
-    kinds = ({"ssm": dataclasses.asdict(cfg.ssm)} if recurrent
-             else {"sliding_window": cfg.sliding_window})
+    kinds = {}
+    if recurrent:
+        kinds["ssm"] = dataclasses.asdict(cfg.ssm)
+    elif any(m == "local" for m, _ in cfg.pattern):
+        kinds["sliding_window"] = cfg.sliding_window
+    if cfg.encdec is not None:
+        kinds["encdec"] = dataclasses.asdict(cfg.encdec)
+    if cfg.n_patches:
+        kinds["n_patches"] = cfg.n_patches
     return params, {
         **line, "cut": cut, "pattern": [list(lk) for lk in cfg.pattern],
         "d_ff": cfg.d_ff, **kinds,
         "param_bytes": sum(t.numel() * t.element_size()
                            for t in tf._leaves(params)),
         "check_layers": f"the first {check_layers} layers "
-                        f"({', '.join(m for m, _ in pattern)}), full width",
+                        f"({', '.join(m for m, _ in pattern)}), full width"
+                        + (", and the whole encoder" if cfg.encdec else ""),
         "check_prompt": check_prompt,
         "check_teacher_forced_steps": check_steps,
         "check_logits_rel_per_step": step_rel,
@@ -2195,7 +2274,7 @@ def moe_check(torch, cfg, params, tf, attention, layers, moe, fp32_highest):
 
 
 def deepseek_phase(torch, ops, cfg):
-    """Phase 15: deepseek-v3-671b at full width cut to one (MLA, MoE)
+    """Phase 19: deepseek-v3-671b at full width cut to one (MLA, MoE)
     layer: the serve run (no kernel of the port launched: the reference
     computes MLA and MoE outside any Pallas kernel), then its card-vs-CPU
     check by parts (the 53.4 GB layer is not copied to the host): (a) the
@@ -2248,23 +2327,24 @@ def deepseek_phase(torch, ops, cfg):
 
 
 def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
-    """Phases 8, 10, 12 and 14: the serve path's prefill and one decode
-    step (after one warm decode step) under torch.profiler."""
+    """Phases 8, 10, 12, 14, 16, 18 and 20: the serve path's prefill and
+    one decode step (after one warm decode step) under torch.profiler."""
     import numpy as np
+    from repro_torch.launch import serve
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    prefill = make_prefill_step(cfg, cache_len=prompt_len + SERVE_GEN)
+    prefill = make_prefill_step(
+        cfg, cache_len=cfg.n_patches + prompt_len + SERVE_GEN)
     decode = make_decode_step(cfg)
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_REQUESTS, prompt_len)), device="cuda")
+    batch = serve.draw_batch(cfg, np.random.default_rng(0), SERVE_REQUESTS,
+                             prompt_len, device="cuda")
     out = {}
 
     def stage(name, fn):
         result, out[name] = profiled(torch, fn, cross_check=True)
         return result
 
-    tok, caches, _ = stage("prefill",
-                           lambda: prefill(params, {"tokens": tokens}))
+    tok, caches, _ = stage("prefill", lambda: prefill(params, batch))
     tok, caches, _ = decode(params, caches, tok[:, None])
     stage("decode_step", lambda: decode(params, caches, tok[:, None]))
     return out
@@ -2429,7 +2509,13 @@ def main() -> int:
              GEMMA3_CHECK_LAYERS,
              {"prompt_len": GEMMA3_PROMPT,
               "check_prompt": GEMMA3_CHECK_PROMPT,
-              "check_steps": GEMMA3_CHECK_STEPS})):
+              "check_steps": GEMMA3_CHECK_STEPS}),
+            ("whisper", get_config("whisper-tiny"), "none: the whole model",
+             4, {"prompt_len": WHISPER_PROMPT, "check_prompt": WHISPER_PROMPT,
+                 "check_steps": WHISPER_CHECK_STEPS}),
+            ("internvl", dataclasses.replace(get_config("internvl2-26b"),
+                                             n_layers=INTERNVL_LAYERS),
+             INTERNVL_CUT, 2, {})):
         params, res = checked_serve_phase(torch, ops, cfg, cut=cut,
                                           check_layers=layers, **kw)
         serve_launches[tag] = res["launches"]
@@ -2441,8 +2527,8 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
-    # after the gemma3 parameters are freed: the deepseek layer holds
-    # 53.4 GB
+    # after the earlier models' parameters are freed: the deepseek layer
+    # holds 53.4 GB
     cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=1)
     params, res = deepseek_phase(torch, ops, cfg)
     serve_launches["deepseek"] = res["launches"]
@@ -2660,7 +2746,7 @@ def main() -> int:
                 plain_kw={"inner": 5})
             kern[-1]["launches_on_new_paths"] = {
                 f"serve_{path}": serve_launches[path]["flash_attention"]
-                for path in ("jamba", "gemma3")}
+                for path in ("jamba", "gemma3", "whisper", "internvl")}
             shapes_line["flash_attention_bound_cuda_cores"] = dict(zip(
                 ("bound_ms", "bound_by"), bound(nbytes, flops)))
         else:
@@ -2723,6 +2809,40 @@ def main() -> int:
             shapes_line[f"flash_attention_gemma3_{tag}"].update(
                 timing(*args, **tkw))
         del qg, kg, vg, ks, vs, band
+
+    # K5 at whisper's and internvl's serve shapes, their errors phase 2's:
+    # whisper's encoder and internvl's prefill as rows of their own (their
+    # launches the serve runs'), the rest in the kernel_shapes line; SDPA
+    # over the live heads with enable_gqa, causal as the row, is the
+    # yardstick
+    for tag, (shape, causal) in K5_SERVE_SHAPES.items():
+        b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
+        qg, kg, vg, kw = gqa_inputs(torch, rng, *shape, causal=causal)
+        err = checks[f"K5_{tag}_err"]
+        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv,
+                                  causal=causal)
+        ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
+        args = (lambda: ops.flash_attention(qg, kg, vg, **kw),
+                lambda: plain.flash_attention_plain(qg, kg, vg, **kw),
+                nbytes, 3 * flops if s_ > 1 else flops,
+                lambda: sdpa(qg[:, :live], ks, vs, is_causal=causal and s_ > 1,
+                             enable_gqa=True))
+        tkw = {"peak_ops": PEAK_TF32_S if s_ > 1 else PEAK_OPS_S,
+               "plain_kw": {"inner": 5}}
+        shapes_line[f"flash_attention_{tag}"] = {
+            "shape": {"B": b_, "H": h_, "live_heads": live, "Hkv": hkv,
+                      "S": s_, "T_alloc": t_alloc, "kv_len": kv_len,
+                      "D": d_, "causal": causal}, "max_abs_err": err}
+        if tag in ("whisper_encoder", "internvl_prefill"):
+            model = tag.split("_")[0]
+            row(f"flash_attention ({tag.replace('_', ' ')}: "
+                f"{'causal' if causal else 'non-causal'}, S = {s_}, "
+                f"D = {d_}, {live} q / {hkv} KV heads)",
+                serve_launches[model]["flash_attention"], err, *args,
+                kernel="flash_attention", **tkw)
+        else:
+            shapes_line[f"flash_attention_{tag}"].update(timing(*args, **tkw))
+        del qg, kg, vg, ks, vs
 
     # K6 and K7 from a zero state at their serve paths' prefill shapes
     # (their rows) and from a non-zero state at the decode shapes, their

@@ -4,12 +4,23 @@
         --requests 8 --prompt-len 512 --gen-len 32
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \
         --device cpu
+    python -m repro_torch.launch.serve --arch whisper-tiny
+    python -m repro_torch.launch.serve --arch internvl2-26b --reduced \
+        --device cpu
 
 The port of the JAX package's ``launch/serve.py``: random parameters from
 seed 0, one batched prefill that returns the first greedy tokens and the
 caches, ``gen_len - 1`` greedy decode steps, and the reference's three
-printed lines.  It runs on the card unless ``--device cpu`` is given, and
-raises without a card.  ``serve()`` is the same run as a function.
+printed lines.  The prompts, and whisper's frame embeddings and internvl's
+patch embeddings (stubs of their front ends, as in the reference), are
+drawn as the reference draws them.  It runs on the card unless ``--device
+cpu`` is given, and raises without a card.  ``serve()`` is the same run as
+a function.
+
+A deliberate difference: the caches hold ``n_patches + prompt_len +
+gen_len`` positions.  The reference sizes them ``prompt_len + gen_len``
+without the prepended patches, and its prefill then writes the prompt's
+last positions past the cache's end, where they are dropped.
 """
 from __future__ import annotations
 
@@ -33,6 +44,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def draw_batch(cfg, rng: np.random.Generator, requests: int,
+               prompt_len: int, dtype=torch.float32, device=None) -> Dict:
+    """The prefill batch, in the reference's order from ``rng``: ``tokens``
+    (requests, prompt_len), then ``patches`` (requests, n_patches, d) when
+    ``cfg.n_patches``, then ``frames`` (requests, enc_len, d) when
+    ``cfg.encdec``, both standard normal cast to ``dtype``."""
+    dev = resolve_device(device)
+
+    def normal(n):
+        return torch.as_tensor(rng.standard_normal((requests, n, cfg.d_model)),
+                               device=dev).to(dtype)
+
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (requests, prompt_len)),
+        dtype=torch.int64, device=dev)}
+    if cfg.n_patches:
+        batch["patches"] = normal(cfg.n_patches)
+    if cfg.encdec is not None:
+        batch["frames"] = normal(cfg.encdec.enc_len)
+    return batch
+
+
 def serve(cfg, *, requests: int, prompt_len: int, gen_len: int,
           dtype=torch.float32, device=None,
           params: Optional[Dict] = None) -> Dict:
@@ -42,24 +75,24 @@ def serve(cfg, *, requests: int, prompt_len: int, gen_len: int,
     prefill and of the decode loop, each ending in a device synchronize,
     and the MoE drop fractions (summed over the MoE layers, 0 without):
     the prefill's and the mean of the decode steps'.
-    The prompts come from numpy's generator seeded with 0, as the
-    reference's; ``params`` defaults to ``tf.init_params(cfg, seed=0)``."""
+    The prompts (and patches and frames, ``draw_batch``) come from numpy's
+    generator seeded with 0, as the reference's; ``params`` defaults to
+    ``tf.init_params(cfg, seed=0)``.  The caches hold the patches too (see
+    the module's docstring)."""
     dev = resolve_device(device)
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
-    cache_len = prompt_len + gen_len
+    cache_len = cfg.n_patches + prompt_len + gen_len
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     decode = make_decode_step(cfg)
     if params is None:
         params = tf.init_params(cfg, seed=0, dtype=dtype, device=dev)
-    rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                          (requests, prompt_len)),
-                             dtype=torch.int64, device=dev)
+    batch = draw_batch(cfg, np.random.default_rng(0), requests, prompt_len,
+                       dtype, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    next_tok, caches, aux_prefill = prefill(params, {"tokens": tokens})
+    next_tok, caches, aux_prefill = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -1,10 +1,10 @@
-"""GQA attention, global or sliding-window (local), with a KV cache for
-decode, through the flash-attention kernel K5
-(``kernels/ops.py::flash_attention``); and DeepSeek's multi-head latent
-attention (MLA) with its latent cache.
+"""GQA attention, global or sliding-window (local), causal or
+bidirectional, with a KV cache for decode, and the whisper decoder's
+cross-attention over the encoder output, all through the flash-attention
+kernel K5 (``kernels/ops.py::flash_attention``); and DeepSeek's
+multi-head latent attention (MLA) with its latent cache.
 
-The port of the GQA and MLA parts of the JAX package's
-``models/attention.py``.
+The port of the JAX package's ``models/attention.py``.
 Weights and layouts are the reference's, 1:1: q heads are zero-padded from
 ``n_heads`` up to ``cfg.hp`` (``wq`` gains zero columns, ``wo`` zero rows).
 The reference repeats the K/V heads ``n_heads // n_kv_heads`` times
@@ -15,7 +15,9 @@ for the padded heads (``live_heads=n_heads``), so no repeated or padded
 copy of K/V is ever made.  Prefill attends causally over its own S
 positions (K/V read in place through their strides), a local layer only
 over the last ``window`` of them (K5's ``window``: the reference's
-``_causal_mask(s, t, window)``).  Decode attends with S = 1 over the
+``_causal_mask(s, t, window)``); with ``causal=False`` (whisper's encoder)
+every position sees all S, still rotated at positions ``[0, S)`` as the
+reference's.  Decode attends with S = 1 over the
 cache's valid slots (the reference's ``_sdpa`` under the mask ``pos <=
 idx``, and ``pos > idx - window`` on a local layer), passing the cache
 tensors themselves with ``kv_len`` the number of valid slots.
@@ -54,8 +56,15 @@ place and attends over the slots ``[0, idx]`` (the reference's mask ``pos
 reference's ``q_chunk`` (prefill queries in chunks under ``lax.scan``)
 bounds a trace's memory at 32k-token shapes and has no counterpart here.
 
-Not ported yet: cross-attention (``models/transformer.py::check_supported``
-raises for it, naming its ROADMAP item).
+Cross-attention (``init_cross`` .. ``cross_decode``, whisper's decoder):
+the decoder's q (B, hp, S, hd) over K/V (B, n_kv_heads, T, hd) projected
+from the encoder output, no RoPE, ``q_norm`` / ``k_norm`` under
+``cfg.qk_norm``, and no mask (K5 with ``causal=False`` over all T keys).
+Its cache is ``{"k", "v"}`` with no ``idx``: the prefill projects the
+encoder output once, writes it into the cache in place and attends over
+it (the reference projects it twice, once for ``cross_forward`` and once
+for ``make_cross_cache``; the values are the same), and decode reads it and
+never writes it.
 """
 from __future__ import annotations
 
@@ -118,10 +127,12 @@ def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                window: Optional[int] = None, return_kv: bool = False):
-    """Full-sequence (prefill) causal GQA over x (B, S, d) at positions
-    ``[0, S)``; with a ``window`` each position sees the last ``window``
-    positions up to itself (a local layer).
+                window: Optional[int] = None, causal: bool = True,
+                return_kv: bool = False):
+    """Full-sequence (prefill) GQA over x (B, S, d) at positions ``[0,
+    S)``: causal, and with a ``window`` each position sees the last
+    ``window`` positions up to itself (a local layer); with ``causal=False``
+    every position sees all S (whisper's encoder; no window).
 
     ``return_kv`` additionally returns the rotated (B, n_kv_heads, S, hd)
     K and V for the prefill cache.
@@ -129,7 +140,7 @@ def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=True, scale=cfg.hd ** -0.5,
+    out = kops.flash_attention(q, k, v, causal=causal, scale=cfg.hd ** -0.5,
                                live_heads=cfg.n_heads, window=window)
     y = _merge_heads(out) @ params["wo"]
     if return_kv:
@@ -192,6 +203,65 @@ def gqa_decode(params: Dict, x: torch.Tensor, cache: Dict,
                                live_heads=cfg.n_heads)
     new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
     return _merge_heads(out) @ params["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross(gen: torch.Generator, cfg: ModelConfig,
+               dtype=torch.float32) -> Dict:
+    return init_gqa(gen, cfg, dtype)
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, *, dtype=torch.float32,
+                     device=None) -> Dict:
+    """A zeroed cross cache of the encoder's ``enc_len`` positions."""
+    shape = (batch, cfg.n_kv_heads, cfg.encdec.enc_len, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_cross_cache(params: Dict, enc: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict) -> Dict:
+    """The encoder output's K and V (B, n_kv_heads, T, hd), projected once
+    a request and written into ``cache`` (a fresh ``init_cross_cache`` of
+    T slots) in place."""
+    k = _split_heads(enc @ params["wk"], cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(enc @ params["wv"], cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    if cache["k"].shape != k.shape:
+        raise ValueError(f"an encoder output of {k.shape[2]} positions does "
+                         f"not fit a {cache['k'].shape[2]}-slot cross cache "
+                         f"(cfg.encdec.enc_len)")
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    return {"k": cache["k"], "v": cache["v"]}
+
+
+def cross_decode(params: Dict, x: torch.Tensor, cross_cache: Dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) decoder states (S = 1 in decode) attending over every
+    cached encoder position; the cache is not written."""
+    hd = cfg.hd
+    q = _split_heads(x @ params["wq"], cfg.hp, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    out = kops.flash_attention(q, cross_cache["k"], cross_cache["v"],
+                               causal=False, scale=hd ** -0.5,
+                               live_heads=cfg.n_heads)
+    return _merge_heads(out) @ params["wo"]
+
+
+def cross_forward(params: Dict, x: torch.Tensor, enc: torch.Tensor,
+                  cfg: ModelConfig, cache: Dict
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, S, d) decoder states over enc: (B, T, d) encoder output, no
+    mask.  Returns the output and the cross cache: the encoder K/V,
+    projected once into ``cache`` in place."""
+    cross = make_cross_cache(params, enc, cfg, cache)
+    return cross_decode(params, x, cross, cfg), cross
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@
 ``models/transformer.py::init_params`` builds, with every leaf already a
 numpy array (``jax.tree.map(np.asarray, params)`` on the caller's side), and
 returns the port's parameters: the same nested dict of tensors, except that
-``groups`` — stacked by the reference along a leading ``n_groups`` axis for
-``lax.scan`` — becomes a list of one dict per group.  Nothing here imports
-JAX; only the tests hold both packages.
+``groups`` and ``encoder.layers`` — stacked by the reference along a
+leading ``n_groups`` / ``n_enc_layers`` axis for ``lax.scan`` (``jax.vmap``
+of the per-group / per-layer init) — become lists of one dict per group /
+layer.  Nothing here imports JAX; only the tests hold both packages.
 """
 from __future__ import annotations
 
@@ -30,14 +31,22 @@ def _group(tree, g: int):
     return tree[g]
 
 
+def _unstack(tree, device):
+    """A stacked tree as a list of its slices along the leading axis."""
+    n = len(next(iter(_leaves(tree))))
+    return [_tensors(_group(tree, g), device) for g in range(n)]
+
+
 def params_from_jax(tree: Dict, device=None) -> Dict:
     """The port's parameters, on ``device`` (``None``: the card), from a
     reference parameter tree of numpy arrays."""
     dev = resolve_device(device)
-    out = {k: _tensors(v, dev) for k, v in tree.items() if k != "groups"}
-    n_groups = len(next(iter(_leaves(tree["groups"]))))
-    out["groups"] = [_tensors(_group(tree["groups"], g), dev)
-                     for g in range(n_groups)]
+    out = {k: _tensors(v, dev) for k, v in tree.items()
+           if k not in ("groups", "encoder")}
+    out["groups"] = _unstack(tree["groups"], dev)
+    if "encoder" in tree:
+        out["encoder"] = {"layers": _unstack(tree["encoder"]["layers"], dev),
+                          "norm": _tensors(tree["encoder"]["norm"], dev)}
     return out
 
 

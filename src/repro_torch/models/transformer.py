@@ -6,12 +6,19 @@ any mixer among ``"attn"``, ``"local"``, ``"mla"``, ``"rwkv6"`` and
 ``"mamba"`` with a dense (``"mlp"``) or MoE (``"moe"``) FFN: the dense GQA
 family (smollm, qwen3), gemma3's sliding-window (local) and global layers,
 rwkv6-7b, moonshot's attention + MoE layers, deepseek-v3's MLA + MoE
-layers, and jamba's period with its MoE FFNs.  A model is a sequence of
+layers, and jamba's period with its MoE FFNs; and the two models with a
+second input: whisper (``cfg.encdec``: a bidirectional encoder over
+precomputed frame embeddings, ``frames``, and a cross-attention block
+after each attention layer's mixer) and internvl (``cfg.n_patches``:
+precomputed patch embeddings, ``patches``, prepended to the token
+embeddings, so the tokens start at position ``n_patches``).  Both
+front ends are stubs in the reference too.  A model is a sequence of
 layer groups, each one copy of ``cfg.pattern``; ``params["groups"]`` is a
 LIST of per-group dicts (the reference stacks them along a leading
 ``n_groups`` axis for ``lax.scan``; a Python loop over the list takes its
-place here, and ``models/convert.py`` unstacks a reference tree).  The
-caches are a list of per-group dicts in the same way.
+place here, and ``models/convert.py`` unstacks a reference tree), and so
+is ``params["encoder"]["layers"]``.  The caches are a list of per-group
+dicts in the same way.
 
 What has no counterpart on one card: ``lax.scan`` and remat (PyTorch runs
 eagerly, and serving keeps no activations for a backward pass), and the
@@ -23,8 +30,7 @@ attention layers, ring caches of ``min(cache_len, sliding_window)`` slots
 for local ones, latent caches for MLA layers, recurrent states for rwkv6
 and mamba layers) and ``decode`` (one token against them).  Both also
 return the reference's MoE auxiliaries, summed over the MoE layers.
-``train``, and the model parts not ported yet (encoder-decoder, VLM
-inputs), raise ``NotImplementedError`` naming their ROADMAP item.
+``train`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,22 +50,11 @@ MIXERS = ("attn", "local", "mla", "rwkv6", "mamba")
 LAYER_KINDS = tuple((mixer, ffn) for mixer in MIXERS
                     for ffn in ("mlp", "moe"))
 ATTN_KINDS = ("attn", "local")
-_TODO = {  # what is not ported yet -> its ROADMAP Queue A item
-    "encdec": "encoder-decoder models and cross-attention are not ported "
-              "yet (ROADMAP Queue A item 12.7)",
-    "vlm": "patch-embedding (VLM) inputs are not ported yet (ROADMAP Queue "
-           "A item 12.8)",
-    "train": "training is not ported yet (ROADMAP Queue A item 12.9)",
-}
+TRAIN_TODO = "training is not ported yet (ROADMAP Queue A item 12.9)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot
-    run yet."""
-    if cfg.encdec is not None:
-        raise NotImplementedError(_TODO["encdec"])
-    if cfg.n_patches:
-        raise NotImplementedError(_TODO["vlm"])
+    """Raise ``ValueError`` for a layer kind the port does not know."""
     for mixer, ffn in cfg.pattern:
         if (mixer, ffn) not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
@@ -74,12 +69,25 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str,
     init_mixer = {"attn": attn.init_gqa, "local": attn.init_gqa,
                   "mla": attn.init_mla, "rwkv6": rwkv_mod.init_rwkv6,
                   "mamba": mamba_mod.init_mamba}[mixer]
-    return {
+    p = {
         "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
         "mixer": init_mixer(gen, cfg, dtype),
         "ffn": (moe_mod.init_moe(gen, cfg, dtype) if ffn == "moe"
                 else L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)),
         "norm2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+    }
+    if cfg.encdec is not None and mixer in ATTN_KINDS:
+        p["cross"] = attn.init_cross(gen, cfg, dtype)
+        p["norm_cross"] = L.init_rmsnorm(cfg.d_model, dtype, gen.device)
+    return p
+
+
+def _init_enc_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
+    return {
+        "norm1": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "mixer": attn.init_gqa(gen, cfg, dtype),
+        "norm2": L.init_rmsnorm(cfg.d_model, dtype, gen.device),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
     }
 
 
@@ -103,6 +111,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_embeddings:
         params["head"] = {"table": L._normal(gen, (cfg.vocab, cfg.d_model),
                                              cfg.d_model ** -0.5, dtype)}
+    if cfg.encdec is not None:
+        params["encoder"] = {
+            "layers": [_init_enc_layer(gen, cfg, dtype)
+                       for _ in range(cfg.encdec.n_enc_layers)],
+            "norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+        }
     return params
 
 
@@ -144,9 +158,13 @@ def _window(cfg: ModelConfig, mixer: str) -> Optional[int]:
 def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int,
                  dtype, device) -> Dict:
     if mixer in ATTN_KINDS:
-        return {"self": attn.init_gqa_cache(cfg, batch, cache_len,
-                                            window=_window(cfg, mixer),
-                                            dtype=dtype, device=device)}
+        c = {"self": attn.init_gqa_cache(cfg, batch, cache_len,
+                                         window=_window(cfg, mixer),
+                                         dtype=dtype, device=device)}
+        if cfg.encdec is not None:
+            c["cross"] = attn.init_cross_cache(cfg, batch, dtype=dtype,
+                                               device=device)
+        return c
     if mixer == "mla":
         return {"self": attn.init_mla_cache(cfg, batch, cache_len,
                                             dtype=dtype, device=device)}
@@ -161,12 +179,44 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     cache of ``cache_len`` slots for a global attention layer, a ring of
     ``min(cache_len, sliding_window)`` slots for a local one, a latent
     cache of ``cache_len`` slots for an MLA layer, the recurrent state for
-    an rwkv6 or mamba layer."""
+    an rwkv6 or mamba layer; an attention layer of an encoder-decoder model
+    also gets a cross cache of the encoder's ``enc_len`` positions."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [{f"l{i}": _layer_cache(cfg, mixer, batch, cache_len, dtype, dev)
              for i, (mixer, _) in enumerate(cfg.pattern)}
             for _ in range(cfg.n_groups)]
+
+
+# ---------------------------------------------------------------------------
+# encoder (whisper)
+# ---------------------------------------------------------------------------
+
+def _sinusoidal(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) float32 position table: the sines of every position's
+    d / 2 angles, then their cosines (not interleaved).  The powers of
+    10000 are taken in float64 and rounded once: float32 ``pow`` may miss by
+    an ulp, which moves the angle of position 1500 by ~1e-4."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, (dim / d).double()).float()
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)[:, :d]
+
+
+def encode(params: Dict, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's bidirectional pre-norm encoder over precomputed frame
+    embeddings (B, T, d) (the conv front end is a stub in the reference
+    too): sinusoidal positions, then per layer non-causal GQA and the MLP,
+    then the encoder's norm."""
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
+                             frames.device).to(frames.dtype)
+    for lp in params["encoder"]["layers"]:
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        x = x + attn.gqa_forward(lp["mixer"], h, cfg, causal=False)
+        h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + L.mlp(lp["ffn"], h2)
+    return L.rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +228,12 @@ _SSM_FORWARD = {"rwkv6": rwkv_mod.rwkv6_forward,
 
 
 def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
-           mixer: str, ffn: str, *, mode: str
+           mixer: str, ffn: str, *, mode: str,
+           enc: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """One layer: (x, its new cache, its [moe_aux_loss, moe_drop_frac],
-    None for a dense FFN: no device call on the dense models' path)."""
+    None for a dense FFN: no device call on the dense models' path).
+    ``enc``: the encoder output of an encoder-decoder model's prefill."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     window = _window(cfg, mixer)
     if mixer == "mla":
@@ -207,6 +259,15 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
         new_cache = {"self": attn.fill_gqa_cache(ce["self"], k, v,
                                                  window=window)}
     x = x + o
+    if cfg.encdec is not None and mixer in ATTN_KINDS:
+        hc = L.rmsnorm(lp["norm_cross"], x, cfg.norm_eps)
+        if mode == "decode":
+            oc = attn.cross_decode(lp["cross"], hc, ce["cross"], cfg)
+            new_cache["cross"] = ce["cross"]
+        else:
+            oc, new_cache["cross"] = attn.cross_forward(lp["cross"], hc, enc,
+                                                        cfg, ce["cross"])
+        x = x + oc
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
     if ffn == "mlp":
         return x + L.mlp(lp["ffn"], h2), new_cache, None
@@ -217,25 +278,42 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str, caches: Optional[List[Dict]] = None,
-            cache_len: Optional[int] = None
+            cache_len: Optional[int] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict], torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, new caches, aux).
 
-    ``prefill`` builds caches of ``cache_len`` slots (default: the prompt
-    length) from ``tokens`` (B, S); ``decode`` runs ``tokens`` (B, 1)
-    against ``caches`` (KV caches updated in place, see
-    ``models/attention.py``; recurrent states replaced).  ``aux`` is the
-    reference's float32 (2,) ``[moe_aux_loss, moe_drop_frac]`` summed over
-    the MoE layers, zeros without any.
+    ``prefill`` builds caches of ``cache_len`` slots (default: the
+    sequence length, patches included) from ``tokens`` (B, S), after
+    ``patches`` (B, n_patches, d), cast to the embeddings' dtype, when
+    ``cfg.n_patches``, and over the encoding of ``frames`` (B, enc_len, d)
+    when ``cfg.encdec``; either one missing raises ``ValueError``.
+    ``decode`` runs ``tokens`` (B, 1) against ``caches`` (KV caches updated
+    in place, see ``models/attention.py``; recurrent states replaced; the
+    cross caches read) and takes neither.  ``aux`` is the reference's
+    float32 (2,) ``[moe_aux_loss, moe_drop_frac]`` summed over the MoE
+    layers, zeros without any.
     """
     if mode == "train":
-        raise NotImplementedError(_TODO["train"])
+        raise NotImplementedError(TRAIN_TODO)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     check_supported(cfg)
     if mode == "decode" and caches is None:
         raise ValueError("decode needs the caches of a prefill")
+    enc = None
+    if mode == "prefill" and cfg.encdec is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                             f"prefill needs frames (B, enc_len, d)")
+        enc = encode(params, cfg, frames)
     x = L.embed(params["embed"], tokens)
+    if mode == "prefill" and cfg.n_patches:
+        if patches is None:
+            raise ValueError(f"{cfg.name} takes patch embeddings: its "
+                             f"prefill needs patches (B, n_patches, d)")
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     if mode == "prefill":
         caches = init_caches(cfg, x.shape[0], cache_len or x.shape[1],
                              dtype=x.dtype, device=x.device)
@@ -244,7 +322,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         nc = {}
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             x, nc[f"l{i}"], aux_i = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg,
-                                           mixer, ffn, mode=mode)
+                                           mixer, ffn, mode=mode, enc=enc)
             if aux_i is not None:
                 aux = aux_i if aux is None else aux + aux_i
         new_caches.append(nc)

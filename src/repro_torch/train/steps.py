@@ -8,8 +8,10 @@ TF32, as the reference's float32 default), and returns
 ``(tokens int32 (B,), caches, aux)``: the reference's steps drop
 ``forward``'s MoE auxiliaries ``aux`` (float32 ``[moe_aux_loss,
 moe_drop_frac]``), and these pass them on, left on the device, so that a
-serving loop can report its drop fraction.  The train step is not ported
-yet (ROADMAP Queue A item 12.9).
+serving loop can report its drop fraction.  The prefill passes the
+batch's ``frames`` (whisper) and ``patches`` (internvl) on to the model,
+as the reference's.  The train step is not ported yet (ROADMAP Queue A
+item 12.9).
 """
 from __future__ import annotations
 
@@ -31,16 +33,18 @@ def _greedy(params: Dict, cfg: ModelConfig, hidden: torch.Tensor
 
 def make_prefill_step(cfg: ModelConfig, *,
                       cache_len: Optional[int] = None) -> Step:
-    """``prefill(params, batch)`` with ``batch["tokens"]`` (B, S): the
-    first greedy token of every request, caches of ``cache_len`` slots
-    (default: S) and the MoE auxiliaries."""
+    """``prefill(params, batch)`` with ``batch["tokens"]`` (B, S), and
+    ``batch["frames"]`` / ``batch["patches"]`` where the model takes them:
+    the first greedy token of every request, caches of ``cache_len`` slots
+    (default: S, patches included) and the MoE auxiliaries."""
     tf.check_supported(cfg)
 
     def prefill_step(params: Dict, batch: Dict):
         with torch.inference_mode(), fp32_highest():
-            hidden, caches, aux = tf.forward(params, cfg, batch["tokens"],
-                                             mode="prefill",
-                                             cache_len=cache_len)
+            hidden, caches, aux = tf.forward(
+                params, cfg, batch["tokens"], mode="prefill",
+                cache_len=cache_len, frames=batch.get("frames"),
+                patches=batch.get("patches"))
             return _greedy(params, cfg, hidden), caches, aux
 
     return prefill_step

@@ -322,8 +322,16 @@ def _attn_inputs(b, h, s, t, d, seed, device, dtype=torch.float32):
                  for sh in ((b, h, s, d), (b, h, t, d), (b, h, t, d)))
 
 
+# whisper-tiny's non-causal shapes (8 requests, 6 heads of 64 over its
+# 1500 encoder positions, 23 key tiles and a ragged 24th): the encoder's
+# self-attention, the cross-attention of a 4-token prompt, and a decode
+# step against the cross cache
+WHISPER_K5_SHAPES = [(8, 6, 1500, 1500, 64, False), (8, 6, 4, 1500, 64, False),
+                     (8, 6, 1, 1500, 64, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,s,t,d,causal", K5_SHAPES + [
+@pytest.mark.parametrize("b,h,s,t,d,causal", K5_SHAPES + WHISPER_K5_SHAPES + [
     (1, 2, 70, 130, 16, True), (1, 3, 33, 47, 16, False)])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, s, t, d, causal):
     q, k, v = _attn_inputs(b, h, s, t, d, seed=s + t + d, device=cuda)
@@ -389,6 +397,26 @@ def test_flash_attention_kernel_grouped_cache(cuda, dtype, d, b, h, live,
     assert not bool(got[:, live:].any())          # padded heads exactly 0
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# internvl2-26b's grouped shapes: 48 query heads on 8 KV heads (a group of
+# 6) at D = 128, the 768-position prefill (256 patches + 512 tokens) and a
+# decode step over 790 of the 800 cache slots
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t_alloc,kv_len", [(768, 768, 768),
+                                              (1, 800, 790)])
+def test_flash_attention_kernel_internvl_group_of_six(cuda, s, t_alloc,
+                                                      kv_len):
+    q, k, v = _gqa_cache_inputs(8, 48, 8, s, t_alloc, kv_len, 128,
+                                seed=s + kv_len, device=cuda)
+    kw = {"causal": True, "kv_len": kv_len, "live_heads": 48}
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == before + 1
+    want = plain.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-5
 
 
 def _k5_excess(got, q, k, v, kw):
@@ -567,6 +595,37 @@ def test_deepseek_serving_on_card_matches_cpu(cuda):
                                   res["host"]["tokens"])
     for key in ("moe_drop_frac_prefill", "moe_drop_frac_decode"):
         assert res["card"][key] == res["host"][key] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b"])
+def test_encdec_and_vlm_serving_on_card_matches_cpu(cuda, name):
+    """Reduced whisper-tiny (frames through the encoder and cross-attention)
+    and reduced internvl2-26b (8 patches prepended) served on the card and
+    on the CPU with the same parameters: the same greedy tokens, and K5
+    launched once per encoder layer in the prefill and once per self- and
+    cross-attention of every decoder layer in the prefill and in every
+    decode step, no other kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(name).reduced()
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    res = {}
+    for key, dev, params in (("card", cuda, card), ("host", "cpu", host)):
+        ops.reset_launches()
+        res[key] = serve.serve(cfg, requests=2, prompt_len=6, gen_len=5,
+                               device=dev, params=params)
+        if key == "card":
+            counts = ops.launch_counts()
+    per_step = 2 * cfg.n_layers if cfg.encdec else cfg.n_layers
+    enc = cfg.encdec.n_enc_layers if cfg.encdec else 0
+    assert counts["flash_attention"] == enc + per_step * 5
+    assert sum(counts.values()) == counts["flash_attention"]
+    np.testing.assert_array_equal(res["card"]["tokens"],
+                                  res["host"]["tokens"])
 
 
 @pytest.mark.cuda
