@@ -27,7 +27,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   non-causal shapes (the encoder over 1500 positions, the
                   cross-attention of a 4-token prompt and of a decode
                   step) and internvl2-26b's group of 6 (prefill and
-                  decode), within 2e-5).
+                  decode), within 2e-5); K5's backward at the train
+                  paths' shapes (``K5_BWD_SHAPES``: smollm-135m's step, a
+                  gemma3-4b local layer at D = 256 with window 1024,
+                  internvl2-26b's group of 6, whisper-tiny's encoder and
+                  its cross-attention), float32 and bfloat16: the forward
+                  with the log-sum-exp bitwise the forward without it,
+                  dq, dk, dv within 2e-5 of their largest (beyond
+                  bfloat16's rounding) of the plain backward, dq of the
+                  padded heads zero, two calls bitwise equal.
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
@@ -181,6 +189,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   recomputed on the CPU), each within 1e-4, and (c) the
                   whole layer's greedy tokens on the card.
 20. ``breakdown_serve_deepseek`` — phase 8 for the deepseek layer.
+21. ``train_smollm`` — the train path (``repro_torch.train.steps.
+                  make_train_step``): smollm-135m whole at full width
+                  (30 layers, seed-0 parameters drawn on the card),
+                  float32, 8 x 1024 tokens from the synthetic pipeline,
+                  5 AdamW steps of the default ``AdamWConfig``, micro_steps
+                  1: per step loss, grad_norm, lr, ms, tokens/s and K5's
+                  launches (exactly 60 forward and 30 backward: remat runs
+                  each group's forward again in the backward pass; no other
+                  kernel); ``train_peak_bytes``; one more step profiled
+                  (idle share, device calls); the same parameters cut to
+                  their first 2 layers on 2 x 256 tokens, card against CPU
+                  (loss and grad_norm within 1e-5 relative, every gradient
+                  leaf within 1e-4 of its largest, the parameters after
+                  one step within 2.5 lr); 6 steps at lr 1e-3 without
+                  warmup on one repeated batch must lower the loss.
+22. ``train_whisper`` — the same for whisper-tiny whole, 8 x (1500 frames
+                  + 64 tokens), 3 steps: K5 20 forward (4 encoder layers
+                  once, the 4 decoder groups' self- and cross-attention
+                  twice) and 12 backward a step; card against CPU on the
+                  whole model's loss, grad_norm and gradients of the first
+                  step's batch (every leaf within 3e-4 of its largest: see
+                  ``TRAIN_GRAD_TOL``).
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
@@ -191,14 +221,16 @@ device time, and dense K4 float64 against ``baddbmm`` in turns), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
 mapped, once per element type, and the mapped one over 4 systems in
 float64; K5's gemma3 windowed prefill, whisper encoder and internvl
-prefill; ``ms`` and ``library_ms`` are the device
+prefill; K5's forward with the log-sum-exp at smollm's train shape and
+its backward at each train shape, beside SDPA's forward and the backward
+alone of SDPA; ``ms`` and ``library_ms`` are the device
 time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9, 11,
-13, 15, 17 and 19, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+13, 15, 17, 19, 21 and 22, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
@@ -210,7 +242,8 @@ mapped K3/K4 over 4 systems; ``robust``: K2 and the float64 mapped K3/K4;
 each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
 K1 on the kernel options) on each rank and each dynamic run, the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
-phase 11: K6 and K5; phases 13, 15 and 17: K5; phase 19: none; the
+phase 11: K6 and K5; phases 13, 15 and 17: K5; phase 19: none;
+phases 21 and 22: K5 and its backward; the
 dense K3/K4
 entry points are off the paths since the sweep runs the mapped form),
 split by stage in ``launches_by_stage``
@@ -323,6 +356,9 @@ SOURCES = {
                             "src/repro/kernels/panel_update.py:86"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:77"),
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:77"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/ssm_scan.py:71"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -593,6 +629,9 @@ def kernel_checks(torch, ops, plain, adj_real):
                       f"relative error {rel} > {SCAN_TOL}")
                 out[f"{name}_{tag}_{'zero' if zero else 'state'}_err"] = err
     out["K6_K7_rel_tol"] = SCAN_TOL
+
+    # K5's backward at the train paths' shapes
+    out.update(k5_backward_checks(torch, ops, plain))
     return out
 
 
@@ -647,6 +686,102 @@ K5_SERVE_SHAPES = {
 # bfloat16's unit roundoff: K5 and the plain version agree within K5_TOL
 # in float32, and K5 then rounds its output to bfloat16 once
 BF16_U = 2.0 ** -8
+# K5's backward (and its forward with the log-sum-exp) at the train paths'
+# shapes ((B, H, live heads, KV heads, S, T, D), causal, window): smollm-
+# 135m's train step (8 x 1024 tokens, 9 of 16 query heads live on 3 KV
+# heads); a gemma3-4b local layer (D = 256, window 1024, 2 x 2048 tokens,
+# 8 of 16 live on 4 KV heads); internvl2-26b's group of 6 (D = 128, 48 on
+# 8 KV heads, 2 x 768); whisper-tiny's encoder (8 x 1500, non-causal) and
+# its cross-attention (64 decoder tokens over 1500 encoder positions).
+# Tolerance: dq, dk, dv within K5_BWD_TOL of the largest gradient of their
+# kind (float32 sums over up to 2048 keys or queries, and over a group's
+# heads, in another order than the plain version's cuBLAS products), in
+# bfloat16 beyond the gradient's one rounding (BF16_U of the value)
+K5_BWD_SHAPES = {
+    "smollm_train": ((8, 16, 9, 3, 1024, 1024, 64), True, None),
+    "gemma3_local_train": ((2, 16, 8, 4, 2048, 2048, 256), True, 1024),
+    "internvl_train": ((2, 48, 48, 8, 768, 768, 128), True, None),
+    "whisper_encoder_train": ((8, 6, 6, 6, 1500, 1500, 64), False, None),
+    "whisper_cross_train": ((8, 6, 6, 6, 64, 1500, 64), False, None)}
+K5_BWD_TOL = 2e-5
+# calls a backward timing queues behind device_ms's spin: a call of
+# SDPA's backward through the autograd engine took 0.6-3.2 ms of host (50
+# of them overran the ~50 ms spin) on an H100 80GB HBM3 at 700 W
+BWD_DEVICE_N = 8
+
+
+def k5_bwd_inputs(torch, b, h, live, hkv, s, t, d, *, causal, window,
+                  dtype=None, seed=0):
+    """q, dO (B, H, S, D), k, v (B, Hkv, T, D), standard normal from a
+    generator on the card, and K5's keywords."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, h, s, d), generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, t, d), generator=g, device=dev)
+            for _ in range(2))
+    q, k, v, do = (x.to(dtype or torch.float32) for x in (q, k, v, do))
+    return q, k, v, do, {"causal": causal, "live_heads": live,
+                         "window": window}
+
+
+def k5_backward_checks(torch, ops, plain):
+    """Phase 2's K5 backward checks, float32 and bfloat16 at each of
+    K5_BWD_SHAPES: the forward with the log-sum-exp bitwise the forward
+    without it, dq, dk, dv against the plain backward in float32 on the
+    same inputs (K5_BWD_TOL of the largest, beyond bfloat16's rounding),
+    dq of the padded heads exactly zero, two calls bitwise equal."""
+    out = {}
+    for tag, (shape, causal, window) in K5_BWD_SHAPES.items():
+        live = shape[2]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"K5_bwd_{tag}_{str(dtype)[6:]}"
+            q, k, v, do, kw = k5_bwd_inputs(torch, *shape, causal=causal,
+                                            window=window, dtype=dtype)
+            out0 = ops.flash_attention(q, k, v, **kw)
+            o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(o, out0), f"{name}: the forward with the "
+                  f"log-sum-exp differs from the forward without it")
+            got = ops.flash_attention_backward(q, k, v, o, do, lse, **kw)
+            again = ops.flash_attention_backward(q, k, v, o, do, lse, **kw)
+            want = plain.flash_attention_backward_plain(
+                q.float(), k.float(), v.float(), o.float(), do.float(), lse,
+                **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: two backward calls differ")
+            step = BF16_U if dtype == torch.bfloat16 else 0.0
+            errs = []
+            for part, x, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.abs().max())
+                diff = (x.float() - w).abs()
+                rel = float((diff - step * w.abs()).max()) / scale
+                check(bool(torch.isfinite(x).all()) and rel <= K5_BWD_TOL,
+                      f"{name} {shape}: {part} off by {rel} of its largest "
+                      f"(> {K5_BWD_TOL})")
+                errs.append(float(diff.max()) / scale)
+            pad = float(got[0][:, live:].abs().max()) if live < shape[1] \
+                else 0.0
+            check(pad == 0.0, f"{name}: dq of a padded head is {pad}")
+            out[name] = {"rel_err_dq_dk_dv": errs,
+                         "max_abs_err": max(float((x.float() - w).abs().max())
+                                            for x, w in zip(got, want)),
+                         "bitwise_repeat": True,
+                         "forward_lse_bitwise": True, "padded_dq_zero": True}
+            del q, k, v, do, o, lse, got, again, want
+    out["K5_bwd_rel_tol"] = K5_BWD_TOL
+    return out
+
+
+def k5_bwd_work(b, h, live, hkv, s, t, d, *, causal, window):
+    """(bytes, float ops) of K5's backward: q, o, dO of the live heads,
+    the log-sum-exp and the unique k, v read once, dq (all H heads), dk
+    and dv written once; 2.5 x the forward's operations (five S x T x D
+    products over the visible pairs against two)."""
+    _, flops = attn_work(b, h, s, t, d, live, hkv, window, causal)
+    return (4 * (3 * b * live * s * d + b * h * s + 2 * b * hkv * t * d
+                 + b * h * s * d + 2 * b * hkv * t * d), 2.5 * flops)
 
 
 def k5_error(torch, plain, got, q, k, v, kw):
@@ -2326,6 +2461,230 @@ def deepseek_phase(torch, ops, cfg):
         "check_moe_s": t_moe, "check_layer_tokens": toks[0].tolist()}
 
 
+# the train phases: smollm-135m whole at full width, 8 x 1024 tokens from
+# the synthetic pipeline (batch i at step i), 5 steps of the default
+# AdamWConfig in float32, micro_steps 1 (K5 sees the whole batch); its
+# card-vs-CPU check on the same seed-0 parameters cut to the first 2
+# layers, 2 x 256 tokens; the descent check 6 steps at lr 1e-3 without
+# warmup on one repeated batch.  whisper-tiny whole, 8 x (1500 frames + 64
+# tokens), 3 steps.  Tolerances: loss and grad_norm within TRAIN_LOSS_TOL
+# relative, each gradient leaf within TRAIN_GRAD_TOL of its largest entry
+# (float32 sums in another order, K5 against the plain attention); the
+# parameters after one step within 2.5 lr (Adam's first step is lr times
+# the gradient's sign, and a gradient near 0 may take either sign).
+# whisper's gradients get 3e-4: over 1500 near-evenly weighted keys K5's
+# forward (3xTF32 products, ~2^-21 each against float32's 2^-24) leaves
+# its outputs up to 2e-5 of their largest from float32's, and the
+# backward's delta = rowsum(dO * O) carries that into dq and on into the
+# q and k projections' gradients (1.3e-4 measured on an H100 80GB HBM3
+# at 700 W, where K5's backward alone was within 1e-6 of float32's)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 6, 1e-3
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_STEPS = 8, 64, 3
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = {"smollm-135m": 1e-4, "whisper-tiny": 3e-4}
+K5_COUNTS = ("flash_attention", "flash_attention_backward")
+
+
+def train_steps(torch, ops, step, params, opt, batches, tokens):
+    """Run ``step`` over ``batches``; per step its metrics, host-clock ms
+    (ending in a synchronize), tokens/s and K5's forward and backward
+    launches."""
+    rows = []
+    for i, batch in enumerate(batches):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = ops.launch_counts()
+        rows.append({"step": i + 1, **{k: float(v) for k, v in m.items()},
+                     "ms": dt * 1e3, "tokens_per_s": tokens / dt,
+                     "k5": {k: after[k] - before[k] for k in K5_COUNTS}})
+    return params, opt, rows
+
+
+def card_vs_cpu(torch, cfg, card, host, batch):
+    """The loss, grad_norm and every gradient leaf of ``cfg`` on the card
+    and on the CPU (plain kernels) from the same parameters and batch:
+    the relative differences, and the largest leaf's."""
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import global_norm, tree_zip
+    from repro_torch.train.steps import loss_and_grads
+    from repro_torch.kernels.plain import fp32_highest
+
+    with fp32_highest():
+        g_card, m_card = loss_and_grads(
+            card, cfg, device_batch(batch, torch.float32, "cuda"))
+        g_host, m_host = loss_and_grads(
+            host, cfg, device_batch(batch, torch.float32, "cpu"))
+    out = {"loss_card": float(m_card["loss"]),
+           "loss_cpu": float(m_host["loss"])}
+    for key, a, b in (("loss", m_card["loss"], m_host["loss"]),
+                      ("grad_norm", global_norm(g_card),
+                       global_norm(g_host))):
+        out[f"{key}_rel"] = abs(float(a) - float(b)) / abs(float(b))
+        check(out[f"{key}_rel"] <= TRAIN_LOSS_TOL,
+              f"{cfg.name}: card {key} {float(a)} against the CPU's "
+              f"{float(b)}")
+    tol = TRAIN_GRAD_TOL[cfg.name]
+    worst = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in tree_zip(g_card, g_host))
+    check(worst <= tol, f"{cfg.name}: a gradient leaf on the card is off "
+          f"by {worst} of its largest (> {tol})")
+    out["grad_tol"] = tol
+    out["grad_leaf_max_rel"] = worst
+    out["grad_leaves"] = sum(1 for _ in tree_zip(g_card, g_host))
+    del g_card
+    return out
+
+
+def train_smollm_phase(torch, ops):
+    """Phase 21: ``make_train_step`` on smollm-135m whole; see the
+    constants above.  K5's launches a step are checked: with
+    ``cfg.remat`` each of the 30 groups runs its forward twice (the
+    forward, then its recompute in the backward pass), so 60 forward and
+    30 backward launches, and no other kernel."""
+    import dataclasses as dc
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    import numpy as np
+
+    cfg = get_config("smollm-135m")
+    dev = torch.device("cuda")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    # copies of the seed-0 draw cut to its first layers (the steps below
+    # update ``params`` in place)
+    cut_host = tf.to_device({"embed": params["embed"],
+                             "final_norm": params["final_norm"],
+                             "groups": params["groups"][:TRAIN_CHECK_LAYERS]},
+                            "cpu")
+    cut_card = tf.to_device(cut_host, dev)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [device_batch(make_batch_for(cfg, shape, step=i),
+                            torch.float32, dev) for i in range(TRAIN_STEPS)]
+    opt = init_adamw(params)
+    step = make_train_step(cfg, micro_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    params, opt, rows = train_steps(torch, ops, step, params, opt, batches,
+                                    TRAIN_BATCH * TRAIN_SEQ)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_backward": cfg.n_layers}
+    for r in rows:
+        check(r["k5"] == want, f"train_smollm step {r['step']}: K5 "
+              f"launches {r['k5']}, expected {want}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"train_smollm step {r['step']}: loss {r['loss']}")
+    check(sum(launches.values()) == TRAIN_STEPS * sum(want.values()),
+          f"train_smollm launched other kernels: {launches}")
+    _, prof = profiled(torch, lambda: step(params, opt, batches[0]))
+    del params, opt
+
+    cfg_cut = dc.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    check_batch = make_batch_for(cfg_cut, ShapeConfig(
+        "check", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, "train"))
+    vs_cpu = card_vs_cpu(torch, cfg_cut, cut_card, cut_host, check_batch)
+    step_cut = make_train_step(cfg_cut, micro_steps=1)
+    p_card, _, m_card = step_cut(cut_card, init_adamw(cut_card),
+                                 device_batch(check_batch, torch.float32,
+                                              dev))
+    p_host, _, _ = step_cut(cut_host, init_adamw(cut_host),
+                            device_batch(check_batch, torch.float32, "cpu"))
+    lr = float(m_card["lr"])
+    moved = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tf._leaves(p_card), tf._leaves(p_host)))
+    check(moved <= 2.5 * lr, f"train_smollm: the parameters after one step "
+          f"differ by {moved} > 2.5 lr ({lr}) between card and CPU")
+    vs_cpu.update({"params_after_one_step_max_abs": moved, "lr": lr})
+    del p_card, p_host, cut_card, cut_host
+
+    params = tf.init_params(cfg, seed=0, device=dev)
+    descent = make_train_step(cfg, micro_steps=1, acfg=AdamWConfig(
+        lr=TRAIN_DESCENT_LR, warmup_steps=0))
+    _, _, d_rows = train_steps(torch, ops, descent, params,
+                               init_adamw(params),
+                               [batches[0]] * TRAIN_DESCENT_STEPS,
+                               TRAIN_BATCH * TRAIN_SEQ)
+    losses = [r["loss"] for r in d_rows]
+    check(losses[-1] < losses[0] - 0.01, f"train_smollm: the loss did not "
+          f"descend on a repeated batch: {losses}")
+    del params, batches
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "cut": "none: the "
+            "whole model", "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "micro_steps": 1, "dtype": "float32", "steps": rows,
+            "launches": launches, "k5_per_step": want,
+            "train_peak_bytes": peak, "profiled_step": prof,
+            "card_vs_cpu": {"layers": TRAIN_CHECK_LAYERS,
+                            "batch": [TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ],
+                            **vs_cpu},
+            "descent": {"lr": TRAIN_DESCENT_LR, "losses": losses}}
+
+
+def train_whisper_phase(torch, ops):
+    """Phase 22: ``make_train_step`` on whisper-tiny whole, 3 steps.  K5
+    a step: the 4 encoder layers once each (the encoder is not
+    checkpointed), the 4 decoder groups' self- and cross-attention twice
+    each (forward and recompute): 4 + 16 = 20 forward launches, and 4 + 8
+    = 12 backward.  Card vs CPU: the whole model's loss, grad_norm and
+    gradients on the first step's batch, before the steps."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    import numpy as np
+
+    cfg = get_config("whisper-tiny")
+    dev = torch.device("cuda")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    host = tf.to_device(params, "cpu")
+    shape = ShapeConfig("train", WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_BATCH,
+                        "train")
+    raw = [make_batch_for(cfg, shape, step=i)
+           for i in range(WHISPER_TRAIN_STEPS)]
+    vs_cpu = card_vs_cpu(torch, cfg, params, host, raw[0])
+    del host
+    batches = [device_batch(b, torch.float32, dev) for b in raw]
+    step = make_train_step(cfg, micro_steps=1)
+    ops.reset_launches()
+    params, opt, rows = train_steps(
+        torch, ops, step, params, init_adamw(params), batches,
+        WHISPER_TRAIN_BATCH * (WHISPER_TRAIN_TOKENS + cfg.encdec.enc_len))
+    launches = ops.launch_counts()
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    want = {"flash_attention": n_enc + 2 * 2 * n_dec,
+            "flash_attention_backward": n_enc + 2 * n_dec}
+    for r in rows:
+        check(r["k5"] == want, f"train_whisper step {r['step']}: K5 "
+              f"launches {r['k5']}, expected {want}")
+        check(np.isfinite(r["loss"]), f"train_whisper: loss {r['loss']}")
+    check(abs(rows[0]["loss"] - vs_cpu["loss_card"])
+          <= TRAIN_LOSS_TOL * abs(vs_cpu["loss_card"]), "train_whisper: the "
+          "first step's loss differs from the checked forward's")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "cut": "none: the whole model",
+            "batch": [WHISPER_TRAIN_BATCH, cfg.encdec.enc_len,
+                      WHISPER_TRAIN_TOKENS], "micro_steps": 1,
+            "steps": rows, "launches": launches, "k5_per_step": want,
+            "card_vs_cpu": vs_cpu}
+
+
 def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
     """Phases 8, 10, 12, 14, 16, 18 and 20: the serve path's prefill and
     one decode step (after one warm decode step) under torch.profiler."""
@@ -2348,6 +2707,78 @@ def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
     tok, caches, _ = decode(params, caches, tok[:, None])
     stage("decode_step", lambda: decode(params, caches, tok[:, None]))
     return out
+
+
+def k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line):
+    """The ``kernels`` line's rows of K5 on the train paths: its forward
+    with the log-sum-exp at smollm's train shape and its backward at each
+    of K5_BWD_SHAPES (float32), timed through ``row`` (``main``'s); the
+    backward's CUDA-core bound goes into ``shapes_line``."""
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K5's forward with the log-sum-exp at smollm's train shape and its
+    # backward at the train paths' shapes (float32; rows of their own, the
+    # launches the train phases', 0 where no train phase runs the shape);
+    # the bound counts 2.5 x the forward's operations as 3 TF32 products
+    # each (the prefill's rule; the CUDA-core bound beside it in the
+    # kernel_shapes line: the backward runs float32 FMAs); the yardsticks
+    # are SDPA's forward and the backward alone of SDPA with enable_gqa
+    # over the live heads (a boolean band mask for the window)
+    for tag, (shape, causal, window) in K5_BWD_SHAPES.items():
+        b_, h_, live, hkv, s_, t_, d_ = shape
+        q, k, v, do, kw = k5_bwd_inputs(torch, *shape, causal=causal,
+                                        window=window)
+        o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        band = None
+        if window:
+            ones = torch.ones((s_, t_), dtype=torch.bool, device=dev)
+            band = ones.tril(t_ - s_) & ~ones.tril(t_ - s_ - window)
+        sdpa_kw = ({"attn_mask": band} if window else
+                   {"is_causal": causal})
+        model = tag.split("_")[0]
+        desc = (f"{tag.replace('_train', '').replace('_', ' ')} train: "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{f', window {window}' if window else ''}, S = {s_}, "
+                f"T = {t_}, D = {d_}, {live} of {h_} q / {hkv} KV heads")
+        if tag == "smollm_train":
+            nbytes, flops = attn_work(b_, h_, s_, t_, d_, live, hkv, window,
+                                      causal)
+            nbytes += 4 * b_ * h_ * s_
+            row(f"flash_attention (forward with log-sum-exp, {desc})",
+                train_res["smollm"]["launches"]["flash_attention"],
+                float((o - plain.flash_attention_plain(q, k, v, **kw)
+                       ).abs().max()),
+                lambda: ops.flash_attention(q, k, v, return_lse=True, **kw),
+                lambda: plain.flash_attention_plain(q, k, v, return_lse=True,
+                                                    **kw),
+                nbytes, 3 * flops,
+                lambda: sdpa(q[:, :live], k, v, enable_gqa=True, **sdpa_kw),
+                kernel="flash_attention", peak_ops=PEAK_TF32_S,
+                plain_kw={"reps": 3})
+        qs, ks, vs = (x.detach().requires_grad_(True)
+                      for x in (q[:, :live], k, v))
+        out_l = sdpa(qs, ks, vs, enable_gqa=True, **sdpa_kw)
+        do_l = do[:, :live].contiguous()
+        nbytes, flops = k5_bwd_work(*shape, causal=causal, window=window)
+        row(f"flash_attention_backward ({desc})",
+            train_res[model]["launches"]["flash_attention_backward"]
+            if model in train_res else 0,
+            checks[f"K5_bwd_{tag}_float32"]["max_abs_err"],
+            lambda: ops.flash_attention_backward(q, k, v, o, do, lse, **kw),
+            lambda: plain.flash_attention_backward_plain(q, k, v, o, do, lse,
+                                                         **kw),
+            nbytes, 3 * flops,
+            lambda: torch.autograd.grad(out_l, (qs, ks, vs), do_l,
+                                        retain_graph=True),
+            kernel="flash_attention_backward", peak_ops=PEAK_TF32_S,
+            plain_kw={"reps": 3}, device_n=BWD_DEVICE_N)
+        shapes_line[f"flash_attention_backward_{tag}"] = {
+            "shape": {"B": b_, "H": h_, "live_heads": live, "Hkv": hkv,
+                      "S": s_, "T": t_, "D": d_, "causal": causal,
+                      "window": window},
+            "bound_cuda_cores": dict(zip(("bound_ms", "bound_by"),
+                                         bound(nbytes, flops)))}
+        del q, k, v, do, o, lse, qs, ks, vs, out_l, do_l, band
 
 
 def main() -> int:
@@ -2538,6 +2969,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    train_res = {"smollm": train_smollm_phase(torch, ops)}
+    emit({"phase": "train_smollm", **train_res["smollm"]})
+    train_res["whisper"] = train_whisper_phase(torch, ops)
+    emit({"phase": "train_whisper", **train_res["whisper"]})
+
     # per-kernel times at the main paths' shapes: the kernel and the
     # library call on the device alone (device_ms), the plain version with
     # CUDA events around it (cuda_ms, ``plain_kw`` its repetitions)
@@ -2546,12 +2982,13 @@ def main() -> int:
     kern = []
 
     def timing(fn, plain_fn, nbytes, nops, library_fn=None, *,
-               peak_ops=PEAK_OPS_S, sfu_ops=0, plain_kw=None):
+               peak_ops=PEAK_OPS_S, sfu_ops=0, plain_kw=None, device_n=50):
         b_ms, b_by = bound(nbytes, nops, peak_ops, sfu_ops)
-        return {"ms": device_ms(torch, fn),
+        return {"ms": device_ms(torch, fn, n=device_n),
                 "plain_ms": cuda_ms(torch, plain_fn, **(plain_kw or {})),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library_fn and device_ms(torch, library_fn)}
+                "library_ms": library_fn and device_ms(torch, library_fn,
+                                                       n=device_n)}
 
     def row(name, n_launches, err, *args, kernel=None, **kw):
         src, replaces = SOURCES[kernel or name]
@@ -2843,6 +3280,8 @@ def main() -> int:
         else:
             shapes_line[f"flash_attention_{tag}"].update(timing(*args, **tkw))
         del qg, kg, vg, ks, vs
+
+    k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line)
 
     # K6 and K7 from a zero state at their serve paths' prefill shapes
     # (their rows) and from a non-zero state at the decode shapes, their

@@ -45,8 +45,12 @@ SIGNATURES = {
     "panel_update_empty": ("panel_update", "panel_update_empty_launch",
                            (_I, _P)),
     "flash_attention": ("flash_attention", "flash_attention_launch",
-                        (_P,) * 5 + (_I,) * 9 + (_F, _I) + (_L,) * 12
+                        (_P,) * 6 + (_I,) * 9 + (_F, _I) + (_L,) * 12
                         + (_P,)),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_launch",
+                            (_P,) * 10 + (_I,) * 9 + (_F, _I) + (_L,) * 24
+                            + (_P,)),
     "rwkv6_scan": ("rwkv6_scan", "rwkv6_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "mamba_scan": ("mamba_scan", "mamba_scan_launch",

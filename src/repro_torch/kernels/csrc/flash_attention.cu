@@ -55,6 +55,10 @@
 //     (130 KB) would exceed the 227 KB a block may hold, so Q is kept
 //     unsplit (64 KB, 195 KB in all) and split at each use; one block fits
 //     an SM.
+//   * given an `lse` buffer (the train path), each row's log-sum-exp in
+//     the kernel's base-2 scaling, m + log2(l), is written beside the
+//     output for the backward (flash_attention_bwd.cu); the output is
+//     bitwise the same with and without it.
 //
 // Decode (S = 1).  One query row per head over a kv_len-deep cache: bound by
 // reading K and V once.  Split-KV ("flash decoding"): one block per
@@ -80,6 +84,7 @@ struct Args {
   const void* v;
   void* out;
   float* part;  // decode: (B, live, n_chunks, D + 2) partial results
+  float* lse;   // prefill, when not null: (B, H, S) log-sum-exp, base 2
   int B, H, Hkv, S, kv_len, live, causal, window;  // window 0: none
   float scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_st, v_sb, v_sh, v_st;
@@ -258,11 +263,18 @@ flash_prefill_kernel(const Args a) {
   const int S = a.S;
   T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
 
+  float* lse = a.lse == nullptr
+                   ? nullptr
+                   : a.lse + (static_cast<long long>(b) * a.H + h) * S;
+
   if (h >= a.live) {  // a padded head: exact zeros, no work
     for (int idx = tid; idx < BQ * D; idx += PF_THREADS) {
       const int r = q0 + idx / D;
       if (r < S) out[r * a.o_ss + idx % D] = from_f32<T>(0.0f);
     }
+    if (lse != nullptr)
+      for (int r = q0 + tid; r < min(q0 + BQ, S); r += PF_THREADS)
+        lse[r] = 0.0f;
     return;
   }
   const int hk = h / (a.live / a.Hkv);
@@ -452,6 +464,12 @@ flash_prefill_kernel(const Args a) {
 
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+  // the log-sum-exp of the scores times scale * log2(e), in base 2: the
+  // row max and sum are the same in the 4 lanes of a row
+  if (lse != nullptr && t == 0) {
+    if (r0 < S) lse[r0] = m0 + log2f(d0);
+    if (r1 < S) lse[r1] = m1 + log2f(d1);
+  }
 #pragma unroll
   for (int n = 0; n < KS; ++n) {
     const int c = n * 8 + 2 * t;
@@ -611,7 +629,7 @@ __global__ void flash_decode_merge_kernel(const Args a, int n_chunks, int D) {
 
 template <typename T, int D>
 int launch(Args a, cudaStream_t st) {
-  if (a.S == 1) {
+  if (a.S == 1 && a.lse == nullptr) {
     if (a.window > 0 && a.kv_len > a.window) {  // read the last window keys
       const int lo = a.kv_len - a.window;
       a.k = static_cast<const T*>(a.k) + lo * a.k_st;
@@ -664,10 +682,14 @@ int launch_d(const Args& a, int D, cudaStream_t st) {
 // kv_len >= S when causal; window > 0 (causal only) limits query s to the
 // last `window` keys up to its own position, 0 means none; `part` holds
 // B * live * ceil(min(kv_len, window) / 64) * (D + 2) floats when S == 1
-// (unused otherwise).  Returns the cudaError_t of the launches (0 on
+// (unused otherwise); `lse`, when not null, receives the float32 (B, H, S)
+// log-sum-exp of the prefill kernel's base-2 scores (0 for heads >= live),
+// which then runs for S == 1 too, and leaves the output as it is without
+// it.  Returns the cudaError_t of the launches (0 on
 // success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, void* part, int B,
+    const void* q, const void* k, const void* v, void* out, void* part,
+    void* lse, int B,
     int H, int Hkv, int S, int kv_len, int live, int D, int causal,
     int window, float scale, int bf16, long long q_sb, long long q_sh,
     long long q_ss,
@@ -675,6 +697,7 @@ extern "C" int flash_attention_launch(
     long long v_sh, long long v_st, long long o_sb, long long o_sh,
     long long o_ss, void* stream) {
   const Args a{q,    k,      v,      out,    static_cast<float*>(part),
+               static_cast<float*>(lse),
                B,    H,      Hkv,    S,      kv_len,
                live, causal, window, scale,  q_sb,
                q_sh, q_ss,   k_sb,   k_sh,   k_st,

@@ -20,6 +20,7 @@ wrapper                   replaces (src/repro/kernels/)
 ``panel_update_batched``  panel_update.py::panel_update_batched_pallas  K4
 ``panel_update_mapped``   panel_update.py::panel_update_batched_pallas  K4
 ``flash_attention``       flash_attention.py::flash_attention_pallas    K5
+``flash_attention_backward``  none: K5's gradient (the train path)      K5
 ``mamba_scan``            ssm_scan.py::mamba_scan_pallas                K6
 ``rwkv6_scan``            ssm_scan.py::rwkv6_scan_pallas                K7
 ========================  ============================================  ==
@@ -398,11 +399,33 @@ def _rows_16b(t: torch.Tensor) -> bool:
             and all(st % per == 0 for st in t.stride()[:-1]))
 
 
+def _card_attention(q, k, v, live: int, what: str):
+    """K5's limits on the card: float32 or bfloat16 throughout, D one of
+    ``FLASH_HEAD_DIMS``, at most ``FLASH_MAX_GROUP`` query heads a KV
+    head, grid limits."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{what} is built for D in {FLASH_HEAD_DIMS}, got "
+                         f"D={d}")
+    if live // hkv > FLASH_MAX_GROUP:
+        raise ValueError(f"{what} takes at most {FLASH_MAX_GROUP} query "
+                         f"heads per KV head, got {live // hkv}")
+    if s > 64 * 65535 or b > 65535:
+        raise ValueError(f"{what} takes at most {64 * 65535} queries and "
+                         f"65535 sequences, got S={s}, B={b}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     kv_len: int | None = None,
                     live_heads: int | None = None,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, return_lse: bool = False):
     """K5: (B, H, S, D) online-softmax attention of q over the first
     ``kv_len`` (default T) rows of k, v (B, Hkv, T, D), float32 or
     bfloat16, accumulated in float32, returned in q's dtype.
@@ -418,50 +441,138 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides (unit stride along D, 16-byte aligned rows; anything else is
     copied first), D is one of ``FLASH_HEAD_DIMS`` and a KV head serves at
     most ``FLASH_MAX_GROUP`` query heads; the result is a (B, H, S, D) view
-    of a (B, S, H, D) tensor, so merging the heads is free."""
+    of a (B, S, H, D) tensor, so merging the heads is free.  With
+    ``return_lse`` it returns ``(out, lse)``: lse the float32 (B, H, S)
+    log-sum-exp of the scaled scores in base 2 (0 for padded heads), which
+    ``flash_attention_backward`` takes; the prefill kernel writes it (also
+    at S = 1), and ``out`` is bitwise the same as without it."""
     kv_len, live, window = _attention_shapes(q, k, v, causal, kv_len,
                                              live_heads, window)
     if _on_cpu(q, k, v):
         return plain.flash_attention_plain(q, k, v, causal=causal,
                                            scale=scale, kv_len=kv_len,
                                            live_heads=live,
-                                           window=window or None)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
-                         f"{q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+                                           window=window or None,
+                                           return_lse=return_lse)
+    _card_attention(q, k, v, live, "flash_attention")
     b, h, s, d = q.shape
     hkv = k.shape[1]
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention is built for D in "
-                         f"{FLASH_HEAD_DIMS}, got D={d}")
-    if live // hkv > FLASH_MAX_GROUP:
-        raise ValueError(f"flash_attention takes at most {FLASH_MAX_GROUP} "
-                         f"query heads per KV head, got {live // hkv}")
-    if s > 64 * 65535 or b > 65535:
-        raise ValueError(f"flash_attention takes at most {64 * 65535} "
-                         f"queries and 65535 sequences, got S={s}, B={b}")
     q, k, v = (t if _rows_16b(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b * h == 0 or s == 0:
-        return out
+        return (out, lse) if return_lse else out
     part = None
-    if s == 1:       # the decode kernel's per-chunk partial results
+    if s == 1 and not return_lse:  # the decode kernel's per-chunk results
         read = min(kv_len, window) if window else kv_len
         chunks = -(-read // FLASH_DECODE_CHUNK)
         part = torch.empty((b, live, chunks, d + 2), dtype=torch.float32,
                            device=q.device)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), 0 if part is None else part.data_ptr(), b, h,
-            hkv, s, kv_len, live, d, int(causal), window,
+            out.data_ptr(), 0 if part is None else part.data_ptr(),
+            0 if lse is None else lse.data_ptr(), b, h, hkv, s, kv_len, live,
+            d, int(causal), window,
             d ** -0.5 if scale is None else float(scale),
             int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], _stream(q))
     _count(flash_attention)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, scale: float | None = None,
+                             live_heads: int | None = None,
+                             window: int | None = None):
+    """K5's backward: (dq (B, H, S, D), dk, dv (B, Hkv, T, D)) of
+    ``flash_attention(q, k, v, ...)`` over all T keys for the upstream
+    ``do`` (B, H, S, D), from its output ``o`` and its ``return_lse``
+    log-sum-exp ``lse`` (float32 (B, H, S)); the same keywords, shape
+    checks and device rule as ``flash_attention``, results in the inputs'
+    dtype.  dq of the heads ``>= live_heads`` is exactly zero and they add
+    nothing to dk, dv; dk and dv sum over each KV head's query heads.  On
+    the card: a delta pass, then one kernel for dk and dv and one for dq,
+    no atomics, so two calls on the same inputs agree bitwise; the
+    results are (B, S, ., D) tensors seen as (B, ., S, D)."""
+    _, live, window = _attention_shapes(q, k, v, causal, None, live_heads,
+                                        window)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"{name} {tuple(t.shape)} must have q's shape "
+                             f"{tuple(q.shape)}")
+    b, h, s, d = q.shape
+    hkv, t_len = k.shape[1], k.shape[2]
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(b, h, s)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if _on_cpu(q, k, v, o, do, lse):
+        return plain.flash_attention_backward_plain(
+            q, k, v, o, do, lse, causal=causal, scale=scale, live_heads=live,
+            window=window or None)
+    _card_attention(q, k, v, live, "flash_attention_backward")
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+    q, k, v, o, do = (x if _rows_16b(x) else x.contiguous()
+                      for x in (q, k, v, o, do))
+    lse = lse.contiguous()
+
+    def grad(heads, rows):
+        return torch.empty((b, rows, heads, d), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+
+    dq, dk, dv = grad(h, s), grad(hkv, t_len), grad(hkv, t_len)
+    if b * h == 0 or s == 0 or t_len == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, live, s), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t_len,
+            live, d, int(causal), window,
+            d ** -0.5 if scale is None else float(scale),
+            int(q.dtype == torch.bfloat16),
+            *(st for x in (q, k, v, o, do, dq, dk, dv)
+              for st in x.stride()[:3]), _stream(q))
+    _count(flash_attention_backward)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 with its gradient: the forward runs ``flash_attention`` with the
+    log-sum-exp and saves q, k, v, the output and the log-sum-exp; the
+    backward runs ``flash_attention_backward``.  On the CPU both are the
+    plain versions, on the card both are kernels; a failed build or
+    launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, live_heads, window):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   live_heads=live_heads, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = {"causal": causal, "scale": scale,
+                  "live_heads": live_heads, "window": window}
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do, lse,
+                                              **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, scale: float | None = None,
+                          live_heads: int | None = None,
+                          window: int | None = None) -> torch.Tensor:
+    """``flash_attention`` over all T keys, differentiable in q, k and v
+    through K5's backward (``FlashAttention``): the train path's
+    attention."""
+    return FlashAttention.apply(q, k, v, causal, scale, live_heads, window)
 
 
 RWKV6_HEAD_SIZES = (16, 64)   # K7's instantiations of K
@@ -563,7 +674,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
 
 KERNELS = (minmax_relax, column_fingerprints, panel_update,
            panel_update_batched, panel_update_mapped, flash_attention,
-           mamba_scan, rwkv6_scan)
+           flash_attention_backward, mamba_scan, rwkv6_scan)
 
 
 def reset_launches() -> None:

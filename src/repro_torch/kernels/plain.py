@@ -128,11 +128,37 @@ def panel_update_mapped_plain(flat: torch.Tensor, u: torch.Tensor,
                 acc.copy_(panel_update_plain(acc, lp, b))
 
 
+LOG2E = 1.4426950408889634   # K5 keeps its log-sum-exp in base 2
+
+
+def _visible(s: int, t: int, causal: bool, window: int | None, device):
+    """(S, T) bool: which keys each query sees (None: all of them).  Causal
+    queries are the last S of T positions: query s sees keys ``<= s + (T -
+    S)``, with a ``window`` only ``> s + (T - S) - window``: the band
+    ``tril(t - s) & ~tril(t - s - window)``."""
+    if not causal:
+        return None
+    ones = torch.ones((s, t), dtype=torch.bool, device=device)
+    visible = ones.tril(t - s)
+    if window:
+        visible &= ~ones.tril(t - s - window)
+    return visible
+
+
+def _pad_heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """x (B, live, ...) with zero heads appended up to h."""
+    if x.shape[1] == h:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], h - x.shape[1])
+                                     + tuple(x.shape[2:]))], dim=1)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, scale: float | None = None,
                           kv_len: int | None = None,
                           live_heads: int | None = None,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None,
+                          return_lse: bool = False):
     """Softmax attention of q (B, H, S, D) over the first ``kv_len``
     (default T) rows of k, v (B, Hkv, T, D), in float32, returned in q's
     dtype.  The KV heads are repeated ``live_heads // Hkv`` times
@@ -142,7 +168,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions), else all kv_len; with a ``window`` (causal only) just the
     keys ``> s + (kv_len - S) - window``, the band ``tril(t - s) &
     ~tril(t - s - window)``.  ``scale`` defaults to ``D ** -0.5``.  The
-    (S, kv_len) scores are formed in full."""
+    (S, kv_len) scores are formed in full.  With ``return_lse`` also the
+    float32 (B, H, S) log-sum-exp of the scaled scores in base 2 (K5's
+    own: the natural one times log2(e)), 0 for the padded heads."""
     h, s = q.shape[1], q.shape[-2]
     live = h if live_heads is None else live_heads
     t = k.shape[-2] if kv_len is None else kv_len
@@ -152,18 +180,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     with fp32_highest():
         logits = q[:, :live].float() @ k.float().transpose(-1, -2) * scale
-        if causal:
-            ones = torch.ones((s, t), dtype=torch.bool, device=q.device)
-            visible = ones.tril(t - s)
-            if window:
-                visible &= ~ones.tril(t - s - window)
+        visible = _visible(s, t, causal, window, q.device)
+        if visible is not None:
             logits = logits.masked_fill(~visible, float("-inf"))
         probs = torch.softmax(logits, dim=-1)
-        out = (probs @ v.float()).to(q.dtype)
-    if live < h:
-        out = torch.cat([out, out.new_zeros((q.shape[0], h - live)
-                                            + tuple(q.shape[2:]))], dim=1)
-    return out
+        out = _pad_heads((probs @ v.float()).to(q.dtype), h)
+    if not return_lse:
+        return out
+    return out, _pad_heads(torch.logsumexp(logits, dim=-1) * LOG2E, h)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor, lse: torch.Tensor, *,
+                                   causal: bool = True,
+                                   scale: float | None = None,
+                                   live_heads: int | None = None,
+                                   window: int | None = None):
+    """The gradient of ``flash_attention_plain`` (all T keys) for the
+    upstream ``do``, from its output ``o`` and base-2 log-sum-exp ``lse``
+    (B, H, S), in float32, returned in the inputs' dtypes: (dq (B, H, S,
+    D), dk, dv (B, Hkv, T, D)).  With G = live_heads // Hkv and K, V
+    repeated G times:
+
+        P = exp2(scale * log2(e) * Q K^T - lse)  (0 where masked)
+        dV = P^T dO,  dP = dO V^T,  delta = rowsum(dO * O)
+        dS = P * (dP - delta),  dQ = scale * dS K,  dK = scale * dS^T Q
+
+    dK and dV summed over each KV head's G query heads; dq of the heads
+    ``>= live_heads`` is zero and they add nothing to dk, dv."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    live = h if live_heads is None else live_heads
+    rep = live // hkv
+    if scale is None:
+        scale = d ** -0.5
+    with fp32_highest():
+        qf, of, dof = (x[:, :live].float() for x in (q, o, do))
+        kf, vf = (x.float().repeat_interleave(rep, dim=1) for x in (k, v))
+        logits = qf @ kf.transpose(-1, -2) * (scale * LOG2E)
+        p = torch.exp2(logits - lse[:, :live, :, None].float())
+        visible = _visible(s, t, causal, window, q.device)
+        if visible is not None:
+            p = p.masked_fill(~visible, 0.0)
+        dv = p.transpose(-1, -2) @ dof
+        dp = dof @ vf.transpose(-1, -2)
+        delta = (dof * of).sum(dim=-1, keepdim=True)
+        ds = p * (dp - delta)
+        dq = ds @ kf * scale
+        dk = ds.transpose(-1, -2) @ qf * scale
+        dk, dv = (x.view(b, hkv, rep, t, d).sum(dim=2) for x in (dk, dv))
+    return (_pad_heads(dq.to(q.dtype), h), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,2 +1,3 @@
-"""Model layers for serving: RMSNorm, RoPE, SwiGLU, GQA attention through
-K5, the transformer assembly, and the reference-parameter converter."""
+"""Model layers for serving and training: RMSNorm, RoPE, SwiGLU, GQA
+attention through K5, the transformer assembly, and the reference-parameter
+converter."""

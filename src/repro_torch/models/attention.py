@@ -37,6 +37,12 @@ reference's ``pos``).  A ring's slots are not in position order, so decode
 passes no window to K5: every valid slot is visible, and the softmax, a
 sum over slots, does not depend on their order beyond the last bits.
 
+Training (``train=True``, ``cross_train``) runs K5 through
+``kernels/ops.py::flash_attention_train``: its forward also writes the
+log-sum-exp, and the backward pass runs K5's backward kernel; no cache is
+made or written.  ``mla_forward`` runs under autograd as it is (plain
+products).
+
 MLA (``init_mla`` .. ``mla_decode``) is the reference's absorbed form:
 queries and keys share a ``kv_lora_rank``-wide latent ``c_kv`` and one
 rotated key ``k_rope`` of ``rope_head_dim`` for all heads; ``q_nope`` is
@@ -126,13 +132,25 @@ def _qkv(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ModelConfig, *, causal: bool, window: Optional[int] = None,
+            train: bool = False) -> torch.Tensor:
+    """K5 over the live heads: ``flash_attention``, or with ``train`` its
+    differentiable form ``flash_attention_train`` (K5's forward with the
+    log-sum-exp, and its backward kernel in the backward pass)."""
+    attend = kops.flash_attention_train if train else kops.flash_attention
+    return attend(q, k, v, causal=causal, scale=cfg.hd ** -0.5,
+                  live_heads=cfg.n_heads, window=window)
+
+
 def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 window: Optional[int] = None, causal: bool = True,
-                return_kv: bool = False):
-    """Full-sequence (prefill) GQA over x (B, S, d) at positions ``[0,
-    S)``: causal, and with a ``window`` each position sees the last
+                return_kv: bool = False, train: bool = False):
+    """Full-sequence (prefill or train) GQA over x (B, S, d) at positions
+    ``[0, S)``: causal, and with a ``window`` each position sees the last
     ``window`` positions up to itself (a local layer); with ``causal=False``
-    every position sees all S (whisper's encoder; no window).
+    every position sees all S (whisper's encoder; no window).  ``train``
+    runs the differentiable K5 (``flash_attention_train``).
 
     ``return_kv`` additionally returns the rotated (B, n_kv_heads, S, hd)
     K and V for the prefill cache.
@@ -140,8 +158,7 @@ def gqa_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = kops.flash_attention(q, k, v, causal=causal, scale=cfg.hd ** -0.5,
-                               live_heads=cfg.n_heads, window=window)
+    out = _attend(q, k, v, cfg, causal=causal, window=window, train=train)
     y = _merge_heads(out) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -222,15 +239,23 @@ def init_cross_cache(cfg: ModelConfig, batch: int, *, dtype=torch.float32,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cross_kv(params: Dict, enc: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output's K and V (B, n_kv_heads, T, hd): projected,
+    ``k_norm`` under ``cfg.qk_norm``, no RoPE."""
+    k = _split_heads(enc @ params["wk"], cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(enc @ params["wv"], cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
 def make_cross_cache(params: Dict, enc: torch.Tensor, cfg: ModelConfig,
                      cache: Dict) -> Dict:
     """The encoder output's K and V (B, n_kv_heads, T, hd), projected once
     a request and written into ``cache`` (a fresh ``init_cross_cache`` of
     T slots) in place."""
-    k = _split_heads(enc @ params["wk"], cfg.n_kv_heads, cfg.hd)
-    v = _split_heads(enc @ params["wv"], cfg.n_kv_heads, cfg.hd)
-    if cfg.qk_norm:
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    k, v = cross_kv(params, enc, cfg)
     if cache["k"].shape != k.shape:
         raise ValueError(f"an encoder output of {k.shape[2]} positions does "
                          f"not fit a {cache['k'].shape[2]}-slot cross cache "
@@ -241,16 +266,15 @@ def make_cross_cache(params: Dict, enc: torch.Tensor, cfg: ModelConfig,
 
 
 def cross_decode(params: Dict, x: torch.Tensor, cross_cache: Dict,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, *, train: bool = False) -> torch.Tensor:
     """x: (B, S, d) decoder states (S = 1 in decode) attending over every
-    cached encoder position; the cache is not written."""
-    hd = cfg.hd
-    q = _split_heads(x @ params["wq"], cfg.hp, hd)
+    cached encoder position (``{"k", "v"}``); the cache is not written.
+    ``train`` runs the differentiable K5."""
+    q = _split_heads(x @ params["wq"], cfg.hp, cfg.hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-    out = kops.flash_attention(q, cross_cache["k"], cross_cache["v"],
-                               causal=False, scale=hd ** -0.5,
-                               live_heads=cfg.n_heads)
+    out = _attend(q, cross_cache["k"], cross_cache["v"], cfg, causal=False,
+                  train=train)
     return _merge_heads(out) @ params["wo"]
 
 
@@ -262,6 +286,15 @@ def cross_forward(params: Dict, x: torch.Tensor, enc: torch.Tensor,
     projected once into ``cache`` in place."""
     cross = make_cross_cache(params, enc, cfg, cache)
     return cross_decode(params, x, cross, cfg), cross
+
+
+def cross_train(params: Dict, x: torch.Tensor, enc: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """``cross_forward`` for training: the encoder K/V projected with no
+    cache (the cache's in-place copy would cut the graph), through the
+    differentiable K5."""
+    k, v = cross_kv(params, enc, cfg)
+    return cross_decode(params, x, {"k": k, "v": v}, cfg, train=True)
 
 
 # ---------------------------------------------------------------------------

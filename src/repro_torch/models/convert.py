@@ -7,7 +7,10 @@ returns the port's parameters: the same nested dict of tensors, except that
 ``groups`` and ``encoder.layers`` — stacked by the reference along a
 leading ``n_groups`` / ``n_enc_layers`` axis for ``lax.scan`` (``jax.vmap``
 of the per-group / per-layer init) — become lists of one dict per group /
-layer.  Nothing here imports JAX; only the tests hold both packages.
+layer.  ``opt_from_jax`` maps the reference's AdamW state the same way
+(``master``, ``m`` and ``v`` are trees of the parameters' structure), and
+a gradient tree converts as a parameter tree does.  Nothing here imports
+JAX; only the tests hold both packages.
 """
 from __future__ import annotations
 
@@ -47,6 +50,17 @@ def params_from_jax(tree: Dict, device=None) -> Dict:
     if "encoder" in tree:
         out["encoder"] = {"layers": _unstack(tree["encoder"]["layers"], dev),
                           "norm": _tensors(tree["encoder"]["norm"], dev)}
+    return out
+
+
+def opt_from_jax(opt_tree: Dict, device=None) -> Dict:
+    """The port's AdamW state (``train/optimizer.py``), on ``device``
+    (``None``: the card), from the reference's ``init_adamw`` /
+    ``adamw_update`` state of numpy arrays."""
+    dev = resolve_device(device)
+    out = {k: params_from_jax(opt_tree[k], dev)
+           for k in ("master", "m", "v")}
+    out["count"] = _tensors(opt_tree["count"], dev)
     return out
 
 

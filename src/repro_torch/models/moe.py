@@ -117,9 +117,10 @@ def expert_swiglu(params: Dict, disp: torch.Tensor) -> torch.Tensor:
     n_experts, n, d = disp.shape
     h = F.silu(torch.bmm(disp, params["w_gate"])) * torch.bmm(
         disp, params["w_up"])
-    out = disp.new_zeros((n_experts + 1, n, d))
-    torch.bmm(h, params["w_down"], out=out[:n_experts])
-    return out
+    # the dump row appended by a concatenation, not by ``bmm(out=)`` into a
+    # slice of a zeroed buffer, which autograd refuses
+    return torch.cat([torch.bmm(h, params["w_down"]),
+                      disp.new_zeros((1, n, d))])
 
 
 def combine(h_out: torch.Tensor, r: Route, cap: int) -> torch.Tensor:

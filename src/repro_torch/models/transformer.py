@@ -20,23 +20,36 @@ place here, and ``models/convert.py`` unstacks a reference tree), and so
 is ``params["encoder"]["layers"]``.  The caches are a list of per-group
 dicts in the same way.
 
-What has no counterpart on one card: ``lax.scan`` and remat (PyTorch runs
-eagerly, and serving keeps no activations for a backward pass), and the
-sharding constraints ``constrain`` / ``step_context`` (one device holds
-every tensor).
+What has no counterpart on one card: ``lax.scan`` (a Python loop over the
+groups) and the sharding constraints ``constrain`` / ``step_context`` (one
+device holds every tensor).
 
-Modes: ``prefill`` (full sequence, returns the caches: KV caches for
-attention layers, ring caches of ``min(cache_len, sliding_window)`` slots
-for local ones, latent caches for MLA layers, recurrent states for rwkv6
-and mamba layers) and ``decode`` (one token against them).  Both also
-return the reference's MoE auxiliaries, summed over the MoE layers.
-``train`` raises ``NotImplementedError`` naming its ROADMAP item.
+Modes: ``train`` (full sequence, no caches, differentiable: every
+attention layer runs K5 with its backward kernel, ``flash_attention_train``;
+remat as the reference's, below), ``prefill`` (full sequence, returns the
+caches: KV caches for attention layers, ring caches of ``min(cache_len,
+sliding_window)`` slots for local ones, latent caches for MLA layers,
+recurrent states for rwkv6 and mamba layers) and ``decode`` (one token
+against them).  All three return the reference's MoE auxiliaries, summed
+over the MoE layers.  Training an rwkv6 or mamba layer raises
+``NotImplementedError`` naming its ROADMAP item (K7's and K6's backward
+kernels are not written yet).
+
+Remat in ``train``, as the reference's ``jax.checkpoint``: with
+``cfg.remat`` and more than one group each group runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, and with
+``cfg.layer_remat`` (gemma3) so does each layer inside it; each chunk of
+``ce_loss`` is checkpointed; the encoder is not.  A checkpointed function
+runs its forward again in the backward pass (K5's forward launches twice
+per attention layer and step), and the recompute is the same arithmetic,
+so gradients are bitwise those without remat.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
@@ -50,14 +63,18 @@ MIXERS = ("attn", "local", "mla", "rwkv6", "mamba")
 LAYER_KINDS = tuple((mixer, ffn) for mixer in MIXERS
                     for ffn in ("mlp", "moe"))
 ATTN_KINDS = ("attn", "local")
-TRAIN_TODO = "training is not ported yet (ROADMAP Queue A item 12.9)"
+TRAIN_TODO = ("training rwkv6 and mamba layers is not ported yet (ROADMAP "
+              "Queue A item 12.10: K7's and K6's backward kernels)")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``ValueError`` for a layer kind the port does not know."""
+def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
+    """Raise ``ValueError`` for a layer kind the port does not know, and
+    with ``train`` ``NotImplementedError`` for one it cannot train yet."""
     for mixer, ffn in cfg.pattern:
         if (mixer, ffn) not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
+    if train and any(mixer in ("rwkv6", "mamba") for mixer, _ in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: {TRAIN_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +220,18 @@ def _sinusoidal(length: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)[:, :d]
 
 
-def encode(params: Dict, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
     """Whisper's bidirectional pre-norm encoder over precomputed frame
     embeddings (B, T, d) (the conv front end is a stub in the reference
     too): sinusoidal positions, then per layer non-causal GQA and the MLP,
-    then the encoder's norm."""
+    then the encoder's norm.  ``train``: differentiable K5, no remat."""
     x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
                              frames.device).to(frames.dtype)
     for lp in params["encoder"]["layers"]:
         h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["mixer"], h, cfg, causal=False)
+        x = x + attn.gqa_forward(lp["mixer"], h, cfg, causal=False,
+                                 train=train)
         h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
         x = x + L.mlp(lp["ffn"], h2)
     return L.rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
@@ -233,10 +251,19 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
            ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """One layer: (x, its new cache, its [moe_aux_loss, moe_drop_frac],
     None for a dense FFN: no device call on the dense models' path).
-    ``enc``: the encoder output of an encoder-decoder model's prefill."""
+    ``enc``: the encoder output of an encoder-decoder model's prefill or
+    train step.  ``train`` makes and reads no cache (its new cache is
+    ``{}``)."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     window = _window(cfg, mixer)
-    if mixer == "mla":
+    if mode == "train":
+        if mixer == "mla":
+            o = attn.mla_forward(lp["mixer"], h, cfg)
+        else:
+            o = attn.gqa_forward(lp["mixer"], h, cfg, window=window,
+                                 train=True)
+        new_cache = {}
+    elif mixer == "mla":
         if mode == "decode":
             o, self_cache = attn.mla_decode(lp["mixer"], h, ce["self"], cfg)
         else:
@@ -261,7 +288,9 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
     x = x + o
     if cfg.encdec is not None and mixer in ATTN_KINDS:
         hc = L.rmsnorm(lp["norm_cross"], x, cfg.norm_eps)
-        if mode == "decode":
+        if mode == "train":
+            oc = attn.cross_train(lp["cross"], hc, enc, cfg)
+        elif mode == "decode":
             oc = attn.cross_decode(lp["cross"], hc, ce["cross"], cfg)
             new_cache["cross"] = ce["cross"]
         else:
@@ -276,60 +305,84 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
             torch.stack([mm["moe_aux_loss"], mm["moe_drop_frac"]]))
 
 
+def _group(gp: Dict, x: torch.Tensor, cg: Optional[Dict],
+           cfg: ModelConfig, mode: str, enc: Optional[torch.Tensor]):
+    """One group's layers: (x, the group's new caches, its summed aux or
+    None).  In ``train`` with ``cfg.layer_remat`` each layer runs under a
+    checkpoint."""
+    nc, aux = {}, None
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        ce = cg[f"l{i}"] if cg is not None else None
+        if mode == "train" and cfg.layer_remat:
+            x, nc[f"l{i}"], aux_i = checkpoint(
+                _layer, gp[f"l{i}"], x, ce, cfg, mixer, ffn, mode=mode,
+                enc=enc, use_reentrant=False)
+        else:
+            x, nc[f"l{i}"], aux_i = _layer(gp[f"l{i}"], x, ce, cfg, mixer,
+                                           ffn, mode=mode, enc=enc)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    return x, nc, aux
+
+
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str, caches: Optional[List[Dict]] = None,
             cache_len: Optional[int] = None,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, List[Dict], torch.Tensor]:
+            ) -> Tuple[torch.Tensor, Optional[List[Dict]], torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, new caches, aux).
 
-    ``prefill`` builds caches of ``cache_len`` slots (default: the
-    sequence length, patches included) from ``tokens`` (B, S), after
-    ``patches`` (B, n_patches, d), cast to the embeddings' dtype, when
-    ``cfg.n_patches``, and over the encoding of ``frames`` (B, enc_len, d)
-    when ``cfg.encdec``; either one missing raises ``ValueError``.
-    ``decode`` runs ``tokens`` (B, 1) against ``caches`` (KV caches updated
-    in place, see ``models/attention.py``; recurrent states replaced; the
-    cross caches read) and takes neither.  ``aux`` is the reference's
-    float32 (2,) ``[moe_aux_loss, moe_drop_frac]`` summed over the MoE
-    layers, zeros without any.
+    ``train`` and ``prefill`` run ``tokens`` (B, S), after ``patches`` (B,
+    n_patches, d), cast to the embeddings' dtype, when ``cfg.n_patches``,
+    and over the encoding of ``frames`` (B, enc_len, d) when ``cfg.encdec``;
+    either one missing raises ``ValueError``.  ``train`` returns no caches
+    (None) and is differentiable in ``params``; ``prefill`` builds caches
+    of ``cache_len`` slots (default: the sequence length, patches
+    included).  ``decode`` runs ``tokens`` (B, 1) against ``caches`` (KV
+    caches updated in place, see ``models/attention.py``; recurrent states
+    replaced; the cross caches read) and takes neither.  ``aux`` is the
+    reference's float32 (2,) ``[moe_aux_loss, moe_drop_frac]`` summed over
+    the MoE layers, zeros without any.
     """
-    if mode == "train":
-        raise NotImplementedError(TRAIN_TODO)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    check_supported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
+                         f"{mode!r}")
+    check_supported(cfg, train=mode == "train")
     if mode == "decode" and caches is None:
         raise ValueError("decode needs the caches of a prefill")
+    full = mode != "decode"
     enc = None
-    if mode == "prefill" and cfg.encdec is not None:
+    if full and cfg.encdec is not None:
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
-                             f"prefill needs frames (B, enc_len, d)")
-        enc = encode(params, cfg, frames)
+                             f"{mode} needs frames (B, enc_len, d)")
+        enc = encode(params, cfg, frames, train=mode == "train")
     x = L.embed(params["embed"], tokens)
-    if mode == "prefill" and cfg.n_patches:
+    if full and cfg.n_patches:
         if patches is None:
             raise ValueError(f"{cfg.name} takes patch embeddings: its "
-                             f"prefill needs patches (B, n_patches, d)")
+                             f"{mode} needs patches (B, n_patches, d)")
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     if mode == "prefill":
         caches = init_caches(cfg, x.shape[0], cache_len or x.shape[1],
                              dtype=x.dtype, device=x.device)
+    remat = mode == "train" and cfg.remat and cfg.n_groups > 1
     new_caches, aux = [], None
-    for gp, cg in zip(params["groups"], caches):
-        nc = {}
-        for i, (mixer, ffn) in enumerate(cfg.pattern):
-            x, nc[f"l{i}"], aux_i = _layer(gp[f"l{i}"], x, cg[f"l{i}"], cfg,
-                                           mixer, ffn, mode=mode, enc=enc)
-            if aux_i is not None:
-                aux = aux_i if aux is None else aux + aux_i
+    for g, gp in enumerate(params["groups"]):
+        cg = caches[g] if caches is not None else None
+        if remat:
+            x, nc, aux_g = checkpoint(_group, gp, x, cg, cfg, mode, enc,
+                                      use_reentrant=False)
+        else:
+            x, nc, aux_g = _group(gp, x, cg, cfg, mode, enc)
+        if aux_g is not None:
+            aux = aux_g if aux is None else aux + aux_g
         new_caches.append(nc)
     if aux is None:
         aux = torch.zeros(2, dtype=torch.float32, device=x.device)
-    return (L.rmsnorm(params["final_norm"], x, cfg.norm_eps), new_caches,
-            aux)
+    return (L.rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            None if mode == "train" else new_caches, aux)
 
 
 # ---------------------------------------------------------------------------
@@ -345,3 +398,31 @@ def logits_last(params: Dict, cfg: ModelConfig,
                 hidden: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, V) float32 logits of the last position."""
     return hidden[:, -1].float() @ _unembed_table(params).float().T
+
+
+def _ce_chunk(hidden: torch.Tensor, targets: torch.Tensor,
+              table: torch.Tensor) -> torch.Tensor:
+    """Sum over (B, C) of ``logsumexp(logits) - logits[target]`` for one
+    chunk, the (B, C, V) float32 logits formed here and dropped."""
+    logits = hidden.float() @ table.T
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
+            targets: torch.Tensor, *, chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy over (B, S), float32, in sequence
+    chunks of ``chunk`` (the whole sequence when S is not a multiple or
+    fits one): a (B, C, V) logits block is the only vocab-sized buffer,
+    and each chunk is checkpointed, so the backward pass forms each block
+    again instead of keeping them all.  The reference's chunked loss."""
+    table = _unembed_table(params).float()
+    b, s, _ = hidden.shape
+    if s % chunk or s <= chunk:
+        chunk = s
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_ce_chunk, hidden[:, sl], targets[:, sl],
+                                   table, use_reentrant=False)
+    return total / (b * s)

@@ -1,1 +1,2 @@
-"""Serving steps (prefill, greedy decode); training is not ported yet."""
+"""Training and serving steps (``steps.py``), AdamW (``optimizer.py``) and
+int8 gradient compression (``compress.py``)."""

@@ -1203,3 +1203,130 @@ def test_place_four_on_card_bitwise(cuda, backend):
     assert torch.equal(placed.solve(b).x, base.solve(b).x)
     assert torch.equal(placed.solve(b, batched=False).x,
                        base.solve(b, batched=False).x)
+
+
+# K5's backward: (B, H, live, Hkv, S, T, D, causal, window) at every head
+# size, causal, non-causal with S != T (cross-attention), windowed, grouped
+# with padded heads; float32 sums in another order keep dq, dk, dv within
+# 2e-5 of the largest gradient of their kind, and a bfloat16 gradient
+# within that beyond its one rounding (2^-8 of the value)
+K5_BWD_CASES = [
+    (2, 4, 3, 3, 70, 70, 16, True, None),
+    (2, 6, 6, 2, 37, 101, 16, False, None),
+    (1, 4, 4, 2, 130, 130, 64, True, 17),
+    (2, 16, 9, 3, 200, 200, 64, True, None),
+    (1, 4, 4, 1, 100, 300, 128, False, None),
+    (1, 8, 6, 1, 150, 150, 128, True, None),
+    (1, 4, 2, 1, 100, 100, 256, True, 40),
+    (1, 2, 2, 2, 64, 130, 256, False, None),
+]
+K5_BWD_TOL = 2e-5
+
+
+def _k5_bwd_inputs(case, dtype, cuda, seed=0):
+    b, h, live, hkv, s, t, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    return q, k, v, do, {"causal": causal, "live_heads": live,
+                         "window": window}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K5_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
+    q, k, v, do, kw = _k5_bwd_inputs(case, dtype, cuda)
+    out0 = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, out0)
+    before = ops.flash_attention_backward.launches
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    assert ops.flash_attention_backward.launches == before + 1
+    want = plain.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), out.float(), do.float(), lse, **kw)
+    torch.cuda.synchronize()
+    step = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        excess = float(((x.float() - w).abs() - step * w.abs()).max())
+        assert excess <= K5_BWD_TOL * float(w.abs().max())
+    live = kw["live_heads"]
+    if live < q.shape[1]:
+        assert not got[0][:, live:].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_kernel_is_deterministic(cuda):
+    q, k, v, do, kw = _k5_bwd_inputs(K5_BWD_CASES[3], torch.float32, cuda)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    first = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+    for _ in range(3):
+        again = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_train_under_checkpoint_on_card(cuda):
+    """The autograd Function through a non-reentrant checkpoint: its
+    forward runs twice (the recompute), its backward once, and the
+    gradients are bitwise the run without the checkpoint."""
+    q, k, v, do, kw = _k5_bwd_inputs(K5_BWD_CASES[2], torch.float32, cuda)
+    grads = []
+    for remat in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def f(a, b, c):
+            return ops.flash_attention_train(a * 1.5, b, c, **kw)
+
+        fwd = ops.flash_attention.launches
+        bwd = ops.flash_attention_backward.launches
+        out = (torch.utils.checkpoint.checkpoint(f, *leaves,
+                                                 use_reentrant=False)
+               if remat else f(*leaves))
+        grads.append(torch.autograd.grad(out, leaves, do))
+        assert ops.flash_attention.launches - fwd == (2 if remat else 1)
+        assert ops.flash_attention_backward.launches - bwd == 1
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-135m", "whisper-tiny"])
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One reduced train step on the card (K5 forward and backward in
+    every attention layer) against the same step on the CPU with the same
+    parameters: loss and grad_norm within 1e-5 relative, the parameters
+    after the update within 2 lr (an Adam step is nearly a sign step)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(name).reduced()
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    batch = {k: torch.as_tensor(v) for k, v in make_batch_for(
+        cfg, ShapeConfig("s", 32, 4, "train")).items()}
+    batch = {k: v.long() if v.dtype == torch.int32 else v
+             for k, v in batch.items()}
+    step = make_train_step(cfg, acfg=acfg, micro_steps=1)
+    ops.reset_launches()
+    card, _, m_card = step(card, init_adamw(card),
+                           {k: v.to(cuda) for k, v in batch.items()})
+    counts = ops.launch_counts()
+    attn = cfg.n_layers * (2 if cfg.encdec else 1) + (
+        cfg.encdec.n_enc_layers if cfg.encdec else 0)
+    remat = cfg.n_layers * (2 if cfg.encdec else 1)   # the decoder's groups
+    assert counts["flash_attention"] == attn + remat
+    assert counts["flash_attention_backward"] == attn
+    host, _, m_host = step(host, init_adamw(host), batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_card[key]) - float(m_host[key])) <= 1e-5 * abs(
+            float(m_host[key]))
+    for a, b in zip(tf._leaves(card), tf._leaves(host)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * acfg.lr
