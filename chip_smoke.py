@@ -2720,10 +2720,11 @@ def k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line):
     # backward at the train paths' shapes (float32; rows of their own, the
     # launches the train phases', 0 where no train phase runs the shape);
     # the bound counts 2.5 x the forward's operations as 3 TF32 products
-    # each (the prefill's rule; the CUDA-core bound beside it in the
-    # kernel_shapes line: the backward runs float32 FMAs); the yardsticks
-    # are SDPA's forward and the backward alone of SDPA with enable_gqa
-    # over the live heads (a boolean band mask for the window)
+    # each (the prefill's rule, and the backward's own: 3xTF32 on the
+    # tensor cores; the CUDA-core bound beside it in the kernel_shapes
+    # line); the yardsticks are SDPA's forward and the backward alone of
+    # SDPA with enable_gqa over the live heads (a boolean band mask for
+    # the window)
     for tag, (shape, causal, window) in K5_BWD_SHAPES.items():
         b_, h_, live, hkv, s_, t_, d_ = shape
         q, k, v, do, kw = k5_bwd_inputs(torch, *shape, causal=causal,

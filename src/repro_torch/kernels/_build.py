@@ -49,8 +49,10 @@ SIGNATURES = {
                         + (_P,)),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "flash_attention_bwd_launch",
-                            (_P,) * 10 + (_I,) * 9 + (_F, _I) + (_L,) * 24
+                            (_P,) * 12 + (_I,) * 11 + (_F, _I) + (_L,) * 24
                             + (_P,)),
+    "flash_attention_bwd_chunks": ("flash_attention_bwd",
+                                   "flash_attention_bwd_chunks", (_I,) * 8),
     "rwkv6_scan": ("rwkv6_scan", "rwkv6_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "mamba_scan": ("mamba_scan", "mamba_scan_launch",

@@ -496,7 +496,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     nothing to dk, dv; dk and dv sum over each KV head's query heads.  On
     the card: a delta pass, then one kernel for dk and dv and one for dq,
     no atomics, so two calls on the same inputs agree bitwise; the
-    results are (B, S, ., D) tensors seen as (B, ., S, D)."""
+    results are (B, S, ., D) tensors seen as (B, ., S, D).  Where a
+    kernel's grid would not fill the card (dq: a short query set; dk/dv:
+    few KV heads) its blocks split their walk into chunks (the kernel
+    library says how many) and float32 scratch of the chunks' partial sums
+    is added in a fixed order."""
     _, live, window = _attention_shapes(q, k, v, causal, None, live_heads,
                                         window)
     for name, t in (("o", o), ("do", do)):
@@ -528,12 +532,24 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if b * h == 0 or s == 0 or t_len == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, live, s), dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
+    chunks = _build.launcher("flash_attention_bwd_chunks")
+    q_chunks, kv_chunks = (chunks(b, hkv, live, s, t_len, d, bf16, kv)
+                           for kv in (0, 1))
+    if min(q_chunks, kv_chunks) < 1:
+        raise RuntimeError(f"flash_attention_bwd_chunks failed: cudaError_t "
+                           f"{-min(q_chunks, kv_chunks)}")
+    f32 = {"dtype": torch.float32, "device": q.device}
+    part_q = (torch.empty((q_chunks, b, h, s, d), **f32) if q_chunks > 1
+              else None)
+    part_kv = (torch.empty((2, kv_chunks, b, hkv, t_len, d), **f32)
+               if kv_chunks > 1 else None)
     _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(0 if x is None else x.data_ptr() for x in (part_q, part_kv)),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, s, t_len,
-            live, d, int(causal), window,
-            d ** -0.5 if scale is None else float(scale),
-            int(q.dtype == torch.bfloat16),
+            live, d, int(causal), window, q_chunks, kv_chunks,
+            d ** -0.5 if scale is None else float(scale), bf16,
             *(st for x in (q, k, v, o, do, dq, dk, dv)
               for st in x.stride()[:3]), _stream(q))
     _count(flash_attention_backward)

@@ -1207,9 +1207,14 @@ def test_place_four_on_card_bitwise(cuda, backend):
 
 # K5's backward: (B, H, live, Hkv, S, T, D, causal, window) at every head
 # size, causal, non-causal with S != T (cross-attention), windowed, grouped
-# with padded heads; float32 sums in another order keep dq, dk, dv within
-# 2e-5 of the largest gradient of their kind, and a bfloat16 gradient
-# within that beyond its one rounding (2^-8 of the value)
+# with padded heads; short query sets over long key ranges, where the dq
+# kernel splits its key walk into chunks (K5_BWD_SPLIT: 16 and 64 queries
+# over 1500 keys, 48 causal over 1000, and at D = 128 and 256; the dk/dv
+# kernel splits its walk over query tiles where the grid is short, as at
+# most of the other cases); S and T off the kernels' tiles (16, 32 and 64
+# rows).  float32 sums in another order keep dq, dk, dv within 2e-5 of the
+# largest gradient of their kind, and a bfloat16 gradient within that
+# beyond its one rounding (2^-8 of the value)
 K5_BWD_CASES = [
     (2, 4, 3, 3, 70, 70, 16, True, None),
     (2, 6, 6, 2, 37, 101, 16, False, None),
@@ -1219,7 +1224,15 @@ K5_BWD_CASES = [
     (1, 8, 6, 1, 150, 150, 128, True, None),
     (1, 4, 2, 1, 100, 100, 256, True, 40),
     (1, 2, 2, 2, 64, 130, 256, False, None),
+    (2, 4, 4, 2, 90, 133, 16, True, 50),
+    (1, 6, 5, 5, 77, 93, 128, True, None),
+    (1, 4, 4, 2, 16, 1500, 64, False, None),
+    (2, 6, 6, 6, 64, 1500, 64, False, None),
+    (1, 4, 3, 1, 48, 1000, 64, True, None),
+    (1, 4, 4, 2, 40, 600, 128, True, 100),
+    (1, 2, 2, 1, 20, 700, 256, False, None),
 ]
+K5_BWD_SPLIT = K5_BWD_CASES[10:]
 K5_BWD_TOL = 2e-5
 
 
@@ -1258,9 +1271,41 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
         assert not got[0][:, live:].any()
 
 
+def _chunks(case, dtype, kv):
+    """How many chunks the dq (kv = 0) or the dk/dv (kv = 1) kernel splits
+    its walk into at ``case``."""
+    from repro_torch.kernels import _build
+
+    b, _, live, hkv, s, t, d, _, _ = case
+    return _build.launcher("flash_attention_bwd_chunks")(
+        b, hkv, live, s, t, d, int(dtype == torch.bfloat16), kv)
+
+
 @pytest.mark.cuda
-def test_flash_attention_backward_kernel_is_deterministic(cuda):
-    q, k, v, do, kw = _k5_bwd_inputs(K5_BWD_CASES[3], torch.float32, cuda)
+@pytest.mark.parametrize("case", K5_BWD_SPLIT)
+def test_flash_attention_backward_splits_short_query_sets(cuda, case):
+    """The short query sets take the split dq walk (more than one
+    chunk)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _chunks(case, dtype, 0) > 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_walks_whole_where_the_grid_is_full(cuda):
+    """dq walks whole at smollm's train shape and dk/dv at whisper's
+    encoder; dk/dv splits a few KV heads' many query tiles."""
+    smollm = (8, 16, 9, 3, 1024, 1024, 64, True, None)
+    encoder = (8, 6, 6, 6, 1500, 1500, 64, False, None)
+    assert _chunks(smollm, torch.float32, 0) == 1
+    assert _chunks(encoder, torch.float32, 1) == 1
+    assert _chunks(K5_BWD_CASES[3], torch.float32, 1) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [K5_BWD_CASES[3], K5_BWD_SPLIT[1]],
+                         ids=["dkdv_split", "dq_split"])
+def test_flash_attention_backward_kernel_is_deterministic(cuda, case):
+    q, k, v, do, kw = _k5_bwd_inputs(case, torch.float32, cuda)
     out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     first = ops.flash_attention_backward(q, k, v, out, do, lse, **kw)
     for _ in range(3):

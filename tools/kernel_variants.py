@@ -3,8 +3,9 @@
 in one process on one card.
 
     python3 tools/kernel_variants.py            # every experiment
-    python3 tools/kernel_variants.py k5         # K5's only (or k1, k34, k6,
-                                                # k7, or several)
+    python3 tools/kernel_variants.py k5         # K5's only (or k1, k34, k5bwd,
+                                                # k6, k7, or several)
+    python3 tools/kernel_variants.py k5bwd --train   # and the train steps
 
 Each variant is the committed source in ``src/repro_torch/kernels/csrc/``
 with the text replacements of its entry in ``EXPERIMENTS`` applied, or a
@@ -22,8 +23,15 @@ mapped over each of bbd-20k's four largest levels in float64 and float32
 and dense at K4 float64's (243, 8, 1, 1) and K3 float64's (8, 1, 1), K6
 and K7 at ``chip_smoke.py``'s prefill shapes (zero state) and decode
 shapes (a state), held to its ``SCAN_TOL`` on the output and the final
-state.  A K3/K4 variant that changes the tile kinds names its rule in
-``RULES``; the tile records are rebuilt with it.  Prints one JSON line per
+state, K5's backward (k5bwd) at ``chip_smoke.py``'s ``K5_BWD_SHAPES`` in
+float32, held to its ``K5_BWD_TOL`` of each gradient's largest against
+the plain backward and to a bitwise repeat.  With ``--train`` (k5bwd),
+the smollm-135m and whisper-tiny train steps of ``chip_smoke.py``'s train
+phases then run with the committed backward and its CUDA-core
+predecessor (``simt``) in turns: committed, simt, simt, committed, 4
+steps each, host ms a step ending in a synchronize.  A K3/K4 variant that
+changes the tile kinds names its rule in ``RULES``; the tile records are
+rebuilt with it.  Prints one JSON line per
 variant (or its build log, when it does not build), then the card's name
 and power limit.
 """
@@ -89,6 +97,94 @@ EXPERIMENTS = {
         """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));""")],
+    ("k5bwd", "committed"): [],
+    # the kernel before its redesign: float32 FMAs on the CUDA cores, P and
+    # dS through shared memory, synchronous staging, no split dQ walk
+    ("k5bwd", "simt"): "flash_attention_bwd_simt.cu",
+    # no walk is split (whisper's cross shape: 48 dq blocks; internvl: 192
+    # dk/dv blocks), or only dq's
+    ("k5bwd", "no_split"): [(
+        "  if (blocks <= 0 || blocks >= want) return 1;", "  return 1;")],
+    ("k5bwd", "no_kv_split"): [(
+        "  return split(static_cast<long long>(kv_tiles) * Hkv * B, per_sm, "
+        "kv_steps);", "  return 1;")],
+    # one TF32 product in place of three (wrong results): what the two
+    # correction products cost
+    ("k5bwd", "one_product"): [("""  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);""", "  mma_tf32(c, a_hi, b_hi);")],
+    # no split (hi = x, lo = 0; wrong results): what the splits cost
+    ("k5bwd", "no_tf32_split"): [(
+        """  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;""",
+        """  hi = __float_as_uint(x);
+  lo = 0u;""")],
+    # hi truncated to TF32 (not rounded) and lo left for the tensor cores
+    # to truncate: two ops a split in place of four, one bit less exact
+    ("k5bwd", "truncated_split"): [(
+        """  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;""",
+        """  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));""")],
+    # only the dk/dv kernel, or only the dq kernel (wrong results): what
+    # each takes
+    ("k5bwd", "no_dq"): [("  flash_bwd_dq_kernel<T, D>\n      <<<",
+                          "  if (a.B < 0) flash_bwd_dq_kernel<T, D>\n      <<<")],
+    ("k5bwd", "no_dkdv"): [(
+        "  flash_bwd_dkdv_kernel<T, D>\n      <<<",
+        "  if (a.B < 0) flash_bwd_dkdv_kernel<T, D>\n      <<<")],
+    # the long sums added in float32 after every k-step, not every 4
+    ("k5bwd", "add_every_kstep"): [
+        ("constexpr int JG = NQ < 4 ? NQ : 4;", "constexpr int JG = 1;"),
+        ("constexpr int JG = NK < 4 ? NK : 4;", "constexpr int JG = 1;")],
+    # D = 64: 64 queries a dk/dv step in place of 32, or 64 keys a dq step
+    # in place of 32
+    ("k5bwd", "d64_dkdv_bq_64"): [(
+        """struct KvCfg<64> {
+  static constexpr int WK = 4, NDS = 1, BQ = 32;""",
+        """struct KvCfg<64> {
+  static constexpr int WK = 4, NDS = 1, BQ = 64;""")],
+    ("k5bwd", "d64_dq_bk_64"): [(
+        """struct QCfg<64> {
+  static constexpr int WQ = 4, BK = 32;""",
+        """struct QCfg<64> {
+  static constexpr int WQ = 4, BK = 64;""")],
+    # D = 64: 8 warps of 16 queries a dq block, 128 queries (two blocks an
+    # SM, 16 warps)
+    ("k5bwd", "d64_dq_8_warps"): [(
+        """struct QCfg<64> {
+  static constexpr int WQ = 4, BK = 32;""",
+        """struct QCfg<64> {
+  static constexpr int WQ = 8, BK = 32;""")],
+    # D = 64: dk/dv held to 170 registers a thread, three blocks an SM
+    ("k5bwd", "d64_dkdv_3_blocks"): [(
+        """template <typename T, int D>
+__global__ void __launch_bounds__(KvSmem<D>::NT)""",
+        """template <typename T, int D>
+__global__ void __launch_bounds__(KvSmem<D>::NT, D == 64 ? 3 : 1)""")],
+    # D = 64: two warps to each 16 keys (each half of the step's scores and
+    # half of dK, dV, trading P^T and dS^T as at D = 256) in place of one
+    ("k5bwd", "d64_two_warps_a_key_tile"): [(
+        """struct KvCfg<64> {
+  static constexpr int WK = 4, NDS = 1, BQ = 32;""",
+        """struct KvCfg<64> {
+  static constexpr int WK = 4, NDS = 2, BQ = 32;""")],
+    # D = 128: 32 queries a dk/dv step and 32 keys a dq step in place of
+    # 16 (one block an SM in place of two), or two warps to each 16 keys
+    ("k5bwd", "d128_tiles_32"): [
+        ("""struct KvCfg<128> {
+  static constexpr int WK = 4, NDS = 1, BQ = 16;""",
+         """struct KvCfg<128> {
+  static constexpr int WK = 4, NDS = 1, BQ = 32;"""),
+        ("""struct QCfg<128> {
+  static constexpr int WQ = 4, BK = 16;""",
+         """struct QCfg<128> {
+  static constexpr int WQ = 4, BK = 32;""")],
+    ("k5bwd", "d128_two_warps_a_key_tile"): [(
+        """struct KvCfg<128> {
+  static constexpr int WK = 4, NDS = 1, BQ = 16;""",
+        """struct KvCfg<128> {
+  static constexpr int WK = 4, NDS = 2, BQ = 16;""")],
     ("k34", "committed"): [],
     # up to 128 rows for the small tiles (TC >= 1): 16 staged L loads a
     # thread, not 4
@@ -235,6 +331,7 @@ EXPERIMENTS = {
     cp_async_wait<0>();""")],
 }
 SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
+          "k5bwd": "flash_attention_bwd",
           "k34": "panel_update", "k6": "mamba_scan", "k7": "rwkv6_scan"}
 VARIANT_SOURCES = ROOT / "tools" / "variant_sources"
 # K3/K4 variants' tile kinds, ((small TC range, BK), (large TC range, BK)),
@@ -455,6 +552,62 @@ def scan_cases(torch, kern, rng):
     return out
 
 
+def k5bwd_cases(torch):
+    """{tag: (args, want)} for K5's backward at ``chip_smoke.py``'s
+    ``K5_BWD_SHAPES`` (float32): q, k, v, the committed forward's output
+    and log-sum-exp, dO, the keywords, and the plain backward."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, plain
+
+    out = {}
+    for tag, (shape, causal, window) in cs.K5_BWD_SHAPES.items():
+        q, k, v, do, kw = cs.k5_bwd_inputs(torch, *shape, causal=causal,
+                                           window=window)
+        o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        out[tag] = ((q, k, v, o, do, lse, kw),
+                    plain.flash_attention_backward_plain(q, k, v, o, do, lse,
+                                                         **kw))
+    return out
+
+
+def train_ab(torch, libs):
+    """{arch: [{variant, step_ms}, ...]}: the train steps of
+    ``chip_smoke.py``'s train phases (whole models, float32, micro_steps
+    1, the default AdamW) with the committed K5 backward and ``simt`` in
+    turns, the same parameters and optimizer carried through."""
+    import chip_smoke as cs
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    out = {}
+    for arch, batch, seq in (
+            ("smollm-135m", cs.TRAIN_BATCH, cs.TRAIN_SEQ),
+            ("whisper-tiny", cs.WHISPER_TRAIN_BATCH, cs.WHISPER_TRAIN_TOKENS)):
+        cfg = get_config(arch)
+        params = tf.init_params(cfg, seed=0, device="cuda")
+        shape = ShapeConfig("train", seq, batch, "train")
+        batches = [device_batch(make_batch_for(cfg, shape, step=i),
+                                torch.float32, "cuda") for i in range(4)]
+        opt = init_adamw(params)
+        step = make_train_step(cfg, micro_steps=1)
+        tokens = batch * (seq + (cfg.encdec.enc_len if cfg.encdec else 0))
+        for name in ("committed", "simt", "simt", "committed"):
+            swap_in("k5bwd", libs[("k5bwd", name)])
+            params, opt, rows = cs.train_steps(torch, ops, step, params, opt,
+                                               batches, tokens)
+            out.setdefault(arch, []).append(
+                {"variant": name, "step_ms": [r["ms"] for r in rows]})
+        del params, opt, batches
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -464,13 +617,16 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    kernels = argv or ["k1", "k5", "k34", "k6", "k7"]
+    train = "--train" in argv
+    argv = [a for a in argv if a != "--train"]
+    kernels = argv or ["k1", "k5", "k34", "k5bwd", "k6", "k7"]
     libs = build([key for key in EXPERIMENTS if key[0] in kernels])
     todo = list(libs)
     rng = np.random.default_rng(0)
     cases = {"k1": k1_cases(torch, np, rng) if "k1" in kernels else {},
              "k5": k5_cases(torch, np, rng) if "k5" in kernels else {},
              "k34": k34_cases(torch, np, rng) if "k34" in kernels else {},
+             "k5bwd": k5bwd_cases(torch) if "k5bwd" in kernels else {},
              **{kern: scan_cases(torch, kern, rng) for kern in ("k6", "k7")
                 if kern in kernels}}
     for key in todo:
@@ -492,6 +648,19 @@ def main(argv) -> int:
                 got = fn()
                 right = bool(torch.equal(got, want))
                 err = None
+            elif kern == "k5bwd":
+                import chip_smoke as cs
+
+                q, k, v, o, do, lse, kw = args
+                fn = lambda: ops.flash_attention_backward(q, k, v, o, do,
+                                                          lse, **kw)
+                got, again = fn(), fn()
+                errs = [float((x - w).abs().max()) / float(w.abs().max())
+                        for x, w in zip(got, want)]
+                err = max(errs)
+                right = err <= cs.K5_BWD_TOL and all(
+                    torch.equal(x, y) for x, y in zip(got, again))
+                del got, again
             elif kern in ("k6", "k7"):
                 import chip_smoke as cs
 
@@ -505,10 +674,15 @@ def main(argv) -> int:
                 got = fn()
                 err = float((got - want).abs().max())
                 right = err <= 2e-5
-            line[tag] = {"ms": device_ms(torch, fn, n=10 if kern == "k1"
-                                         else 20),
+            line[tag] = {"ms": device_ms(torch, fn, n=10 if kern in (
+                "k1", "k5bwd") else 20),
                          "matches_plain": right, "max_abs_err": err}
+            if kern == "k5bwd":     # each gradient's error of its largest
+                del line[tag]["max_abs_err"]
+                line[tag]["rel_err_dq_dk_dv"] = errs
         print(json.dumps(line), flush=True)
+    if train:
+        print(json.dumps({"train_steps": train_ab(torch, libs)}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
