@@ -12,7 +12,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   bitwise against K3 per slice, in float32 and float64; the
                   mapped K3/K4 in place on ragged slices with absent rows
                   within tolerance of its plain version and bitwise dense
-                  K3 per slice, both element modes, and over 4 systems in
+                  K3 per slice, both element modes, and over 2 systems in
                   one launch (padded system strides), each system bitwise
                   its own one-system launch; K5
                   at the standing prefill and decode shapes, at D = 128 and
@@ -35,7 +35,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   with the log-sum-exp bitwise the forward without it,
                   dq, dk, dv within 2e-5 of their largest (beyond
                   bfloat16's rounding) of the plain backward, dq of the
-                  padded heads zero, two calls bitwise equal.
+                  padded heads zero, two calls bitwise equal; K7's and
+                  K6's backwards at the SSM train paths' shapes
+                  (rwkv6-7b's 8 x 512, 64 heads of 64; the jamba period's
+                  8 x 512, di = 16384, N = 16) from a zero and a non-zero
+                  state with normal upstream gradients of the output and
+                  of the final state: every gradient within 1e-4 of its
+                  largest of the plain backward's, two calls bitwise
+                  equal.
 3. ``default``  — the main path at full size with default options:
                   ``bordered_block_diagonal(20_000, block=16, border=64,
                   seed=3)`` with ``LUOptions(concurrency=512)``: analyze
@@ -57,15 +64,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   full-width chunk): chunk widths, ``analyze_s``,
                   supersteps, K1/K2 launches, structure bitwise phase 3's.
    ``batched``  — the batched tier on phase 3's plan: ``factorize_batch``
-                  of 4 value sets (``generic_values_csr`` seeds 0..3;
-                  ``BATCH``, cut from 8), each
+                  of 2 value sets (``generic_values_csr`` seeds 0..1;
+                  ``BATCH``, cut from 8 and 4), each
                   system's factors' sha256 equal to a sequential
                   ``factorize`` of it, the mapped K3/K4 once per level for
-                  all 4 (12 launches, as one sequential sweep), walls
-                  against the 4 sequential ones; ``solve_batch`` on (4, n)
-                  and (4, n, 4) bitwise the sequential solves (x, residual
+                  both (12 launches, as one sequential sweep), walls
+                  against the 2 sequential ones; ``solve_batch`` on (2, n)
+                  and (2, n, 4) bitwise the sequential solves (x, residual
                   history, accepted count), residuals <= 1e-10; systems 0
-                  and 3 again on phase 4's plan (float32 updates); one
+                  and 1 again on phase 4's plan (float32 updates); one
                   batched sweep of system 0 under ``torch.profiler``
                   (``PROFILED_SYSTEMS``); whether batched
                   cuBLAS products and triangular solves are bitwise per
@@ -166,9 +173,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   one request's frames, a 4-token prompt and 16
                   teacher-forced steps.
 16. ``breakdown_serve_whisper`` — phase 8 for whisper-tiny.
-17. ``serve_internvl`` — phase 9 for internvl2-26b at full width cut to 24
-                  of its 48 layers (42.0 GB): 8 requests of 256 patch
-                  embeddings and 512 tokens, 32 greedy tokens: K5 768
+17. ``serve_internvl`` — phase 9 for internvl2-26b at full width cut to 12
+                  of its 48 layers (``INTERNVL_LAYERS``; 24 until the SSM
+                  train phases): 8 requests of 256 patch
+                  embeddings and 512 tokens, 32 greedy tokens: K5 384
                   launches (48 query heads on 8 KV heads, D = 128); the
                   card-vs-CPU check on its first 2 layers with the same
                   patches, a 128-token prompt and 8 steps.
@@ -211,6 +219,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   whole model's loss, grad_norm and gradients of the first
                   step's batch (every leaf within 3e-4 of its largest: see
                   ``TRAIN_GRAD_TOL``).
+23. ``train_rwkv6`` — Queue A item 12.10: rwkv6-7b at full width cut to 8
+                  of its 32 layers (``RWKV6_TRAIN_CUT``), 8 x 512 tokens,
+                  3 steps of the default ``AdamWConfig``: K7 16 forward
+                  (each group's forward and its remat recompute) and 8
+                  backward launches a step, no other kernel; per step
+                  loss, grad_norm, ms, tokens/s; ``train_peak_bytes``;
+                  one more step profiled; card vs CPU on its first 2
+                  layers over 2 x 64 tokens (loss and grad_norm within
+                  1e-5 relative, every gradient leaf within 1e-4 of its
+                  largest); 2 steps at lr 2e-6 without warmup on one
+                  repeated batch must lower the loss.
+24. ``train_jamba`` — the same for the jamba period cut to its first two
+                  layers (attention + MLP, mamba + MLP at d = 8192;
+                  ``JAMBA_TRAIN_CUT``): K5 2 + 1 and K6 2 + 1 launches a
+                  step (per-layer remat), card vs CPU on both layers.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
@@ -219,31 +242,33 @@ windowed prefill, ring decode and global decode, and at whisper's and
 internvl's prefill and decode shapes, an empty kernel's
 device time, and dense K4 float64 against ``baddbmm`` in turns), one
 ``kernels`` line (each kernel's time beside its bound; K3/K4, dense and
-mapped, once per element type, and the mapped one over 4 systems in
+mapped, once per element type, and the mapped one over 2 systems in
 float64; K5's gemma3 windowed prefill, whisper encoder and internvl
 prefill; K5's forward with the log-sum-exp at smollm's train shape and
 its backward at each train shape, beside SDPA's forward and the backward
-alone of SDPA; ``ms`` and ``library_ms`` are the device
+alone of SDPA; K6's and K7's backwards at the train phases' shapes, with
+no library yardstick; ``ms`` and ``library_ms`` are the device
 time alone, the
 calls queued behind a spin kernel (``device_ms``); ``plain_ms`` is CUDA
 events around calls of the plain version, a host-driven sequence of many
 small launches whose time includes the host's gaps), the card's name and
 power limit, and the final ``{"ok": true, ...}``.
 The launch counters are reset just before each of phases 3, 4, 7, 9, 11,
-13, 15, 17, 19, 21 and 22, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
+13, 15, 17, 19, 21, 22, 23 and 24, each ``bubble`` analyze, the ``batched`` phase's batched sweeps, each
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
 just after it, so each path reports its own launches (phase 3: K2 and the
 float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped K3/K4;
 ``bubble``: K2, and K1 on the kernel backend; ``batched``: the float64
-mapped K3/K4 over 4 systems; ``robust``: K2 and the float64 mapped K3/K4;
+mapped K3/K4 over 2 systems; ``robust``: K2 and the float64 mapped K3/K4;
 ``blocking``: the mapped K3/K4 (no fixpoint runs); ``serve_lu``: K2 on
 each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
 K1 on the kernel options) on each rank and each dynamic run, the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
 phase 11: K6 and K5; phases 13, 15 and 17: K5; phase 19: none;
-phases 21 and 22: K5 and its backward; the
+phases 21 and 22: K5 and its backward; phase 23: K7 and its backward;
+phase 24: K5, K6 and their backwards; the
 dense K3/K4
 entry points are off the paths since the sweep runs the mapped form),
 split by stage in ``launches_by_stage``
@@ -288,11 +313,12 @@ PEAK_SFU_S = 132 * 16 * 1.98e9
 SPIN_CYCLES = 100_000_000
 SERVE_ARCH, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN = "smollm-135m", 8, 512, 32
 # value sets of the batched phase (and systems of the mapped update's
-# system-stride check): 4, cut from 8 to keep the smoke inside its time
-# limit as the serve phases grow (the batched phase took 161 s of the 798
-# at 8 on an H100 80GB HBM3 at 700 W, most of it the sequential
+# system-stride check): 2, cut from 8 (to 4) as the serve phases grew and
+# to 2 as the train phases grew, to keep the smoke inside its time limit
+# (the batched phase took 161 s of the 798 at 8, and 109 s of the 757 at
+# 4, on an H100 80GB HBM3 at 700 W, most of it the sequential
 # factorizations and solves it is compared with)
-BATCH = 4
+BATCH = 2
 # the serving engine's dispatch slots (the serve_lu phase): 4, cut from 8
 # to keep the smoke inside its time limit (its first flush, 8 + 2
 # requests, took 57 s of the phase's 91 on an H100 80GB HBM3 at 700 W,
@@ -328,11 +354,15 @@ GEMMA3_CHECK_LAYERS, GEMMA3_CHECK_PROMPT, GEMMA3_CHECK_STEPS = 6, 1016, 16
 # sequence); its card-vs-CPU check: the whole model, one request's frames,
 # the 4-token prompt and 16 teacher-forced steps
 WHISPER_PROMPT, WHISPER_CHECK_STEPS = 4, 16
-# internvl2-26b's serve run: full width cut to 24 of its 48 layers (all 48
+# internvl2-26b's serve run: full width cut to 12 of its 48 layers (all 48
 # are 79.45 GB of float32 parameters, which leaves under 6 GB of the card),
-# 256 patch embeddings and 512 tokens a request
-INTERNVL_LAYERS = 24
-INTERNVL_CUT = "24 of 48 layers: 79.45 GB of float32 parameters whole"
+# 256 patch embeddings and 512 tokens a request; cut from 24 layers (42.0
+# GB) to keep the smoke inside its time limit as the train phases grow:
+# the SSM train phases took 58 s, and the whole smoke 735 s of its 1200
+# on an H100 80GB HBM3 at 700 W, where 24 layers took 10.5 s
+INTERNVL_LAYERS = 12
+INTERNVL_CUT = ("12 of 48 layers: 79.45 GB of float32 parameters whole "
+                "(24 until the SSM train phases)")
 # deepseek-v3-671b's serve run: the model at full width cut in depth to one
 # layer (13.36 G parameters, 53.4 GB in float32 with its 45 GB of experts:
 # two layers would need ~98 GB); its card-vs-CPU check by parts samples
@@ -363,6 +393,10 @@ SOURCES = {
                    "src/repro/kernels/ssm_scan.py:71"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/ssm_scan.py:129"),
+    "mamba_scan_backward": ("src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                            "src/repro/kernels/ssm_scan.py:71"),
+    "rwkv6_scan_backward": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                            "src/repro/kernels/ssm_scan.py:129"),
 }
 # the kernel path's kernels (K1, K2, the mapped K3/K4 in float32) and
 # their profiler names
@@ -632,6 +666,8 @@ def kernel_checks(torch, ops, plain, adj_real):
 
     # K5's backward at the train paths' shapes
     out.update(k5_backward_checks(torch, ops, plain))
+    # K7's and K6's backwards at the SSM train paths' shapes
+    out.update(scan_backward_checks(torch, ops, plain))
     return out
 
 
@@ -834,34 +870,91 @@ K6_SHAPES = {"prefill": (8, 512, 16384, 16), "decode": (8, 1, 16384, 16)}
 SCAN_TOL = 1e-4
 
 
+def _card_draws(torch, rng):
+    """Standard normal and uniform draws on the card from a generator
+    seeded by ``rng``: the scans' sequences at the main paths' shapes are
+    67-268 M floats, seconds each through numpy on the host."""
+    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 31)))
+
+    def normal(*sh):
+        return torch.randn(sh, generator=g, device="cuda")
+
+    def uniform(lo, hi, *sh):
+        return lo + (hi - lo) * torch.rand(sh, generator=g, device="cuda")
+
+    return normal, uniform
+
+
 def rwkv6_inputs(torch, rng, b, l, h, k, *, zero_state=True):
     """r, k, v (B, L, H, K) normal, w in (0.5, 0.999), u (H, K), state
     (B, H, K, K), on the card."""
-    import numpy as np
-
-    arrs = [rng.standard_normal((b, l, h, k)) for _ in range(3)]
-    arrs += [rng.uniform(0.5, 0.999, (b, l, h, k)),
-             rng.standard_normal((h, k)) * 0.3,
-             np.zeros((b, h, k, k)) if zero_state
-             else rng.standard_normal((b, h, k, k))]
-    return tuple(torch.as_tensor(a.astype(np.float32), device="cuda")
-                 for a in arrs)
+    normal, uniform = _card_draws(torch, rng)
+    state = (torch.zeros((b, h, k, k), device="cuda") if zero_state
+             else normal(b, h, k, k))
+    return (normal(b, l, h, k), normal(b, l, h, k), normal(b, l, h, k),
+            uniform(0.5, 0.999, b, l, h, k), normal(h, k) * 0.3, state)
 
 
 def mamba_inputs(torch, rng, b, l, di, n, *, zero_state=True):
     """x (B, L, di), dt ~ 0.05 |normal|, b_t, c_t (B, L, N), a < 0 (di, N),
     d (di,), h0 (B, di, N), on the card."""
+    normal, _ = _card_draws(torch, rng)
+    h0 = (torch.zeros((b, di, n), device="cuda") if zero_state
+          else normal(b, di, n))
+    return (normal(b, l, di), normal(b, l, di).abs() * 0.05,
+            normal(b, l, n), normal(b, l, n), -(normal(di, n).abs() + 0.1),
+            normal(di), h0)
+
+
+def scan_bwd_inputs(torch, kind, shape, *, zero_state, seed):
+    """A scan's inputs (``rwkv6_inputs`` or ``mamba_inputs``, ``kind``
+    "rwkv6" or "mamba") and standard normal upstream gradients of its
+    output and final state, all drawn on the card."""
     import numpy as np
 
-    arrs = [rng.standard_normal((b, l, di)),
-            np.abs(rng.standard_normal((b, l, di))) * 0.05,
-            rng.standard_normal((b, l, n)), rng.standard_normal((b, l, n)),
-            -(np.abs(rng.standard_normal((di, n))) + 0.1),
-            rng.standard_normal(di),
-            np.zeros((b, di, n)) if zero_state
-            else rng.standard_normal((b, di, n))]
-    return tuple(torch.as_tensor(a.astype(np.float32), device="cuda")
-                 for a in arrs)
+    rng = np.random.default_rng(seed)
+    inputs = rwkv6_inputs if kind == "rwkv6" else mamba_inputs
+    args = inputs(torch, rng, *shape, zero_state=zero_state)
+    normal, _ = _card_draws(torch, rng)
+    return args + (normal(*args[0].shape), normal(*args[-1].shape))
+
+
+def scan_backward_checks(torch, ops, plain):
+    """Phase 2's K7 and K6 backward checks at their train paths' shapes
+    (rwkv6-7b's and the jamba period's prefill shapes, 8 x 512), from a
+    zero and a non-zero state, with non-zero upstream gradients of the
+    output and of the final state: every gradient within SCAN_TOL of its
+    largest entry of the plain backward's, finite, and two calls bitwise
+    equal."""
+    out = {}
+    for key, kind, shape, fn, ref in (
+            ("K7_bwd", "rwkv6", K7_SHAPES["prefill"],
+             ops.rwkv6_scan_backward, plain.rwkv6_scan_backward_plain),
+            ("K6_bwd", "mamba", K6_SHAPES["prefill"],
+             ops.mamba_scan_backward, plain.mamba_scan_backward_plain)):
+        worst = 0.0
+        for zero in (True, False):
+            name = f"{key}_{'zero' if zero else 'state'}"
+            args = scan_bwd_inputs(torch, kind, shape, zero_state=zero,
+                                   seed=int(zero))
+            got = fn(*args)
+            again = fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {shape}: two backward calls differ")
+            rels = [float((g - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(got, want)]
+            check(all(bool(torch.isfinite(g).all()) for g in got)
+                  and max(rels) <= SCAN_TOL, f"{name} {shape}: gradients "
+                  f"off by {rels} of their largest (> {SCAN_TOL})")
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            out[name] = {"rel_err_per_gradient": rels, "max_abs_err": err,
+                         "bitwise_repeat": True}
+            worst = max(worst, err)
+            del args, got, again, want
+        out[f"{key}_max_abs_err"] = worst
+    return out
 
 
 def scan_error(torch, got, want):
@@ -882,6 +975,29 @@ def rwkv6_work(b, l, h, k):
     output (2 per value)."""
     return (4 * (5 * b * l * h * k + h * k + 2 * b * h * k * k),
             5 * b * l * h * k * k + 5 * b * l * h * k)
+
+
+def rwkv6_bwd_work(b, l, h, k):
+    """(bytes, float ops) of K7's backward: r, k, v, w, do read and dr,
+    dk, dv, dw written once, u and du, the state and its upstream
+    gradient read and dstate written; 14 flops per (t, key, value): the
+    state S_{t-1} formed once (k_i v_j and an FMA), the FMAs of dr, dk and
+    dw, G k_i and its sum for dv, and G's update (r_i do_j and an FMA);
+    and 10 per (t, key) for the bonus terms."""
+    return (4 * (9 * b * l * h * k + 2 * h * k + 3 * b * h * k * k),
+            14 * b * l * h * k * k + 10 * b * l * h * k)
+
+
+def mamba_bwd_work(b, l, di, n):
+    """(bytes, float ops, exponentials) of K6's backward: x, dt, dy read
+    and dx, ddt written once, B_t, C_t read and dB, dC written, A, D and
+    their gradients, h0 and the final state's gradient read and dh0
+    written; 17 flops and one exp per (t, d, n) (the state h_{t-1} formed
+    once, g's update, the decay's gradient, the terms of dB, dC, g . B,
+    dA), 8 per (t, d)."""
+    return (4 * (5 * b * l * di + 4 * b * l * n + 2 * di * n + 2 * di
+                 + 3 * b * di * n),
+            17 * b * l * di * n + 8 * b * l * di, b * l * di * n)
 
 
 def mamba_work(b, l, di, n):
@@ -2483,14 +2599,46 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
 TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 6, 1e-3
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_STEPS = 8, 64, 3
 TRAIN_LOSS_TOL = 1e-5
-TRAIN_GRAD_TOL = {"smollm-135m": 1e-4, "whisper-tiny": 3e-4}
+TRAIN_GRAD_TOL = {"smollm-135m": 1e-4, "whisper-tiny": 3e-4,
+                  "rwkv6-7b": 1e-4, "jamba-1.5-large-398b": 1e-4}
 K5_COUNTS = ("flash_attention", "flash_attention_backward")
+# the SSM train phases (Queue A item 12.10): rwkv6-7b at full width cut to
+# 8 of its 32 layers (260.6 M parameters a layer and 0.537 B of embedding
+# and head: 10.5 GB of float32 parameters, 52 GB to train with AdamW's
+# float32 master copy, two moments and the gradients; the whole model would
+# need 142 GB), and the jamba period's first two layers at d = 8192
+# (attention + MLP, mamba + MLP: 2.85 B parameters, 11.4 GB, 57 GB to
+# train; a third layer would pass 70 GB before activations); 8 x 512
+# tokens, 3 steps of the default AdamWConfig, micro_steps 1; card vs CPU
+# on the first 2 layers over 2 x 64 tokens (the host's float32 products of
+# 1-3 B parameters: seconds; rwkv6-7b's leaves carry float32 noise near
+# the 1e-4 gate at full width: the CPU against itself, 1 thread against 8,
+# differs by 1.6e-4 of the largest at 2 x 32 and 2 x 64 tokens, and the
+# card by 1.9e-4 at 2 x 32 and 6.0e-5 at 2 x 64, on an H100 80GB HBM3 at
+# 700 W; ROADMAP Queue C), without the host's AdamW step (checked on
+# smollm: jamba's AdamW state would be 45.6 GB of host memory); the loss
+# must descend over 2 steps on a repeated batch at lr 2e-6 without warmup:
+# an Adam step moves every weight by about lr, and a pre-activation
+# summing 4096-16384 of them by up to lr times their count, so the loss
+# moved by 1-5 nats a step at lr 3e-5 and overshot (rwkv6-7b 6.31, 7.17,
+# 3.27; jamba 6.26, 5.22, 9.09 on an H100 80GB HBM3 at 700 W)
+RWKV6_TRAIN_LAYERS = 8
+RWKV6_TRAIN_CUT = ("8 of 32 layers: 10.5 GB of float32 parameters, 52 GB "
+                   "to train; the whole model would need 142 GB")
+JAMBA_TRAIN_CUT = ("the jamba period (dense_period) cut to its first 2 "
+                   "layers, attention + MLP and mamba + MLP at d = 8192: "
+                   "11.4 GB of float32 parameters, 57 GB to train")
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 8, 512, 3
+SSM_CHECK_LAYERS, SSM_CHECK_BATCH, SSM_CHECK_SEQ = 2, 2, 64
+SSM_DESCENT_STEPS, SSM_DESCENT_LR = 2, 2e-6
 
 
-def train_steps(torch, ops, step, params, opt, batches, tokens):
+def train_steps(torch, ops, step, params, opt, batches, tokens, *,
+                counts=K5_COUNTS, key="k5"):
     """Run ``step`` over ``batches``; per step its metrics, host-clock ms
-    (ending in a synchronize), tokens/s and K5's forward and backward
-    launches."""
+    (ending in a synchronize), tokens/s and, under ``key``, the launches
+    of the kernels ``counts`` (K5's forward and backward), or with
+    ``counts=None`` of every kernel launched."""
     rows = []
     for i, batch in enumerate(batches):
         before = ops.launch_counts()
@@ -2500,9 +2648,12 @@ def train_steps(torch, ops, step, params, opt, batches, tokens):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         after = ops.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
         rows.append({"step": i + 1, **{k: float(v) for k, v in m.items()},
                      "ms": dt * 1e3, "tokens_per_s": tokens / dt,
-                     "k5": {k: after[k] - before[k] for k in K5_COUNTS}})
+                     key: ({k: n for k, n in delta.items() if n}
+                           if counts is None
+                           else {k: delta[k] for k in counts})})
     return params, opt, rows
 
 
@@ -2683,6 +2834,94 @@ def train_whisper_phase(torch, ops):
                       WHISPER_TRAIN_TOKENS], "micro_steps": 1,
             "steps": rows, "launches": launches, "k5_per_step": want,
             "card_vs_cpu": vs_cpu}
+
+
+def ssm_train_phase(torch, ops, cfg, *, tag, cut):
+    """Phases 23 and 24: ``make_train_step`` on an SSM model at full
+    width (``cfg``, cut in depth as ``cut`` says); see the constants
+    above.  First, card vs CPU on its first SSM_CHECK_LAYERS layers (a
+    view of the seed-0 draw and its copy on the host).  Then the steps,
+    each checked to launch exactly the kernels of the remat rule: every
+    layer's mixer kernel (K7, K6 or K5) once in the forward and once in
+    its group's or its own checkpoint's recompute (``cfg.remat`` with more
+    than one group, or ``cfg.layer_remat``), its backward once, and no
+    other kernel.  Then a profiled step, and the descent on a repeated
+    batch with a fresh optimizer."""
+    import dataclasses as dc
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    groups = max(1, SSM_CHECK_LAYERS // len(cfg.pattern))
+    cfg_cut = dc.replace(cfg, n_layers=groups * len(cfg.pattern))
+    cut_card = {**params, "groups": params["groups"][:groups]}
+    check_batch = make_batch_for(cfg_cut, ShapeConfig(
+        "check", SSM_CHECK_SEQ, SSM_CHECK_BATCH, "train"))
+    vs_cpu = card_vs_cpu(torch, cfg_cut, cut_card,
+                         tf.to_device(cut_card, "cpu"), check_batch)
+    del cut_card
+
+    kernel = {"rwkv6": "rwkv6_scan", "mamba": "mamba_scan",
+              "attn": "flash_attention"}
+    runs = 1 + (cfg.remat and cfg.n_groups > 1) + cfg.layer_remat
+    want = Counter()
+    for mixer, _ in cfg.pattern * cfg.n_groups:
+        want[kernel[mixer]] += runs
+        want[f"{kernel[mixer]}_backward"] += 1
+    want = dict(want)
+    shape = ShapeConfig("train", SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, "train")
+    batches = [device_batch(make_batch_for(cfg, shape, step=i),
+                            torch.float32, dev)
+               for i in range(SSM_TRAIN_STEPS)]
+    opt = init_adamw(params)
+    step = make_train_step(cfg, micro_steps=1)
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    params, opt, rows = train_steps(torch, ops, step, params, opt, batches,
+                                    tokens, counts=None, key="launches")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        check(r["launches"] == want, f"train_{tag} step {r['step']}: "
+              f"launches {r['launches']}, expected {want}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"train_{tag} step {r['step']}: loss {r['loss']}")
+    prof = profiled(torch, lambda: step(params, opt, batches[0]))[1]
+    del opt              # before a fresh optimizer state of 3 x 10-11 GB
+    descent = make_train_step(cfg, micro_steps=1, acfg=AdamWConfig(
+        lr=SSM_DESCENT_LR, warmup_steps=0))
+    _, _, d_rows = train_steps(torch, ops, descent, params,
+                               init_adamw(params),
+                               [batches[0]] * SSM_DESCENT_STEPS, tokens)
+    losses = [r["loss"] for r in d_rows]
+    check(losses[-1] < losses[0] - 0.01, f"train_{tag}: the loss did not "
+          f"descend on a repeated batch: {losses}")
+    del params, batches
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "cut": cut,
+            "batch": [SSM_TRAIN_BATCH, SSM_TRAIN_SEQ], "micro_steps": 1,
+            "dtype": "float32", "init_params_s": init_s, "steps": rows,
+            "launches": launches, "launches_per_step": want,
+            "train_peak_bytes": peak, "profiled_step": prof,
+            "card_vs_cpu": {"layers": cfg_cut.n_layers,
+                            "batch": [SSM_CHECK_BATCH, SSM_CHECK_SEQ],
+                            "host_adamw_step": "not run: AdamW is "
+                            "checked card vs CPU on smollm, and jamba's "
+                            "state would take 45.6 GB of host memory",
+                            **vs_cpu},
+            "descent": {"lr": SSM_DESCENT_LR, "losses": losses}}
 
 
 def breakdown_serve(torch, cfg, params, *, prompt_len=SERVE_PROMPT):
@@ -2974,6 +3213,17 @@ def main() -> int:
     emit({"phase": "train_smollm", **train_res["smollm"]})
     train_res["whisper"] = train_whisper_phase(torch, ops)
     emit({"phase": "train_whisper", **train_res["whisper"]})
+    train_res["rwkv6"] = ssm_train_phase(
+        torch, ops, dataclasses.replace(get_config("rwkv6-7b"),
+                                        n_layers=RWKV6_TRAIN_LAYERS),
+        tag="rwkv6", cut=RWKV6_TRAIN_CUT)
+    emit({"phase": "train_rwkv6", **train_res["rwkv6"]})
+    jamba = dense_period(get_config("jamba-1.5-large-398b"))
+    train_res["jamba"] = ssm_train_phase(
+        torch, ops, dataclasses.replace(jamba, n_layers=2,
+                                        pattern=jamba.pattern[:2]),
+        tag="jamba", cut=JAMBA_TRAIN_CUT)
+    emit({"phase": "train_jamba", **train_res["jamba"]})
 
     # per-kernel times at the main paths' shapes: the kernel and the
     # library call on the device alone (device_ms), the plain version with
@@ -3307,6 +3557,27 @@ def main() -> int:
                 shapes_line[f"{name}_decode"] = {
                     "shape": list(shape), "max_abs_err": err,
                     **timing(*t, **kw)}
+    # K6's and K7's backwards at their train phases' shapes, from a zero
+    # state with normal upstream gradients, their errors phase 2's (the
+    # larger of the zero and non-zero state); their launches the train
+    # phases'; no one PyTorch call computes a scan's gradient
+    for name, key, path, kind, work, fn, ref in (
+            ("mamba_scan_backward", "K6_bwd", "jamba", "mamba",
+             mamba_bwd_work, ops.mamba_scan_backward,
+             plain.mamba_scan_backward_plain),
+            ("rwkv6_scan_backward", "K7_bwd", "rwkv6", "rwkv6",
+             rwkv6_bwd_work, ops.rwkv6_scan_backward,
+             plain.rwkv6_scan_backward_plain)):
+        shape = (K6_SHAPES if kind == "mamba" else K7_SHAPES)["prefill"]
+        args = scan_bwd_inputs(torch, kind, shape, zero_state=True, seed=3)
+        nbytes, nops, *sfu = work(*shape)
+        shapes_line[name] = list(shape)
+        row(name, train_res[path]["launches"][name],
+            checks[f"{key}_max_abs_err"], lambda: fn(*args),
+            lambda: ref(*args), nbytes, nops,
+            sfu_ops=sfu[0] if sfu else 0, plain_kw={"reps": 1},
+            device_n=10)
+        del args
     emit(shapes_line)
     emit({"kernels": kern})
 

@@ -57,6 +57,14 @@ SIGNATURES = {
                    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "mamba_scan": ("mamba_scan", "mamba_scan_launch",
                    (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "rwkv6_scan_bwd": ("rwkv6_scan_bwd", "rwkv6_scan_bwd_launch",
+                       (_P,) * 16 + (_I,) * 4 + (_P,)),
+    "rwkv6_scan_bwd_saved": ("rwkv6_scan_bwd", "rwkv6_scan_bwd_saved",
+                             (_I,)),
+    "mamba_scan_bwd": ("mamba_scan_bwd", "mamba_scan_bwd_launch",
+                       (_P,) * 20 + (_I,) * 4 + (_P,)),
+    "mamba_scan_bwd_layout": ("mamba_scan_bwd", "mamba_scan_bwd_layout",
+                              (_I,)),
 }
 # the sources, one library each
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))

@@ -22,7 +22,9 @@ wrapper                   replaces (src/repro/kernels/)
 ``flash_attention``       flash_attention.py::flash_attention_pallas    K5
 ``flash_attention_backward``  none: K5's gradient (the train path)      K5
 ``mamba_scan``            ssm_scan.py::mamba_scan_pallas                K6
+``mamba_scan_backward``   none: K6's gradient (the train path)          K6
 ``rwkv6_scan``            ssm_scan.py::rwkv6_scan_pallas                K7
+``rwkv6_scan_backward``   none: K7's gradient (the train path)          K7
 ========================  ============================================  ==
 
 ``panel_update_mapped`` is K3/K4 in the form the panel sweep launches: in
@@ -602,6 +604,37 @@ def _same_shapes(names: str, *tensors: torch.Tensor):
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
+def _rwkv6_shapes(fn: str, r, k, v, w, u, state):
+    """(B, L, H, K) of K7's inputs; raises ``ValueError`` where they
+    disagree."""
+    if r.dim() != 4:
+        raise ValueError(f"{fn} takes r, k, v, w (B, L, H, K), got "
+                         f"{tuple(r.shape)}")
+    _same_shapes("r, k, v, w", r, k, v, w)
+    b, l, h, kk = r.shape
+    if tuple(u.shape) != (h, kk) or tuple(state.shape) != (b, h, kk, kk):
+        raise ValueError(f"{fn}: r {tuple(r.shape)} needs u {(h, kk)} "
+                         f"and state {(b, h, kk, kk)}, got u "
+                         f"{tuple(u.shape)} and state {tuple(state.shape)}")
+    return b, l, h, kk
+
+
+def _card_scan(fn: str, sizes: tuple, size: int, **tensors):
+    """The card's rule for a scan's inputs: contiguous float32, a state
+    size the kernel is instantiated for, and for K6 at most 65535
+    sequences (its grid's y)."""
+    for name, t in tensors.items():
+        _check(name, t, torch.float32, t.dim())
+    axis = "K" if "rwkv6" in fn else "N"
+    if size not in sizes:
+        raise ValueError(f"{fn} is built for {axis} in {sizes}, got "
+                         f"{axis}={size}")
+    rows = next(iter(tensors.values())).shape[0]
+    if axis == "N" and rows > 65535:
+        raise ValueError(f"{fn} takes at most 65535 sequences (grid y), "
+                         f"got {rows}")
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -612,23 +645,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [key, value].  Returns (o (B, L, H, K), the final state) as new
     tensors: ``state`` is not written.  K is one of ``RWKV6_HEAD_SIZES``
     on the card."""
-    if r.dim() != 4:
-        raise ValueError(f"rwkv6_scan takes r, k, v, w (B, L, H, K), got "
-                         f"{tuple(r.shape)}")
-    _same_shapes("r, k, v, w", r, k, v, w)
-    b, l, h, kk = r.shape
-    if tuple(u.shape) != (h, kk) or tuple(state.shape) != (b, h, kk, kk):
-        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)} needs u {(h, kk)} "
-                         f"and state {(b, h, kk, kk)}, got u "
-                         f"{tuple(u.shape)} and state {tuple(state.shape)}")
+    b, l, h, kk = _rwkv6_shapes("rwkv6_scan", r, k, v, w, u, state)
     if _on_cpu(r, k, v, w, u, state):
         return plain.rwkv6_scan_plain(r, k, v, w, u, state)
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
-                    ("state", state)):
-        _check(name, t, torch.float32, t.dim())
-    if kk not in RWKV6_HEAD_SIZES:
-        raise ValueError(f"rwkv6_scan is built for K in {RWKV6_HEAD_SIZES}, "
-                         f"got K={kk}")
+    _card_scan("rwkv6_scan", RWKV6_HEAD_SIZES, kk, r=r, k=k, v=v, w=w, u=u,
+               state=state)
     o = torch.empty_like(r)
     s_out = torch.empty_like(state)
     if b * h == 0:
@@ -638,6 +659,28 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             s_out.data_ptr(), b, l, h, kk, _stream(r))
     _count(rwkv6_scan)
     return o, s_out
+
+
+def _mamba_shapes(fn: str, x, dt, b_t, c_t, a, d_skip, h0):
+    """(B, L, di, N) of K6's inputs; raises ``ValueError`` where they
+    disagree."""
+    if x.dim() != 3 or b_t.dim() != 3:
+        raise ValueError(f"{fn} takes x, dt (B, L, di) and b_t, c_t "
+                         f"(B, L, N), got x {tuple(x.shape)}, b_t "
+                         f"{tuple(b_t.shape)}")
+    _same_shapes("x, dt", x, dt)
+    _same_shapes("b_t, c_t", b_t, c_t)
+    b, l, di = x.shape
+    n = b_t.shape[2]
+    if (tuple(b_t.shape[:2]) != (b, l) or tuple(a.shape) != (di, n)
+            or tuple(d_skip.shape) != (di,)
+            or tuple(h0.shape) != (b, di, n)):
+        raise ValueError(f"{fn}: x {tuple(x.shape)} and b_t "
+                         f"{tuple(b_t.shape)} need a {(di, n)}, d_skip "
+                         f"{(di,)} and h0 {(b, di, n)}, got a "
+                         f"{tuple(a.shape)}, d_skip {tuple(d_skip.shape)}, "
+                         f"h0 {tuple(h0.shape)}")
+    return b, l, di, n
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
@@ -650,33 +693,12 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
     (B, di, N).  Returns (y (B, L, di), the final state) as new tensors:
     ``h0`` is not written.  N is one of ``MAMBA_STATE_SIZES`` on the
     card."""
-    if x.dim() != 3 or b_t.dim() != 3:
-        raise ValueError(f"mamba_scan takes x, dt (B, L, di) and b_t, c_t "
-                         f"(B, L, N), got x {tuple(x.shape)}, b_t "
-                         f"{tuple(b_t.shape)}")
-    _same_shapes("x, dt", x, dt)
-    _same_shapes("b_t, c_t", b_t, c_t)
-    b, l, di = x.shape
-    n = b_t.shape[2]
-    if (tuple(b_t.shape[:2]) != (b, l) or tuple(a.shape) != (di, n)
-            or tuple(d_skip.shape) != (di,)
-            or tuple(h0.shape) != (b, di, n)):
-        raise ValueError(f"mamba_scan: x {tuple(x.shape)} and b_t "
-                         f"{tuple(b_t.shape)} need a {(di, n)}, d_skip "
-                         f"{(di,)} and h0 {(b, di, n)}, got a "
-                         f"{tuple(a.shape)}, d_skip {tuple(d_skip.shape)}, "
-                         f"h0 {tuple(h0.shape)}")
+    b, l, di, n = _mamba_shapes("mamba_scan", x, dt, b_t, c_t, a, d_skip,
+                                h0)
     if _on_cpu(x, dt, b_t, c_t, a, d_skip, h0):
         return plain.mamba_scan_plain(x, dt, b_t, c_t, a, d_skip, h0)
-    for name, t in (("x", x), ("dt", dt), ("b_t", b_t), ("c_t", c_t),
-                    ("a", a), ("d_skip", d_skip), ("h0", h0)):
-        _check(name, t, torch.float32, t.dim())
-    if n not in MAMBA_STATE_SIZES:
-        raise ValueError(f"mamba_scan is built for N in {MAMBA_STATE_SIZES}, "
-                         f"got N={n}")
-    if b > 65535:
-        raise ValueError(f"mamba_scan takes at most 65535 sequences (grid "
-                         f"y), got {b}")
+    _card_scan("mamba_scan", MAMBA_STATE_SIZES, n, x=x, dt=dt, b_t=b_t,
+               c_t=c_t, a=a, d_skip=d_skip, h0=h0)
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     if b * di == 0:
@@ -688,9 +710,146 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
     return y, h_out
 
 
+def _upstream(name: str, got: torch.Tensor, like: torch.Tensor):
+    if tuple(got.shape) != tuple(like.shape):
+        raise ValueError(f"{name} {tuple(got.shape)} must have the shape "
+                         f"{tuple(like.shape)}")
+
+
+def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state: torch.Tensor, do: torch.Tensor,
+                        ds_final: torch.Tensor):
+    """K7's backward: (dr, dk, dv, dw (B, L, H, K), du (H, K), dstate (B,
+    H, K, K)) of ``rwkv6_scan(r, k, v, w, u, state)`` for the upstream
+    ``do`` of its output and ``ds_final`` of its final state, float32 new
+    tensors; the forward's shape checks and device rule.  On the card the
+    kernel first runs the recurrence again, saving the state every few
+    steps to scratch, then walks back; du is summed over B in a fixed
+    order and nothing uses atomics, so two calls agree bitwise."""
+    b, l, h, kk = _rwkv6_shapes("rwkv6_scan_backward", r, k, v, w, u, state)
+    _upstream("do", do, r)
+    _upstream("ds_final", ds_final, state)
+    if _on_cpu(r, k, v, w, u, state, do, ds_final):
+        return plain.rwkv6_scan_backward_plain(r, k, v, w, u, state, do,
+                                               ds_final)
+    _card_scan("rwkv6_scan_backward", RWKV6_HEAD_SIZES, kk, r=r, k=k, v=v,
+               w=w, u=u, state=state, do=do, ds_final=ds_final)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, dstate = torch.zeros_like(u), torch.empty_like(state)
+    if b * h == 0:
+        return dr, dk, dv, dw, du, dstate
+    saved = _build.launcher("rwkv6_scan_bwd_saved")(l)
+    f32 = {"dtype": torch.float32, "device": r.device}
+    chk = torch.empty(b * h * saved * kk * kk, **f32)
+    du_part = torch.empty((b, h, kk), **f32)
+    _launch("rwkv6_scan_bwd", *(t.data_ptr() for t in (
+        r, k, v, w, u, state, do, ds_final, dr, dk, dv, dw, du, dstate, chk,
+        du_part)), b, l, h, kk, _stream(r))
+    _count(rwkv6_scan_backward)
+    return dr, dk, dv, dw, du, dstate
+
+
+def mamba_scan_backward(x: torch.Tensor, dt: torch.Tensor,
+                        b_t: torch.Tensor, c_t: torch.Tensor,
+                        a: torch.Tensor, d_skip: torch.Tensor,
+                        h0: torch.Tensor, dy: torch.Tensor,
+                        dh_final: torch.Tensor):
+    """K6's backward: (dx, ddt (B, L, di), db, dc (B, L, N), da (di, N),
+    dd_skip (di,), dh0 (B, di, N)) of ``mamba_scan(x, dt, b_t, c_t, a,
+    d_skip, h0)`` for the upstream ``dy`` of its output and ``dh_final``
+    of its final state, float32 new tensors; the forward's shape checks and
+    device rule.  On the card the kernel first runs the recurrence again,
+    saving the state every few steps to scratch, then walks back; dB and dC
+    (sums over di) and da, dd_skip (sums over B) are partials added in a
+    fixed order, and nothing uses atomics, so two calls agree bitwise."""
+    b, l, di, n = _mamba_shapes("mamba_scan_backward", x, dt, b_t, c_t, a,
+                                d_skip, h0)
+    _upstream("dy", dy, x)
+    _upstream("dh_final", dh_final, h0)
+    if _on_cpu(x, dt, b_t, c_t, a, d_skip, h0, dy, dh_final):
+        return plain.mamba_scan_backward_plain(x, dt, b_t, c_t, a, d_skip,
+                                               h0, dy, dh_final)
+    _card_scan("mamba_scan_backward", MAMBA_STATE_SIZES, n, x=x, dt=dt,
+               b_t=b_t, c_t=c_t, a=a, d_skip=d_skip, h0=h0, dy=dy,
+               dh_final=dh_final)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    db, dc = torch.zeros_like(b_t), torch.zeros_like(c_t)
+    da, dd, dh0 = (torch.zeros_like(a), torch.zeros_like(d_skip),
+                   torch.empty_like(h0))
+    if b * di == 0:
+        return dx, ddt, db, dc, da, dd, dh0
+    layout = _build.launcher("mamba_scan_bwd_layout")
+    tile, width = layout(0), layout(1)
+    blocks = -(-di // width)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    chk = torch.empty(b * blocks * width * n * (-(-l // tile)), **f32)
+    part_bc = torch.empty(blocks * b * l * 2 * n, **f32)
+    part_a = torch.empty((b, di, n), **f32)
+    part_d = torch.empty((b, di), **f32)
+    _launch("mamba_scan_bwd", *(t.data_ptr() for t in (
+        x, dt, b_t, c_t, a, d_skip, h0, dy, dh_final, dx, ddt, db, dc, da,
+        dd, dh0, chk, part_bc, part_a, part_d)), b, l, di, n, _stream(x))
+    _count(mamba_scan_backward)
+    return dx, ddt, db, dc, da, dd, dh0
+
+
+class Rwkv6Scan(torch.autograd.Function):
+    """K7 with its gradient: the forward runs ``rwkv6_scan`` and saves its
+    inputs, the backward runs ``rwkv6_scan_backward`` (a final state the
+    loss does not use gets a zero gradient).  On the CPU both are the
+    plain versions, on the card both are kernels; a failed build or launch
+    raises."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        o, s_out = rwkv6_scan(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return o, s_out
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        return rwkv6_scan_backward(*ctx.saved_tensors, do.contiguous(),
+                                   ds.contiguous())
+
+
+class MambaScan(torch.autograd.Function):
+    """K6 with its gradient: ``mamba_scan`` forward, ``mamba_scan_backward``
+    backward, as ``Rwkv6Scan``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b_t, c_t, a, d_skip, h0):
+        y, h_out = mamba_scan(x, dt, b_t, c_t, a, d_skip, h0)
+        ctx.save_for_backward(x, dt, b_t, c_t, a, d_skip, h0)
+        return y, h_out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        return mamba_scan_backward(*ctx.saved_tensors, dy.contiguous(),
+                                   dh.contiguous())
+
+
+def rwkv6_scan_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rwkv6_scan``, differentiable in all six inputs through K7's
+    backward (``Rwkv6Scan``): the train path's recurrence."""
+    return Rwkv6Scan.apply(r, k, v, w, u, state)
+
+
+def mamba_scan_train(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
+                     c_t: torch.Tensor, a: torch.Tensor,
+                     d_skip: torch.Tensor, h0: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mamba_scan``, differentiable in all seven inputs through K6's
+    backward (``MambaScan``): the train path's selective scan."""
+    return MambaScan.apply(x, dt, b_t, c_t, a, d_skip, h0)
+
+
 KERNELS = (minmax_relax, column_fingerprints, panel_update,
            panel_update_batched, panel_update_mapped, flash_attention,
-           flash_attention_backward, mamba_scan, rwkv6_scan)
+           flash_attention_backward, mamba_scan, rwkv6_scan,
+           mamba_scan_backward, rwkv6_scan_backward)
 
 
 def reset_launches() -> None:

@@ -280,3 +280,94 @@ def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
                       + d_skip[None] * x_t)
     y = torch.stack(ys, dim=1) if ys else torch.empty_like(x)
     return y, h.clone() if h is h0 else h
+
+
+def rwkv6_scan_backward_plain(r: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, w: torch.Tensor,
+                              u: torch.Tensor, state: torch.Tensor,
+                              do: torch.Tensor, ds_final: torch.Tensor):
+    """The gradient of ``rwkv6_scan_plain`` for the upstream ``do`` (B, L,
+    H, K) of its output and ``ds_final`` (B, H, K, K) of its final state:
+    (dr, dk, dv, dw (B, L, H, K), du (H, K), dstate (B, H, K, K)).
+
+    The states S_0 = ``state`` .. S_{L-1} are recomputed first, then the
+    walk goes back in time with G, the gradient of the state after step t
+    (G = ``ds_final`` after the last step):
+
+        dr_t = (S_{t-1} + diag(u) k_t^T v_t) do_t
+        dk_t[i] = sum_j (u_i r_t[i] do_t[j] + G[i][j]) v_t[j]
+        dv_t[j] = sum_i (u_i r_t[i] k_t[i] do_t[j] + G[i][j] k_t[i])
+        dw_t[i] = sum_j G[i][j] S_{t-1}[i][j]
+        du += r_t * k_t * (v_t . do_t)   (summed over B too)
+        G <- diag(w_t) G + r_t^T do_t
+
+    and dstate is G after the first step."""
+    b, l, h, kk = r.shape
+    with fp32_highest():
+        states = [state]
+        for t in range(l):
+            states.append(states[-1] * w[:, t, ..., None]
+                          + k[:, t, ..., None] * v[:, t, :, None, :])
+        g = ds_final.clone()
+        dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+        du = torch.zeros_like(u)
+        for t in reversed(range(l)):
+            r_t, k_t, v_t, w_t, do_t = (x[:, t] for x in (r, k, v, w, do))
+            s_prev = states[t]
+            vdo = (v_t * do_t).sum(-1, keepdim=True)           # (B, H, 1)
+            ruk = (r_t * u * k_t).sum(-1, keepdim=True)
+            dr[:, t] = (torch.einsum("bhij,bhj->bhi", s_prev, do_t)
+                        + u * k_t * vdo)
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", g, v_t) + u * r_t * vdo
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", g, k_t) + do_t * ruk
+            dw[:, t] = (g * s_prev).sum(-1)
+            du += (r_t * k_t * vdo).sum(0)
+            g = g * w_t[..., None] + r_t[..., None] * do_t[..., None, :]
+    return dr, dk, dv, dw, du, g
+
+
+def mamba_scan_backward_plain(x: torch.Tensor, dt: torch.Tensor,
+                              b_t: torch.Tensor, c_t: torch.Tensor,
+                              a: torch.Tensor, d_skip: torch.Tensor,
+                              h0: torch.Tensor, dy: torch.Tensor,
+                              dh_final: torch.Tensor):
+    """The gradient of ``mamba_scan_plain`` for the upstream ``dy`` (B, L,
+    di) of its output and ``dh_final`` (B, di, N) of its final state:
+    (dx, ddt (B, L, di), db, dc (B, L, N), da (di, N), dd_skip (di,), dh0
+    (B, di, N)).
+
+    The states h_0 = ``h0`` .. h_L are recomputed first, then the walk goes
+    back in time with g, the gradient of h_t (the decay a_t = exp(dt_t A)):
+
+        g_t = a_{t+1} g_{t+1} + dy_t (x) C_t    (g_L = dh_final + dy_L C_L)
+        dC_t = sum_d dy_t[d] h_t[d],   dB_t = sum_d g_t[d] dt_t[d] x_t[d]
+        dx_t = D dy_t + dt_t (g_t . B_t)
+        ddt_t = sum_n g_t h_{t-1} a_t A + x_t (g_t . B_t)
+        dA += g_t h_{t-1} a_t dt_t,   dD += dy_t x_t   (summed over B too)
+
+    and dh0 is a_1 g_1."""
+    l = x.shape[1]
+    with fp32_highest():
+        hs = [h0]
+        for t in range(l):
+            decay = torch.exp(dt[:, t, :, None] * a[None])
+            hs.append(hs[-1] * decay
+                      + (dt[:, t] * x[:, t])[..., None] * b_t[:, t, None, :])
+        g = dh_final.clone()
+        dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+        db, dc = torch.zeros_like(b_t), torch.zeros_like(c_t)
+        da, dd = torch.zeros_like(a), torch.zeros_like(d_skip)
+        for t in reversed(range(l)):
+            x_t, dt_t, dy_t = x[:, t], dt[:, t], dy[:, t]      # (B, di)
+            g = g + dy_t[..., None] * c_t[:, t, None, :]
+            dc[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dy_t)
+            db[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+            decay = torch.exp(dt_t[..., None] * a[None])
+            gd = g * hs[t] * decay          # the gradient of dt_t A
+            gb = torch.einsum("bdn,bn->bd", g, b_t[:, t])
+            dx[:, t] = d_skip * dy_t + dt_t * gb
+            ddt[:, t] = (gd * a).sum(-1) + x_t * gb
+            da += (gd * dt_t[..., None]).sum(0)
+            dd += (dy_t * x_t).sum(0)
+            g = g * decay
+    return dx, ddt, db, dc, da, dd, g

@@ -12,6 +12,8 @@ runs in K6, which takes the state in and gives the final state out, so
 prefill (from the zero state) and decode (L = 1) are one code path.  The
 conv is written as ``d_conv`` shifted scaled adds, as the reference does
 (``F.conv1d`` would go through cuDNN, in TF32 by default on the card).
+Training (``train=True``) runs the scan through ``mamba_scan_train``: K6
+forward, and K6's backward kernel for its gradient.
 
 State contract: ``{"h" (B, di, N) float32, "conv" (B, d_conv - 1, di),
 "idx"}``, ``idx`` the number of tokens seen, a host int.  A step returns a
@@ -86,10 +88,11 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def mamba_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                  state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+                  state: Optional[Dict] = None, *, train: bool = False
+                  ) -> Tuple[torch.Tensor, Dict]:
     """x (B, L, d) -> (B, L, d) from ``state`` (default: the zero state),
     for prefill and decode (L = 1).  Returns (out, the state after the
-    segment)."""
+    segment).  ``train``: differentiable through K6's backward."""
     b, l, d = x.shape
     di, dt_rank, n, _ = _dims(cfg)
     if state is None:
@@ -107,9 +110,10 @@ def mamba_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     dt = F.softplus((dt_raw @ params["w_dt"]).float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])                         # (di, N) < 0
 
-    y, h_new = kops.mamba_scan(xc.float(), dt, b_t.float().contiguous(),
-                               c_t.float().contiguous(), a,
-                               params["d_skip"], state["h"])
+    scan = kops.mamba_scan_train if train else kops.mamba_scan
+    y, h_new = scan(xc.float(), dt, b_t.float().contiguous(),
+                    c_t.float().contiguous(), a, params["d_skip"],
+                    state["h"])
     y = (y.to(x.dtype) * F.silu(z)) @ params["w_out"]
     new_state = {"h": h_new, "conv": conv_new, "idx": state["idx"] + l}
     return y, new_state

@@ -11,6 +11,9 @@ All projections (r, k, v, g, the decay LoRA and the output) run over the
 whole sequence as matrix products; only the recurrence runs in K7, which
 takes the state in and gives the final state out, so prefill (from the zero
 state) and decode (L = 1, against the cache's state) are one code path.
+Training (``train=True``) runs the recurrence through
+``rwkv6_scan_train``: K7 forward, and K7's backward kernel for its
+gradient.
 The channel-mix FFN is the framework's SwiGLU and the per-head output norm
 an RMSNorm, as in the reference.
 
@@ -86,15 +89,18 @@ def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def rwkv6_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                  state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+                  state: Optional[Dict] = None, *, train: bool = False
+                  ) -> Tuple[torch.Tensor, Dict]:
     """Time-mix over x (B, L, d) from ``state`` (default: the zero state).
-    Returns (out (B, L, d), the state after the segment)."""
+    Returns (out (B, L, d), the state after the segment).  ``train``:
+    differentiable through K7's backward."""
     b, l, d = x.shape
     if state is None:
         state = init_rwkv6_state(cfg, b, x.dtype, x.device)
     r, k, v, g, w = _projections(params, x, state["x_prev"], cfg)
-    o, s_new = kops.rwkv6_scan(r.float(), k.float(), v.float(), w,
-                               params["u"].float(), state["s"])
+    scan = kops.rwkv6_scan_train if train else kops.rwkv6_scan
+    o, s_new = scan(r.float(), k.float(), v.float(), w, params["u"].float(),
+                    state["s"])
     o = rmsnorm(params["o_norm"], o.to(x.dtype), cfg.norm_eps)
     o = (o * F.silu(g)).reshape(b, l, d)
     # a copy, so the state does not keep the whole segment alive

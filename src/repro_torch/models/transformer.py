@@ -25,24 +25,24 @@ groups) and the sharding constraints ``constrain`` / ``step_context`` (one
 device holds every tensor).
 
 Modes: ``train`` (full sequence, no caches, differentiable: every
-attention layer runs K5 with its backward kernel, ``flash_attention_train``;
-remat as the reference's, below), ``prefill`` (full sequence, returns the
+attention layer runs K5 with its backward kernel, ``flash_attention_train``,
+every rwkv6 layer K7 with its backward kernel, ``rwkv6_scan_train``, every
+mamba layer K6 with its backward kernel, ``mamba_scan_train``; remat as
+the reference's, below), ``prefill`` (full sequence, returns the
 caches: KV caches for attention layers, ring caches of ``min(cache_len,
 sliding_window)`` slots for local ones, latent caches for MLA layers,
 recurrent states for rwkv6 and mamba layers) and ``decode`` (one token
 against them).  All three return the reference's MoE auxiliaries, summed
-over the MoE layers.  Training an rwkv6 or mamba layer raises
-``NotImplementedError`` naming its ROADMAP item (K7's and K6's backward
-kernels are not written yet).
+over the MoE layers.
 
 Remat in ``train``, as the reference's ``jax.checkpoint``: with
 ``cfg.remat`` and more than one group each group runs under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, and with
-``cfg.layer_remat`` (gemma3) so does each layer inside it; each chunk of
-``ce_loss`` is checkpointed; the encoder is not.  A checkpointed function
-runs its forward again in the backward pass (K5's forward launches twice
-per attention layer and step), and the recompute is the same arithmetic,
-so gradients are bitwise those without remat.
+``cfg.layer_remat`` (gemma3, jamba) so does each layer inside it; each
+chunk of ``ce_loss`` is checkpointed; the encoder is not.  A checkpointed
+function runs its forward again in the backward pass (K5's, K6's or K7's
+forward launches twice per layer and step), and the recompute is the same
+arithmetic, so gradients are bitwise those without remat.
 """
 from __future__ import annotations
 
@@ -63,18 +63,13 @@ MIXERS = ("attn", "local", "mla", "rwkv6", "mamba")
 LAYER_KINDS = tuple((mixer, ffn) for mixer in MIXERS
                     for ffn in ("mlp", "moe"))
 ATTN_KINDS = ("attn", "local")
-TRAIN_TODO = ("training rwkv6 and mamba layers is not ported yet (ROADMAP "
-              "Queue A item 12.10: K7's and K6's backward kernels)")
 
 
-def check_supported(cfg: ModelConfig, *, train: bool = False) -> None:
-    """Raise ``ValueError`` for a layer kind the port does not know, and
-    with ``train`` ``NotImplementedError`` for one it cannot train yet."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a layer kind the port does not know."""
     for mixer, ffn in cfg.pattern:
         if (mixer, ffn) not in LAYER_KINDS:
             raise ValueError(f"unknown layer kind {(mixer, ffn)!r}")
-    if train and any(mixer in ("rwkv6", "mamba") for mixer, _ in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {TRAIN_TODO}")
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +254,8 @@ def _layer(lp: Dict, x: torch.Tensor, ce: Dict, cfg: ModelConfig,
     if mode == "train":
         if mixer == "mla":
             o = attn.mla_forward(lp["mixer"], h, cfg)
+        elif mixer not in ATTN_KINDS:
+            o, _ = _SSM_FORWARD[mixer](lp["mixer"], h, cfg, train=True)
         else:
             o = attn.gqa_forward(lp["mixer"], h, cfg, window=window,
                                  train=True)
@@ -348,7 +345,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
                          f"{mode!r}")
-    check_supported(cfg, train=mode == "train")
+    check_supported(cfg)
     if mode == "decode" and caches is None:
         raise ValueError("decode needs the caches of a prefill")
     full = mode != "decode"

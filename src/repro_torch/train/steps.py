@@ -11,7 +11,8 @@ TF32, as the reference's float32 default).
 The train step, ``train_step(params, opt, batch) -> (params, opt,
 metrics)``, takes the loss ``ce_loss + AUX_LOSS_WEIGHT * moe_aux`` of a
 train-mode forward, its gradient through ``torch.autograd`` (K5's backward
-kernel in every attention layer), and one AdamW update in place
+kernel in every attention layer, K7's in every rwkv6 layer, K6's in every
+mamba layer), and one AdamW update in place
 (``train/optimizer.py``).  With ``micro_steps`` > 1 it accumulates the
 gradient of contiguous row blocks in float32 and divides by their number,
 and averages the metrics, as the reference's ``lax.scan`` over
@@ -120,7 +121,7 @@ def make_train_step(cfg: ModelConfig, *, acfg: AdamWConfig = AdamWConfig(),
     model takes them; ``params`` and ``opt`` (``init_adamw``) are updated in
     place and returned with the metrics.  ``micro_steps`` defaults to
     ``cfg.micro_steps``."""
-    tf.check_supported(cfg, train=True)
+    tf.check_supported(cfg)
     if micro_steps is None:
         micro_steps = cfg.micro_steps
 

@@ -169,3 +169,17 @@ def test_train_driver_runs_on_cpu_and_defaults_to_the_card(capsys):
     assert len(steps) == 3 and all("loss" in ln and "gnorm" in ln
                                    and "s/step" in ln for ln in steps)
     assert lines[-1] == "done."
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_train_driver_trains_ssm_archs_on_cpu(arch, capsys):
+    """The driver trains the rwkv6 and mamba layers (reduced): finite
+    losses, one line a step."""
+    train_cli.main(["--arch", arch, "--reduced", "--batch", "2", "--seq",
+                    "8", "--steps", "2", "--log-every", "1", "--device",
+                    "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"device: cpu  arch: {arch}")
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step ")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert lines[-1] == "done."

@@ -1375,3 +1375,173 @@ def test_train_step_on_card_matches_cpu(cuda, name):
             float(m_host[key]))
     for a, b in zip(tf._leaves(card), tf._leaves(host)):
         assert float((a.cpu() - b).abs().max()) <= 2 * acfg.lr
+
+
+def _grad_errs(got, want):
+    """Each gradient's max |got - want| relative to its largest entry."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def _upstream(shapes, seed, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(sh).astype(np.float32),
+                                 device=device) for sh in shapes)
+
+
+def _bwd_case(kernel, shape, zero, device, seed=0):
+    """(backward wrapper, plain backward, its arguments): the scan's
+    inputs and normal upstream gradients of its output and final state."""
+    if kernel == "rwkv6":
+        args = _rwkv6_inputs(*shape, seed=seed, device=device,
+                             zero_state=zero)
+        ups = _upstream((args[0].shape, args[5].shape), seed + 1, device)
+        return (ops.rwkv6_scan_backward, plain.rwkv6_scan_backward_plain,
+                args + ups)
+    args = _mamba_inputs(*shape, seed=seed, device=device, zero_state=zero)
+    ups = _upstream((args[0].shape, args[6].shape), seed + 1, device)
+    return (ops.mamba_scan_backward, plain.mamba_scan_backward_plain,
+            args + ups)
+
+
+# K7's and K6's backwards at the train paths' full widths (rwkv6-7b: 8 x
+# 512, 64 heads of 64; the jamba period: 8 x 512, di = 16384, N = 16), at
+# the reduced configurations' K = 16 and N = 4, one step, one tile, a
+# ragged last tile, and a partial block of channels: every gradient within
+# 1e-4 of its largest (float32 sums over K, N, di or L in another order;
+# ex2.approx in K6), and two calls bitwise equal
+SCAN_BWD_CASES = [
+    ("rwkv6", (8, 512, 64, 64), True), ("rwkv6", (2, 45, 4, 16), False),
+    ("rwkv6", (2, 33, 3, 64), False), ("rwkv6", (1, 1, 2, 64), False),
+    ("rwkv6", (2, 8, 2, 16), True),
+    ("mamba", (8, 512, 16384, 16), True), ("mamba", (2, 45, 128, 4), False),
+    ("mamba", (2, 77, 300, 16), False), ("mamba", (1, 1, 130, 4), False),
+    ("mamba", (3, 8, 256, 16), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,zero", SCAN_BWD_CASES)
+def test_scan_backward_kernels_match_plain(cuda, kernel, shape, zero):
+    fn, ref, args = _bwd_case(kernel, shape, zero, cuda, seed=sum(shape))
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    assert fn.launches == before + 2
+    want = ref(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert max(_grad_errs(got, want)) <= 1e-4
+
+
+# decays that underflow to 0: w = 0 over a stretch of steps (rwkv6) and
+# exp(dt A) = 0 (dt A below -104, mamba); the kernels never divide by the
+# decay, so the gradients stay finite and match the plain backward
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rwkv6", "mamba"])
+def test_scan_backward_kernels_finite_where_the_decay_underflows(cuda,
+                                                                 kernel):
+    shape = (2, 37, 3, 64) if kernel == "rwkv6" else (2, 37, 300, 16)
+    fn, ref, args = _bwd_case(kernel, shape, False, cuda, seed=5)
+    if kernel == "rwkv6":
+        args[3][:, 10:20] = 0.0
+    else:
+        args[1][:, 10:20] = 200.0
+    got, want = fn(*args), ref(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert max(_grad_errs(got, want)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernels_raise_on_what_they_do_not_take(cuda):
+    fn, _, args = _bwd_case("rwkv6", (1, 4, 2, 32), False, cuda)
+    with pytest.raises(ValueError, match="built for K"):
+        fn(*args)
+    fn, _, args = _bwd_case("rwkv6", (1, 4, 2, 16), False, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(*args[:6], args[6].transpose(1, 2).contiguous().transpose(1, 2),
+           args[7])
+    fn, _, args = _bwd_case("mamba", (1, 4, 64, 8), False, cuda)
+    with pytest.raises(ValueError, match="built for N"):
+        fn(*args)
+    fn, _, args = _bwd_case("mamba", (1, 4, 64, 4), False, cuda)
+    with pytest.raises(ValueError, match="share one device"):
+        fn(*args[:7], args[7].cpu(), args[8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rwkv6", "mamba"])
+def test_scan_train_under_checkpoint_on_card(cuda, kernel):
+    """The autograd Function through a non-reentrant checkpoint: its
+    forward runs twice, its backward once, and the gradients are bitwise
+    the run without the checkpoint."""
+    shape = (2, 40, 3, 64) if kernel == "rwkv6" else (2, 40, 300, 16)
+    fn, _, args = _bwd_case(kernel, shape, False, cuda)
+    train = ops.rwkv6_scan_train if kernel == "rwkv6" else ops.mamba_scan_train
+    fwd = ops.rwkv6_scan if kernel == "rwkv6" else ops.mamba_scan
+    n_in = len(args) - 2
+    grads = []
+    for remat in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in args[:n_in]]
+
+        def f(first, *rest):
+            out, final = train(first * 1.5, *rest)
+            return (out * args[n_in]).sum() + (final * args[n_in + 1]).sum()
+
+        n_fwd, n_bwd = fwd.launches, fn.launches
+        loss = (torch.utils.checkpoint.checkpoint(f, *leaves,
+                                                  use_reentrant=False)
+                if remat else f(*leaves))
+        grads.append(torch.autograd.grad(loss, leaves))
+        assert fwd.launches - n_fwd == (2 if remat else 1)
+        assert fn.launches - n_bwd == 1
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_ssm_train_step_on_card_matches_cpu(cuda, name):
+    """One reduced train step on the card (K7 or K6 and K5, forward and
+    backward) against the same step on the CPU with the same parameters:
+    loss and grad_norm within 1e-5 relative, the parameters after the
+    update within 2 lr.  The launches a step follow the remat rule: a
+    layer's forward once, once more for its group's checkpoint and once
+    more for its own (jamba's layers are checkpointed inside their
+    group's), its backward once; with the checkpoints' early stop off, so
+    each recompute runs whole."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(name).reduced()
+    acfg = AdamWConfig(lr=1e-3, warmup_steps=0)
+    host = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.to_device(host, cuda)
+    batch = {k: torch.as_tensor(v).long() for k, v in make_batch_for(
+        cfg, ShapeConfig("s", 32, 4, "train")).items()}
+    step = make_train_step(cfg, acfg=acfg, micro_steps=1)
+    ops.reset_launches()
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        card, _, m_card = step(card, init_adamw(card),
+                               {k: v.to(cuda) for k, v in batch.items()})
+    counts = ops.launch_counts()
+    mixers = [m for m, _ in cfg.pattern] * cfg.n_groups
+    runs = 1 + (cfg.remat and cfg.n_groups > 1) + cfg.layer_remat
+    for scan, mixer in (("rwkv6_scan", "rwkv6"), ("mamba_scan", "mamba"),
+                        ("flash_attention", "attn")):
+        layers = mixers.count(mixer)
+        assert counts[scan] == runs * layers, (scan, counts)
+        bwd = ("flash_attention_backward" if mixer == "attn"
+               else f"{scan}_backward")
+        assert counts[bwd] == layers, (bwd, counts)
+    host, _, m_host = step(host, init_adamw(host), batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_card[key]) - float(m_host[key])) <= 1e-5 * abs(
+            float(m_host[key]))
+    for a, b in zip(tf._leaves(card), tf._leaves(host)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * acfg.lr

@@ -22,7 +22,10 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, layers
 from repro_torch.models import transformer as tf
 from repro_torch.models.convert import params_from_jax
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.train.optimizer import init_adamw
+from repro_torch.train.steps import (
+    make_decode_step, make_prefill_step, make_train_step,
+)
 
 # tiny shapes, several pytest workers: one intra-op thread each keeps
 # torch's pool from oversubscribing the CPU
@@ -334,28 +337,32 @@ def test_decode_matches_teacher_forcing():
 @pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b",
                                   "rwkv6-7b", "jamba-1.5-large-398b"])
 def test_unported_configs_raise_naming_their_item(name):
-    """Every configuration serves.  whisper and internvl train (their
-    train-mode forward runs, with its frames or patches, and is
-    differentiable); rwkv6 and mamba layers do not yet, and training a
-    model with them raises, naming its item."""
+    """Every configuration serves and trains: the train-mode forward runs
+    (with its frames or patches for whisper and internvl; through K7's and
+    K6's plain backwards for the rwkv6 and mamba layers) and is
+    differentiable in the first layer's mixer, and a train step is
+    finite."""
     cfg = get_config(name).reduced()
     params = tf.init_params(cfg, seed=0, device="cpu")
     toks = torch.zeros(1, 3, dtype=torch.long)
-    if name in ("rwkv6-7b", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 12.10"):
-            tf.forward(params, cfg, toks, mode="train")
-        return
     extra = ({"frames": torch.zeros(1, cfg.encdec.enc_len, cfg.d_model)}
              if cfg.encdec else
-             {"patches": torch.zeros(1, cfg.n_patches, cfg.d_model)})
-    wq = params["groups"][0]["l0"]["mixer"]["wq"].requires_grad_(True)
+             {"patches": torch.zeros(1, cfg.n_patches, cfg.d_model)}
+             if cfg.n_patches else {})
+    mixer = params["groups"][0]["l0"]["mixer"]
+    wq = mixer["wr" if "wr" in mixer else "wq"].requires_grad_(True)
     hidden, caches, aux = tf.forward(params, cfg, toks, mode="train",
                                      **extra)
     assert caches is None and aux.shape == (2,)
     assert hidden.shape == (1, 3 + cfg.n_patches, cfg.d_model)
     (grad,) = torch.autograd.grad(hidden.square().sum(), [wq])
     assert torch.isfinite(grad).all() and grad.abs().max() > 0
+    wq.requires_grad_(False)
+    batch = {"tokens": toks, "labels": torch.ones(
+        1, 3 + cfg.n_patches, dtype=torch.long), **extra}
+    _, _, metrics = make_train_step(cfg, micro_steps=1)(
+        params, init_adamw(params), batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
 def test_serve_defaults_to_the_card_and_runs_on_cpu(capsys):
@@ -368,6 +375,10 @@ def test_serve_defaults_to_the_card_and_runs_on_cpu(capsys):
     assert lines[0].startswith("prefill: 2 x 8 tokens")
     assert lines[1].startswith("decode:  2 x 3 tokens")
     assert lines[2].startswith("sample continuation (request 0): [")
-    with pytest.raises(NotImplementedError, match="training"):
-        tf.forward({}, get_config("rwkv6-7b"), torch.zeros(1, 1),
-                   mode="train")
+    # training an rwkv6 model runs on the CPU too (it raised before K7's
+    # backward was ported)
+    cfg = get_config("rwkv6-7b").reduced()
+    hidden, caches, _ = tf.forward(tf.init_params(cfg, device="cpu"), cfg,
+                                   torch.zeros(1, 2, dtype=torch.long),
+                                   mode="train")
+    assert caches is None and hidden.shape == (1, 2, cfg.d_model)

@@ -328,14 +328,17 @@ def _leaf_pairs(port, ref_tree, convert=params_from_jax):
     return list(walk(port, ref, ""))
 
 
-# reduced smollm-135m (2 groups) with micro_steps 1 and reduced qwen3-1.7b
-# (qk_norm, tied embeddings) with micro_steps 2, 4 x 32 tokens, 3 steps of
+# reduced smollm-135m (2 groups) with micro_steps 1, reduced qwen3-1.7b
+# (qk_norm, tied embeddings) with micro_steps 2, and reduced rwkv6-7b and
+# jamba (their SSM leaves through the optimizer and ``opt_from_jax``) with
+# micro_steps 1, 4 x 32 tokens, 3 steps of
 # the default AdamWConfig; loss and grad_norm within 2e-5 relative (float32
 # sums in another order), lr within float32 rounding; after 3 steps the
 # parameters within 2 * (the learning rates summed) of the reference's (an
 # Adam step is nearly a sign step, and a gradient near 0 may take either
 # sign), the moments within 2e-4 of their largest
-STEP_CASES = {"smollm-135m": 1, "qwen3-1.7b": 2}
+STEP_CASES = {"smollm-135m": 1, "qwen3-1.7b": 2, "rwkv6-7b": 1,
+              "jamba-1.5-large-398b": 1}
 
 
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
@@ -433,6 +436,8 @@ def test_loss_descends_on_repeated_batch():
     ("smollm-135m", {"remat": False}),
     ("whisper-tiny", {"remat": False}),
     ("gemma3-4b", {"layer_remat": False}),
+    ("rwkv6-7b", {"remat": False}),
+    ("jamba-1.5-large-398b", {"remat": False, "layer_remat": False}),
 ])
 def test_remat_changes_no_number(name, changes):
     """Gradients with the group (and layer) checkpoints on and off are
@@ -460,10 +465,32 @@ def test_remat_changes_no_number(name, changes):
 
 @pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-1.5-large-398b"])
 def test_ssm_training_raises_naming_its_item(name):
+    """rwkv6 and mamba layers train (ROADMAP Queue A item 12.10, once a
+    raise): the train-mode forward is differentiable in every SSM leaf
+    (``u``, ``mix``, ``w_base``, ``a_log``, ``d_skip``, ``conv_*``), and
+    ``make_train_step`` takes a finite step that moves them."""
     cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="Queue A item 12.10"):
-        make_train_step(cfg)
     params = tf.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12.10"):
-        tf.forward(params, cfg, torch.zeros(1, 4, dtype=torch.long),
-                   mode="train")
+    ssm = {"rwkv6": ("u", "mix", "w_base", "w_lora_a", "wr"),
+           "mamba": ("a_log", "d_skip", "conv_w", "conv_b", "dt_bias")}
+    layers = [(g, f"l{i}", mixer) for g in range(cfg.n_groups)
+              for i, (mixer, _) in enumerate(cfg.pattern) if mixer in ssm]
+    assert layers
+    leaves = {(g, l, k): params["groups"][g][l]["mixer"][k]
+              for g, l, mixer in layers for k in ssm[mixer]}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    batch = _batch(cfg, 8, 2)
+    hidden, _, aux = tf.forward(params, cfg, batch["tokens"], mode="train")
+    loss = tf.ce_loss(params, cfg, hidden, batch["labels"]) + 0.01 * aux[0]
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    for key, g in zip(leaves, grads):
+        assert torch.isfinite(g).all() and g.abs().max() > 0, key
+    before = {key: t.detach().clone() for key, t in leaves.items()}
+    for t in leaves.values():
+        t.requires_grad_(False)
+    _, _, metrics = make_train_step(cfg, micro_steps=1)(
+        params, opt_mod.init_adamw(params), batch)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    for key, t in leaves.items():
+        assert not torch.equal(t, before[key]), key

@@ -1,13 +1,17 @@
 """repro_torch's train-mode forward, chunked loss and gradients against
-repro's, on the CPU, for the seven families that train: dense GQA
+repro's, on the CPU, for the nine families that train: dense GQA
 (smollm-135m, qwen3-1.7b), gemma3-4b's local and global layers (reduced
 to one 17-layer period, per-layer remat), whisper-tiny (encoder and
 cross-attention), internvl2-26b (patches, their labels 0), moonshot's
-attention + MoE and deepseek-v3's MLA + MoE.  The reference runs
+attention + MoE, deepseek-v3's MLA + MoE, rwkv6-7b (the rwkv6 mixer
+through K7's plain backward, group remat) and jamba's period (attention,
+mamba through K6's plain backward and MoE, per-layer remat).  The
+reference runs
 ``jax.value_and_grad`` of ``forward(mode="train")`` + ``ce_loss`` +
 ``0.01 * moe_aux`` under ``jax.jit`` on the port's seed-0 parameters
 stacked into its tree; the port runs the same through ``torch.autograd``
-(K5's plain backward on the CPU; remat on, as the configs say)."""
+(K5's, K6's and K7's plain backwards on the CPU; remat on, as the
+configs say)."""
 import dataclasses
 
 import jax
@@ -29,7 +33,8 @@ from test_torch_train import _leaf_pairs, _reference_tree
 torch.set_num_threads(1)
 
 FAMILIES = ["smollm-135m", "qwen3-1.7b", "gemma3-4b", "whisper-tiny",
-            "internvl2-26b", "moonshot-v1-16b-a3b", "deepseek-v3-671b"]
+            "internvl2-26b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+            "rwkv6-7b", "jamba-1.5-large-398b"]
 SEQ, BATCH, CHUNK = 16, 2, 4          # ce_loss in 4 chunks of 4
 # float32 sums in another order: the hidden states within 2e-5, the loss
 # and moe_aux within 1e-5 relative, each gradient leaf within 2e-4 of its

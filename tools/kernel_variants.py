@@ -4,7 +4,8 @@ in one process on one card.
 
     python3 tools/kernel_variants.py            # every experiment
     python3 tools/kernel_variants.py k5         # K5's only (or k1, k34, k5bwd,
-                                                # k6, k7, or several)
+                                                # k6, k7, k6bwd, k7bwd, or
+                                                # several)
     python3 tools/kernel_variants.py k5bwd --train   # and the train steps
 
 Each variant is the committed source in ``src/repro_torch/kernels/csrc/``
@@ -25,7 +26,10 @@ and K7 at ``chip_smoke.py``'s prefill shapes (zero state) and decode
 shapes (a state), held to its ``SCAN_TOL`` on the output and the final
 state, K5's backward (k5bwd) at ``chip_smoke.py``'s ``K5_BWD_SHAPES`` in
 float32, held to its ``K5_BWD_TOL`` of each gradient's largest against
-the plain backward and to a bitwise repeat.  With ``--train`` (k5bwd),
+the plain backward and to a bitwise repeat, K6's and K7's backwards
+(k6bwd, k7bwd) at the prefill shapes from a zero and a non-zero state,
+held to ``SCAN_TOL`` of each gradient's largest and to a bitwise repeat.
+With ``--train`` (k5bwd),
 the smollm-135m and whisper-tiny train steps of ``chip_smoke.py``'s train
 phases then run with the committed backward and its CUDA-core
 predecessor (``simt``) in turns: committed, simt, simt, committed, 4
@@ -330,9 +334,31 @@ __global__ void __launch_bounds__(KvSmem<D>::NT, D == 64 ? 3 : 1)""")],
     }""", """    if (tile > 0) stage(tile);
     cp_async_wait<0>();""")],
 }
+# K7's and K6's backwards: a tile's states and the columns of a thread
+# (K7), channels a block (K6), and what a part costs (wrong results)
+EXPERIMENTS.update({
+    ("k7bwd", "committed"): [],
+    ("k7bwd", "columns_8"): [("constexpr int CW = 16;",
+                              "constexpr int CW = 8;")],
+    ("k7bwd", "tile_4"): [("constexpr int TT = 8;", "constexpr int TT = 4;")],
+    ("k7bwd", "no_first_sweep"): [(
+        "for (int tt = 0; tt < TT; ++tt) advance(s, c & 1, tt);", "")],
+    ("k7bwd", "no_column_sums"): [(
+        "halve<CW, LANES / 2>(col, lane, cj, WMASK);", "")],
+    ("k6bwd", "committed"): [],
+    ("k6bwd", "tile_4"): [("constexpr int TT = 8; ", "constexpr int TT = 4; ")],
+    ("k6bwd", "threads_64_tile_4"): [
+        ("constexpr int THREADS = 128;", "constexpr int THREADS = 64;"),
+        ("constexpr int TT = 8; ", "constexpr int TT = 4; ")],
+    ("k6bwd", "no_first_sweep"): [(
+        "for (int tt = 0; tt < TT; ++tt) advance(h, tt);  // a whole tile",
+        "")],
+    ("k6bwd", "no_warp_sums"): [("halve<N2, 16>(col, lane, q);", "")],
+})
 SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
           "k5bwd": "flash_attention_bwd",
-          "k34": "panel_update", "k6": "mamba_scan", "k7": "rwkv6_scan"}
+          "k34": "panel_update", "k6": "mamba_scan", "k7": "rwkv6_scan",
+          "k6bwd": "mamba_scan_bwd", "k7bwd": "rwkv6_scan_bwd"}
 VARIANT_SOURCES = ROOT / "tools" / "variant_sources"
 # K3/K4 variants' tile kinds, ((small TC range, BK), (large TC range, BK)),
 # where they differ from ops.panel_tile's
@@ -571,6 +597,27 @@ def k5bwd_cases(torch):
     return out
 
 
+def scan_bwd_cases(torch, kern):
+    """{tag: (args, want)} for K6's or K7's backward at ``chip_smoke.py``'s
+    prefill shapes (the train phases'), from a zero and a non-zero state,
+    with normal upstream gradients drawn on the card, and the plain
+    backward."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import plain
+
+    kind, shape, ref = (
+        ("mamba", cs.K6_SHAPES["prefill"], plain.mamba_scan_backward_plain)
+        if kern == "k6bwd" else
+        ("rwkv6", cs.K7_SHAPES["prefill"], plain.rwkv6_scan_backward_plain))
+    out = {}
+    for tag in ("zero", "state"):
+        args = cs.scan_bwd_inputs(torch, kind, shape,
+                                  zero_state=tag == "zero", seed=1)
+        out[tag] = (args, ref(*args))
+    return out
+
+
 def train_ab(torch, libs):
     """{arch: [{variant, step_ms}, ...]}: the train steps of
     ``chip_smoke.py``'s train phases (whole models, float32, micro_steps
@@ -619,7 +666,8 @@ def main(argv) -> int:
         return 2
     train = "--train" in argv
     argv = [a for a in argv if a != "--train"]
-    kernels = argv or ["k1", "k5", "k34", "k5bwd", "k6", "k7"]
+    kernels = argv or ["k1", "k5", "k34", "k5bwd", "k6", "k7", "k6bwd",
+                       "k7bwd"]
     libs = build([key for key in EXPERIMENTS if key[0] in kernels])
     todo = list(libs)
     rng = np.random.default_rng(0)
@@ -628,7 +676,9 @@ def main(argv) -> int:
              "k34": k34_cases(torch, np, rng) if "k34" in kernels else {},
              "k5bwd": k5bwd_cases(torch) if "k5bwd" in kernels else {},
              **{kern: scan_cases(torch, kern, rng) for kern in ("k6", "k7")
-                if kern in kernels}}
+                if kern in kernels},
+             **{kern: scan_bwd_cases(torch, kern)
+                for kern in ("k6bwd", "k7bwd") if kern in kernels}}
     for key in todo:
         kern, name = key
         swap_in(kern, libs[key])
@@ -661,6 +711,19 @@ def main(argv) -> int:
                 right = err <= cs.K5_BWD_TOL and all(
                     torch.equal(x, y) for x, y in zip(got, again))
                 del got, again
+            elif kern in ("k6bwd", "k7bwd"):
+                import chip_smoke as cs
+
+                bwd = (ops.mamba_scan_backward if kern == "k6bwd"
+                       else ops.rwkv6_scan_backward)
+                fn = lambda: bwd(*args)
+                got, again = fn(), fn()
+                errs = [float((x - w).abs().max()) / float(w.abs().max())
+                        for x, w in zip(got, want)]
+                err = max(errs)
+                right = err <= cs.SCAN_TOL and all(
+                    torch.equal(x, y) for x, y in zip(got, again))
+                del got, again
             elif kern in ("k6", "k7"):
                 import chip_smoke as cs
 
@@ -675,7 +738,7 @@ def main(argv) -> int:
                 err = float((got - want).abs().max())
                 right = err <= 2e-5
             line[tag] = {"ms": device_ms(torch, fn, n=10 if kern in (
-                "k1", "k5bwd") else 20),
+                "k1", "k5bwd", "k6bwd", "k7bwd") else 20),
                          "matches_plain": right, "max_abs_err": err}
             if kern == "k5bwd":     # each gradient's error of its largest
                 del line[tag]["max_abs_err"]
