@@ -28,8 +28,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   cross-attention of a 4-token prompt and of a decode
                   step) and internvl2-26b's group of 6 (prefill and
                   decode), within 2e-5); K5's backward at the train
-                  paths' shapes (``K5_BWD_SHAPES``: smollm-135m's step, a
-                  gemma3-4b local layer at D = 256 with window 1024,
+                  paths' shapes (``K5_BWD_SHAPES``: smollm-135m's step,
+                  the jamba period's attention layer, a gemma3-4b local
+                  layer at D = 256 with window 1024,
                   internvl2-26b's group of 6, whisper-tiny's encoder and
                   its cross-attention), float32 and bfloat16: the forward
                   with the log-sum-exp bitwise the forward without it,
@@ -470,12 +471,14 @@ def device_ms(torch, fn, *, n: int = 50, reps: int = 3) -> float:
 
 
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S,
-          sfu_ops: float = 0):
+          sfu_ops: float = 0, alu_ops: float = 0):
     """(ms, what bounds it): the larger of the bytes over the memory rate
     and the operations over their peak rate, the ALU's and, for
-    ``sfu_ops`` exponentials, the special function units'."""
+    ``sfu_ops`` exponentials, the special function units'; ``alu_ops``
+    float32 operations on the CUDA cores beside ``ops`` at ``peak_ops``
+    (a kernel that does both kinds)."""
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = max(ops / peak_ops, sfu_ops / PEAK_SFU_S)
+    t_ops = max(ops / peak_ops, sfu_ops / PEAK_SFU_S, alu_ops / PEAK_OPS_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -735,6 +738,7 @@ BF16_U = 2.0 ** -8
 # bfloat16 beyond the gradient's one rounding (BF16_U of the value)
 K5_BWD_SHAPES = {
     "smollm_train": ((8, 16, 9, 3, 1024, 1024, 64), True, None),
+    "jamba_train": ((8, 64, 64, 8, 512, 512, 128), True, None),
     "gemma3_local_train": ((2, 16, 8, 4, 2048, 2048, 256), True, 1024),
     "internvl_train": ((2, 48, 48, 8, 768, 768, 128), True, None),
     "whisper_encoder_train": ((8, 6, 6, 6, 1500, 1500, 64), False, None),
@@ -977,14 +981,35 @@ def rwkv6_work(b, l, h, k):
             5 * b * l * h * k * k + 5 * b * l * h * k)
 
 
+# K7's backward takes its steps in chunks of this many (rwkv6_scan_bwd.cu)
+K7_BWD_CHUNK = 16
+
+
 def rwkv6_bwd_work(b, l, h, k):
-    """(bytes, float ops) of K7's backward: r, k, v, w, do read and dr,
-    dk, dv, dw written once, u and du, the state and its upstream
-    gradient read and dstate written; 14 flops per (t, key, value): the
-    state S_{t-1} formed once (k_i v_j and an FMA), the FMAs of dr, dk and
-    dw, G k_i and its sum for dv, and G's update (r_i do_j and an FMA);
-    and 10 per (t, key) for the bonus terms."""
+    """(bytes, tensor-core float ops as 3 TF32 products, CUDA-core float
+    ops) of K7's backward in its chunked form (chunks of C steps): r, k, v,
+    w, do read and dr, dk, dv, dw written once, u and du, the state and its
+    upstream gradient read and dstate written; a chunk's products S_c
+    DO^T, G_e V^T, Kt G_e and the two state updates (K^2 C multiply-adds
+    each) and V DO^T, A DO (C^2 K each), each counted 3 times (3xTF32);
+    on the CUDA cores, per key, the decay table and the W, dr and dw sums
+    over the pairs s < t (8 flops a pair), A's pairs s <= t (2 K each),
+    rowsum(G_e S_c) (2 K^2).  ``rwkv6_bwd_step_work`` is the step-by-step
+    walk's count."""
+    c = K7_BWD_CHUNK
+    chunks = b * h * -(-l // c)
+    pairs = c * (c - 1) // 2
     return (4 * (9 * b * l * h * k + 2 * h * k + 3 * b * h * k * k),
+            3 * 2 * chunks * (5 * k * k * c + 2 * c * c * k),
+            chunks * (k * 8 * pairs + 2 * k * (pairs + c) + 2 * k * k))
+
+
+def rwkv6_bwd_step_work(b, l, h, k):
+    """(bytes, float ops) of K7's backward as a step-by-step walk on the
+    CUDA cores: 14 flops per (t, key, value) (the state S_{t-1} formed
+    once, the FMAs of dr, dk and dw, G k_i and its sum for dv, G's
+    update) and 10 per (t, key) for the bonus terms."""
+    return (rwkv6_bwd_work(b, l, h, k)[0],
             14 * b * l * h * k * k + 10 * b * l * h * k)
 
 
@@ -3233,8 +3258,9 @@ def main() -> int:
     kern = []
 
     def timing(fn, plain_fn, nbytes, nops, library_fn=None, *,
-               peak_ops=PEAK_OPS_S, sfu_ops=0, plain_kw=None, device_n=50):
-        b_ms, b_by = bound(nbytes, nops, peak_ops, sfu_ops)
+               peak_ops=PEAK_OPS_S, sfu_ops=0, alu_ops=0, plain_kw=None,
+               device_n=50):
+        b_ms, b_by = bound(nbytes, nops, peak_ops, sfu_ops, alu_ops)
         return {"ms": device_ms(torch, fn, n=device_n),
                 "plain_ms": cuda_ms(torch, plain_fn, **(plain_kw or {})),
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -3570,13 +3596,22 @@ def main() -> int:
              plain.rwkv6_scan_backward_plain)):
         shape = (K6_SHAPES if kind == "mamba" else K7_SHAPES)["prefill"]
         args = scan_bwd_inputs(torch, kind, shape, zero_state=True, seed=3)
-        nbytes, nops, *sfu = work(*shape)
         shapes_line[name] = list(shape)
+        if kind == "mamba":
+            nbytes, nops, sfu = work(*shape)
+            kw = {"sfu_ops": sfu}
+        else:  # the chunked form's products are 3xTF32 on the tensor cores
+            nbytes, nops, alu = work(*shape)
+            kw = {"peak_ops": PEAK_TF32_S, "alu_ops": alu}
+            shapes_line[name] = {
+                "shape": list(shape),
+                "bound_step_by_step_cuda_cores": dict(zip(
+                    ("bound_ms", "bound_by"),
+                    bound(*rwkv6_bwd_step_work(*shape))))}
         row(name, train_res[path]["launches"][name],
             checks[f"{key}_max_abs_err"], lambda: fn(*args),
-            lambda: ref(*args), nbytes, nops,
-            sfu_ops=sfu[0] if sfu else 0, plain_kw={"reps": 1},
-            device_n=10)
+            lambda: ref(*args), nbytes, nops, plain_kw={"reps": 1},
+            device_n=10, **kw)
         del args
     emit(shapes_line)
     emit({"kernels": kern})

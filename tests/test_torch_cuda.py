@@ -1409,14 +1409,22 @@ def _bwd_case(kernel, shape, zero, device, seed=0):
 # the reduced configurations' K = 16 and N = 4, one step, one tile, a
 # ragged last tile, and a partial block of channels: every gradient within
 # 1e-4 of its largest (float32 sums over K, N, di or L in another order;
-# ex2.approx in K6), and two calls bitwise equal
+# ex2.approx in K6), and two calls bitwise equal.  K7's chunks of 16 steps:
+# one short of a chunk, one chunk, one past it, ragged last chunks at K = 16
+# and 64; K6's blocks of 128 channels (two a thread, c and c + 64): a last
+# block with 2 and with 44 live channels at N = 4 and 16
 SCAN_BWD_CASES = [
     ("rwkv6", (8, 512, 64, 64), True), ("rwkv6", (2, 45, 4, 16), False),
     ("rwkv6", (2, 33, 3, 64), False), ("rwkv6", (1, 1, 2, 64), False),
     ("rwkv6", (2, 8, 2, 16), True),
+    ("rwkv6", (2, 15, 3, 64), False), ("rwkv6", (2, 16, 2, 64), False),
+    ("rwkv6", (1, 17, 2, 64), False), ("rwkv6", (2, 17, 3, 16), True),
+    ("rwkv6", (2, 40, 2, 64), False), ("rwkv6", (1, 55, 2, 16), False),
     ("mamba", (8, 512, 16384, 16), True), ("mamba", (2, 45, 128, 4), False),
     ("mamba", (2, 77, 300, 16), False), ("mamba", (1, 1, 130, 4), False),
-    ("mamba", (3, 8, 256, 16), True)]
+    ("mamba", (3, 8, 256, 16), True),
+    ("mamba", (2, 21, 130, 16), False), ("mamba", (2, 19, 300, 4), False),
+    ("mamba", (1, 9, 172, 16), True)]
 
 
 @pytest.mark.cuda
@@ -1437,17 +1445,20 @@ def test_scan_backward_kernels_match_plain(cuda, kernel, shape, zero):
 
 # decays that underflow to 0: w = 0 over a stretch of steps (rwkv6) and
 # exp(dt A) = 0 (dt A below -104, mamba); the kernels never divide by the
-# decay, so the gradients stay finite and match the plain backward
+# decay, so the gradients stay finite and match the plain backward.  The
+# stretches start mid-chunk (K7's chunks of 16, K6's tiles of 8) and cross
+# a chunk's end
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["rwkv6", "mamba"])
-def test_scan_backward_kernels_finite_where_the_decay_underflows(cuda,
-                                                                 kernel):
+@pytest.mark.parametrize("start,stop", [(10, 20), (21, 35)])
+def test_scan_backward_kernels_finite_where_the_decay_underflows(
+        cuda, kernel, start, stop):
     shape = (2, 37, 3, 64) if kernel == "rwkv6" else (2, 37, 300, 16)
     fn, ref, args = _bwd_case(kernel, shape, False, cuda, seed=5)
     if kernel == "rwkv6":
-        args[3][:, 10:20] = 0.0
+        args[3][:, start:stop] = 0.0
     else:
-        args[1][:, 10:20] = 200.0
+        args[1][:, start:stop] = 200.0
     got, want = fn(*args), ref(*args)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)

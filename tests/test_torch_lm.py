@@ -336,7 +336,7 @@ def test_decode_matches_teacher_forcing():
 
 @pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b",
                                   "rwkv6-7b", "jamba-1.5-large-398b"])
-def test_unported_configs_raise_naming_their_item(name):
+def test_every_config_serves_and_trains(name):
     """Every configuration serves and trains: the train-mode forward runs
     (with its frames or patches for whisper and internvl; through K7's and
     K6's plain backwards for the rwkv6 and mamba layers) and is

@@ -4,8 +4,10 @@ backwards of the rwkv6 scan (K7) and the selective scan (K6) against
 _recurrence`` and ``repro.models.mamba._selective_scan``), from a zero and
 a non-zero state with a non-zero final-state cotangent; the autograd
 Functions ``Rwkv6Scan`` and ``MambaScan`` against ``torch.autograd``
-through the plain forwards; decays that underflow to 0; and the mixers'
-train mode against ``jax.vjp`` of the reference's mixers.  The CUDA
+through the plain forwards; decays that underflow to 0; the mixers' train
+mode against ``jax.vjp`` of the reference's mixers; and a float64 model of
+the chunked form of K7's backward kernel (``csrc/rwkv6_scan_bwd.cu``)
+against both the plain backward and the reference's vjp.  The CUDA
 kernels themselves run only on a card (``test_torch_cuda.py``).
 
 Tolerance: each gradient within 1e-5 of its largest entry (float32 sums
@@ -284,3 +286,138 @@ def test_mixer_train_mode_gradient_matches_reference(mixer):
         _assert_grads([g], [want[path]], [path], tol=1e-4)
     _assert_grads([grads[-1]], [gx_ref], ["x"], tol=1e-4)
     assert not any(ops.launch_counts().values())
+
+
+def _rwkv6_backward_chunked(r, k, v, w, u, state, do, ds, chunk):
+    """K7's backward in the chunked form of ``csrc/rwkv6_scan_bwd.cu``, in
+    float64: a forward sweep saves the state before each chunk of
+    ``chunk`` steps (S <- P(0, C) S + Kt^T V); the walk back takes each
+    chunk's products Y = S_c DO^T, X = G_e V^T, M = V DO^T, the decay
+    products P(a, b) = prod_{a <= tau < b} w_tau formed by multiplication
+    only, the per-key recurrences W_t[s] = G_t v_s and Q_t = rowsum(G_t *
+    S_c), and A[t][s] = sum_i r_s[i] P(t+1, s)[i] k_t[i].  A ragged last
+    chunk is padded with steps that change nothing (r, k, v, do 0, w 1)."""
+    r, k, v, w, u, state, do, ds = (x.double() for x in (
+        r, k, v, w, u, state, do, ds))
+    b, l, h, kk = r.shape
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+
+    def padded(x, fill):
+        x = x.transpose(1, 2)                     # (B, H, L, K)
+        ext = torch.full((b, h, pad, kk), fill, dtype=x.dtype)
+        return torch.cat([x, ext], 2).reshape(b, h, nc, chunk, kk)
+
+    rr, kc, vc, dc = (padded(x, 0.0) for x in (r, k, v, do))
+    wc = padded(w, 1.0)
+    cols = torch.arange(chunk)
+
+    def prefix(wch):
+        """P(0, t) for t = 0 .. C: (B, H, C + 1, K)."""
+        out = [torch.ones_like(wch[..., 0, :])]
+        for t in range(chunk):
+            out.append(out[-1] * wch[..., t, :])
+        return torch.stack(out, -2)
+
+    def suffix(wch):
+        """P(t+1, C) for t = 0 .. C - 1."""
+        out = [torch.ones_like(wch[..., 0, :])]
+        for t in range(chunk - 1, 0, -1):
+            out.append(out[-1] * wch[..., t, :])
+        return torch.stack(out[::-1], -2)
+
+    def kap(kch, wch):
+        """kap[s][t] = P(t+1, s) k_t for t < s, else 0: (B, H, C, C, K)."""
+        out = torch.zeros(kch.shape[:-2] + (chunk, chunk, kk),
+                          dtype=kch.dtype)
+        for t in range(chunk):
+            run = kch[..., t, :]
+            for s in range(t + 1, chunk):
+                out[..., s, t, :] = run
+                run = run * wch[..., s, :]
+        return out
+
+    saved, s_cur = [], state
+    for c in range(nc):
+        saved.append(s_cur)
+        kt = suffix(wc[:, :, c])[..., :, :] * kc[:, :, c]
+        s_cur = (prefix(wc[:, :, c])[..., chunk, :, None] * s_cur
+                 + kt.transpose(-1, -2) @ vc[:, :, c])
+    g = ds
+    grads = torch.zeros((4, b, h, nc, chunk, kk), dtype=r.dtype)
+    du = torch.zeros((b, h, kk), dtype=r.dtype)
+    for c in reversed(range(nc)):
+        rc_, kc_, vc_, wc_, dc_ = (x[:, :, c] for x in (rr, kc, vc, wc, dc))
+        sc = saved[c]
+        pre = prefix(wc_)
+        kp = kap(kc_, wc_)
+        y = sc @ dc_.transpose(-1, -2)              # (B, H, K, C)
+        x = g @ vc_.transpose(-1, -2)
+        m = vc_ @ dc_.transpose(-1, -2)             # m[s][t] = v_s . do_t
+        diag = m.diagonal(dim1=-2, dim2=-1)         # v_t . do_t
+        # dr_t = P(0, t) Y[., t] + sum_{s<t} kap_t[s] M[s][t]
+        dr = (pre[..., :chunk, :] * y.transpose(-1, -2)
+              + torch.einsum("bhtsi,bhst->bhti", kp, m)
+              + u[None, :, None] * kc_ * diag[..., None])
+        # the W and Q recurrences back through the chunk
+        wv = x.clone()                              # W_{C-1}[i][s]
+        qv = (g * sc).sum(-1)
+        dk = torch.zeros_like(dr)
+        dw = torch.zeros_like(dr)
+        for t in reversed(range(chunk)):
+            dk[..., t, :] = wv[..., t] + u * rc_[..., t, :] * diag[..., t,
+                                                                   None]
+            dw[..., t, :] = (pre[..., t, :] * qv
+                             + (kp[..., t, :, :].transpose(-1, -2)
+                                * wv * (cols < t)).sum(-1))
+            wv = (wc_[..., t, :, None] * wv
+                  + rc_[..., t, :, None] * m[..., :, t][..., None, :]
+                  * (cols < t))
+            qv = wc_[..., t, :] * qv + rc_[..., t, :] * y[..., t]
+        # A[t][s] = sum_i kap_s[t][i] r_s[i] (t < s), u k_t r_t (t = s)
+        a = torch.einsum("bhsti,bhsi->bhts", kp, rc_)
+        a = a + torch.diag_embed((u[None, :, None] * kc_ * rc_).sum(-1))
+        kt = suffix(wc_) * kc_
+        dv = kt @ g + a @ dc_
+        du += (rc_ * kc_ * diag[..., None]).sum(-2)
+        g = (pre[..., chunk, :, None] * g
+             + (pre[..., :chunk, :] * rc_).transpose(-1, -2) @ dc_)
+        for n, d in enumerate((dr, dk, dv, dw)):
+            grads[n, :, :, c] = d
+    outs = [grads[n].reshape(b, h, nc * chunk, kk)[:, :, :l].transpose(1, 2)
+            for n in range(4)]
+    return (*outs, du.sum(0), g)
+
+
+# the chunked algorithm of K7's backward kernel against the plain backward
+# and the reference's vjp: chunks of 1, 4 and 16, a length below, equal to
+# and one past a chunk, K = 4, 16 and 64, from a zero and a non-zero state
+@pytest.mark.parametrize("chunk", [1, 4, 16])
+@pytest.mark.parametrize("b,l,h,k", [(1, 3, 2, 4), (2, 16, 1, 16),
+                                     (1, 17, 1, 64), (2, 4, 2, 16)])
+@pytest.mark.parametrize("zero_state", [True, False])
+def test_rwkv6_chunked_backward_matches_plain_and_jax(chunk, b, l, h, k,
+                                                      zero_state):
+    arrs = _rwkv_inputs(b, l, h, k, seed=b + l + h + k + chunk,
+                        zero_state=zero_state)
+    got = _rwkv6_backward_chunked(*_t(arrs), chunk=chunk)
+    _assert_grads([x.float() for x in got],
+                  plain.rwkv6_scan_backward_plain(*_t(arrs)), RWKV6_NAMES)
+    _, want = _rwkv_vjp(arrs)
+    _assert_grads([x.float() for x in got], want, RWKV6_NAMES)
+
+
+# w = 0 over a stretch that crosses a chunk boundary (and whole keys of a
+# head): the chunked form's products only shrink to 0, nothing divides
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("w_fill", [0.0, 1e-40])
+def test_rwkv6_chunked_backward_where_w_underflows(chunk, w_fill):
+    arrs = _rwkv_inputs(2, 37, 2, 16, seed=11, zero_state=False)
+    arrs[3][:, chunk - 2:chunk + 3] = np.float32(w_fill)
+    arrs[3][1, :, 1, :3] = np.float32(w_fill)
+    got = [x.float() for x in _rwkv6_backward_chunked(*_t(arrs),
+                                                      chunk=chunk)]
+    _, want = _rwkv_vjp(arrs)
+    _assert_grads(got, want, RWKV6_NAMES)
+    _assert_grads(got, plain.rwkv6_scan_backward_plain(*_t(arrs)),
+                  RWKV6_NAMES)

@@ -464,7 +464,7 @@ def test_remat_changes_no_number(name, changes):
 
 
 @pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-1.5-large-398b"])
-def test_ssm_training_raises_naming_its_item(name):
+def test_ssm_leaves_get_gradients(name):
     """rwkv6 and mamba layers train (ROADMAP Queue A item 12.10, once a
     raise): the train-mode forward is differentiable in every SSM leaf
     (``u``, ``mix``, ``w_base``, ``a_log``, ``d_skip``, ``conv_*``), and

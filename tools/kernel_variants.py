@@ -334,26 +334,84 @@ __global__ void __launch_bounds__(KvSmem<D>::NT, D == 64 ? 3 : 1)""")],
     }""", """    if (tile > 0) stage(tile);
     cp_async_wait<0>();""")],
 }
-# K7's and K6's backwards: a tile's states and the columns of a thread
-# (K7), channels a block (K6), and what a part costs (wrong results)
+# K7's and K6's backwards: each against its predecessor (whole sources:
+# K7's step-by-step walk on the CUDA cores, K6's one channel a thread),
+# the design's choices, and what a part costs (wrong results)
 EXPERIMENTS.update({
     ("k7bwd", "committed"): [],
-    ("k7bwd", "columns_8"): [("constexpr int CW = 16;",
-                              "constexpr int CW = 8;")],
-    ("k7bwd", "tile_4"): [("constexpr int TT = 8;", "constexpr int TT = 4;")],
-    ("k7bwd", "no_first_sweep"): [(
-        "for (int tt = 0; tt < TT; ++tt) advance(s, c & 1, tt);", "")],
-    ("k7bwd", "no_column_sums"): [(
-        "halve<CW, LANES / 2>(col, lane, cj, WMASK);", "")],
+    ("k7bwd", "step_walk"): "rwkv6_scan_bwd_step_walk.cu",
+    # chunks of 8 steps (twice the saved states, a quarter of the decay
+    # table); chunks of 32 do not fit: the table alone is 295 KB.  K = 64
+    # only (K = 16 would have 16 threads a key for 8 steps)
+    ("k7bwd", "chunk_8"): [
+        ("constexpr int C = 16; ", "constexpr int C = 8; "),
+        ("""    case 16:
+      return launch<16>(r, k, v, w, u, s_in, dout, ds, dr, dk, dv, dw, du,
+                        dstate, chk, du_part, B, L, H, stream);
+""", "")],
+    # 4 warps a block in place of 8; the forward sweep's copies 3 chunks
+    # ahead in place of 1
+    ("k7bwd", "threads_128"): [("constexpr int THREADS = 256;",
+                                "constexpr int THREADS = 128;")],
+    ("k7bwd", "forward_4_buffers"): [("constexpr int NFB = 2; ",
+                                      "constexpr int NFB = 4; ")],
+    ("k7bwd", "no_forward_sweep"): [
+        ("    update_state(ktil, fseq(fb, 1));\n", "")],
+    ("k7bwd", "no_pairs"): [
+        ("for (int p = tid; p < NPAIRD; p += THREADS) {",
+         "for (int p = tid; p < 0; p += THREADS) {")],
+    ("k7bwd", "no_per_key_walk"): [
+        ("""      for (int t = C - 1; t >= 0; --t) {
+        const float mtt""", """      for (int t = C - 1; t >= C; --t) {
+        const float mtt""")],
+    ("k7bwd", "no_products"): [
+        ("for (int job = warp; job < 2 * MT; job += NW) {",
+         "for (int job = warp; job < 0; job += NW) {")],
+    ("k7bwd", "no_tables"): [
+        ("for (int s = 1; s < C; ++s) {\n          if (s > t) {",
+         "for (int s = C; s < C; ++s) {\n          if (s > t) {")],
+    ("k7bwd", "no_g_update"): [
+        ("    update_state(rtil, &in(QDO, buf, 0, 0));\n", "")],
+    ("k7bwd", "no_dv"): [
+        ("      if (warp + jt * NW < NT)\n", "      if (warp + jt * NW < 0)\n"),
+        ("      if (tile >= NT) continue;", "      if (tile >= 0) continue;")],
     ("k6bwd", "committed"): [],
+    ("k6bwd", "one_channel"): "mamba_scan_bwd_one_channel.cu",
     ("k6bwd", "tile_4"): [("constexpr int TT = 8; ", "constexpr int TT = 4; ")],
-    ("k6bwd", "threads_64_tile_4"): [
-        ("constexpr int THREADS = 128;", "constexpr int THREADS = 64;"),
-        ("constexpr int TT = 8; ", "constexpr int TT = 4; ")],
+    ("k6bwd", "tile_16"): [("constexpr int TT = 8; ",
+                            "constexpr int TT = 16; ")],
+    # 64 channels a block (2 warps, twice the blocks), and the registers
+    # of 3 blocks an SM in place of 2 (the saved state's early read then
+    # spills)
+    ("k6bwd", "channels_64_a_block"): [(
+        "constexpr int CPB = 128; ", "constexpr int CPB = 64; ")],
+    ("k6bwd", "three_blocks_an_sm"): [(
+        "__launch_bounds__(Cfg<N>::THREADS, 2)",
+        "__launch_bounds__(Cfg<N>::THREADS, 3)")],
+    # the saved state read at the tile's start, not during the walk before
+    ("k6bwd", "saved_state_read_late"): [
+        ("      if (tt == TT - 3 && cc > 0) load_saved(cc - 1);\n", ""),
+        ("    __syncthreads();\n    // the tile's states h_{t-1}, recomputed",
+         "    __syncthreads();\n    if (cc < nc - 1) load_saved(cc);\n"
+         "    // the tile's states h_{t-1}, recomputed")],
+    # the walk's exponential left out (a_t = 1): what keeping a_t from the
+    # recompute could save at most
+    ("k6bwd", "no_walk_exp"): [(
+        "const float an = ex2(dtv[c] * al[c][j]);", "const float an = 1.f;")],
     ("k6bwd", "no_first_sweep"): [(
-        "for (int tt = 0; tt < TT; ++tt) advance(h, tt);  // a whole tile",
+        "for (int tt = 0; tt < TT; ++tt) advance(tt, false);  // a whole tile",
         "")],
-    ("k6bwd", "no_warp_sums"): [("halve<N2, 16>(col, lane, q);", "")],
+    ("k6bwd", "no_recompute"): [("if (tt < nt) advance(tt, true);",
+                                 "if (tt < 0) advance(tt, true);")],
+    ("k6bwd", "no_saved_state_stores"): [(
+        "    for (int q = 0; q < NQ; ++q)\n#pragma unroll\n"
+        "      for (int c = 0; c < 2; ++c)\n        my_chk[",
+        "    for (int q = 0; q < 0; ++q)\n#pragma unroll\n"
+        "      for (int c = 0; c < 2; ++c)\n        my_chk[")],
+    ("k6bwd", "no_warp_sums"): [("halve<W0, 16, NS>(col, lane, idx);", "")],
+    ("k6bwd", "no_dx_ddt"): [(
+        "          if (live[c]) {\n            const size_t off",
+        "          if (live[c] && L < 0) {\n            const size_t off")],
 })
 SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
           "k5bwd": "flash_attention_bwd",
