@@ -206,7 +206,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   1: per step loss, grad_norm, lr, ms, tokens/s and K5's
                   launches (exactly 60 forward and 30 backward: remat runs
                   each group's forward again in the backward pass; no other
-                  kernel); ``train_peak_bytes``; one more step profiled
+                  kernel); ``train_peak_bytes`` (the steps' peak less what
+                  the earlier phases held); one more step profiled
                   (idle share, device calls); the same parameters cut to
                   their first 2 layers on 2 x 256 tokens, card against CPU
                   (loss and grad_norm within 1e-5 relative, every gradient
@@ -216,10 +217,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 22. ``train_whisper`` — the same for whisper-tiny whole, 8 x (1500 frames
                   + 64 tokens), 3 steps: K5 20 forward (4 encoder layers
                   once, the 4 decoder groups' self- and cross-attention
-                  twice) and 12 backward a step; card against CPU on the
-                  whole model's loss, grad_norm and gradients of the first
-                  step's batch (every leaf within 3e-4 of its largest: see
-                  ``TRAIN_GRAD_TOL``).
+                  twice) and 12 backward a step; ``train_peak_bytes``;
+                  card against CPU on the whole model's loss, grad_norm and
+                  gradients of the first step's batch (every leaf within
+                  3e-4 of its largest: see ``TRAIN_GRAD_TOL``).
 23. ``train_rwkv6`` — Queue A item 12.10: rwkv6-7b at full width cut to 8
                   of its 32 layers (``RWKV6_TRAIN_CUT``), 8 x 512 tokens,
                   3 steps of the default ``AdamWConfig``: K7 16 forward
@@ -235,6 +236,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                   layers (attention + MLP, mamba + MLP at d = 8192;
                   ``JAMBA_TRAIN_CUT``): K5 2 + 1 and K6 2 + 1 launches a
                   step (per-layer remat), card vs CPU on both layers.
+
+Every serve line (phases 7, 9, 11, 13, 15, 17, 19) and train line (21–24)
+carries ``dryrun``: ``repro_torch.launch.dryrun.run_cell`` of the same cut
+config and shape, planned on ``meta`` tensors in DRYRUN_WORKERS spawned CPU
+processes while the kernels build and are checked (``dryrun_plan``; the
+``kernels`` line's ``dryrun_wait_s`` is how long the run then waited for
+them, before any timed phase), against the row:
+the launches equal (a train row's per step), and the predicted peak (plus the
+row's other resident batches) within DRYRUN_PEAK_TOL of the measured one,
+``max_memory_allocated`` less what the earlier phases held
+(``serve_peak_bytes``, ``train_peak_bytes``).  ``serve_internvl``,
+``train_rwkv6`` and ``train_jamba`` also carry ``dryrun_uncut``: the plan
+of the model their cut leaves out (48, 32 and 3 layers) and whether it
+fits this card.
 
 Then a ``kernel_shapes`` line (the main paths' shapes the kernels are timed
 at, K5's, K6's and K7's numbers at their decode shapes, K5's at the
@@ -814,16 +829,6 @@ def k5_backward_checks(torch, ops, plain):
     return out
 
 
-def k5_bwd_work(b, h, live, hkv, s, t, d, *, causal, window):
-    """(bytes, float ops) of K5's backward: q, o, dO of the live heads,
-    the log-sum-exp and the unique k, v read once, dq (all H heads), dk
-    and dv written once; 2.5 x the forward's operations (five S x T x D
-    products over the visible pairs against two)."""
-    _, flops = attn_work(b, h, s, t, d, live, hkv, window, causal)
-    return (4 * (3 * b * live * s * d + b * h * s + 2 * b * hkv * t * d
-                 + b * h * s * d + 2 * b * hkv * t * d), 2.5 * flops)
-
-
 def k5_error(torch, plain, got, q, k, v, kw):
     """(max |K5 - plain|, its excess over the output's rounding): the
     plain version in float32 on the same inputs; the excess subtracts
@@ -969,85 +974,6 @@ def scan_error(torch, got, want):
     errs = [(float((g - w).abs().max()), max(1.0, float(w.abs().max())))
             for g, w in zip(got, want)]
     return max(e for e, _ in errs), max(e / sc for e, sc in errs)
-
-
-def rwkv6_work(b, l, h, k):
-    """(bytes, float ops) of K7: r, k, v, w read and o written once, u,
-    the state in and out; 5 flops per (t, key, value): k_i v_j, the FMA
-    w_i S_ij + kv and the FMA r_i S_ij; and 5 per (t, value) for the bonus
-    term, the scalar sum_i r_i u_i k_i (3 per key) times v_j added to the
-    output (2 per value)."""
-    return (4 * (5 * b * l * h * k + h * k + 2 * b * h * k * k),
-            5 * b * l * h * k * k + 5 * b * l * h * k)
-
-
-# K7's backward takes its steps in chunks of this many (rwkv6_scan_bwd.cu)
-K7_BWD_CHUNK = 16
-
-
-def rwkv6_bwd_work(b, l, h, k):
-    """(bytes, tensor-core float ops as 3 TF32 products, CUDA-core float
-    ops) of K7's backward in its chunked form (chunks of C steps): r, k, v,
-    w, do read and dr, dk, dv, dw written once, u and du, the state and its
-    upstream gradient read and dstate written; a chunk's products S_c
-    DO^T, G_e V^T, Kt G_e and the two state updates (K^2 C multiply-adds
-    each) and V DO^T, A DO (C^2 K each), each counted 3 times (3xTF32);
-    on the CUDA cores, per key, the decay table and the W, dr and dw sums
-    over the pairs s < t (8 flops a pair), A's pairs s <= t (2 K each),
-    rowsum(G_e S_c) (2 K^2).  ``rwkv6_bwd_step_work`` is the step-by-step
-    walk's count."""
-    c = K7_BWD_CHUNK
-    chunks = b * h * -(-l // c)
-    pairs = c * (c - 1) // 2
-    return (4 * (9 * b * l * h * k + 2 * h * k + 3 * b * h * k * k),
-            3 * 2 * chunks * (5 * k * k * c + 2 * c * c * k),
-            chunks * (k * 8 * pairs + 2 * k * (pairs + c) + 2 * k * k))
-
-
-def rwkv6_bwd_step_work(b, l, h, k):
-    """(bytes, float ops) of K7's backward as a step-by-step walk on the
-    CUDA cores: 14 flops per (t, key, value) (the state S_{t-1} formed
-    once, the FMAs of dr, dk and dw, G k_i and its sum for dv, G's
-    update) and 10 per (t, key) for the bonus terms."""
-    return (rwkv6_bwd_work(b, l, h, k)[0],
-            14 * b * l * h * k * k + 10 * b * l * h * k)
-
-
-def mamba_bwd_work(b, l, di, n):
-    """(bytes, float ops, exponentials) of K6's backward: x, dt, dy read
-    and dx, ddt written once, B_t, C_t read and dB, dC written, A, D and
-    their gradients, h0 and the final state's gradient read and dh0
-    written; 17 flops and one exp per (t, d, n) (the state h_{t-1} formed
-    once, g's update, the decay's gradient, the terms of dB, dC, g . B,
-    dA), 8 per (t, d)."""
-    return (4 * (5 * b * l * di + 4 * b * l * n + 2 * di * n + 2 * di
-                 + 3 * b * di * n),
-            17 * b * l * di * n + 8 * b * l * di, b * l * di * n)
-
-
-def mamba_work(b, l, di, n):
-    """(bytes, float ops, exponentials) of K6: x, dt read and y written
-    once, B_t, C_t, A, D, the state in and out; 6 flops and one exp per
-    (t, d, n), 3 flops per (t, d)."""
-    return (4 * (3 * b * l * di + 2 * b * l * n + di * n + di
-                 + 2 * b * di * n),
-            6 * b * l * di * n + 3 * b * l * di, b * l * di * n)
-
-
-def attn_work(b, h, s, t, d, live=None, hkv=None, window=None, causal=True):
-    """(bytes, useful float ops) of float32 attention over t keys: the live
-    heads' q, the unique k and v (hkv heads) read once (with a window, only
-    the keys some query sees) and the output (all h heads) written once;
-    QK^T and PV over the visible (query, key) pairs of the live heads only:
-    causal query i sees min(i + t - s + 1, window) keys, else all t."""
-    live = h if live is None else live
-    hkv = h if hkv is None else hkv
-    window = window or t
-    pairs = (sum(min(i + t - s + 1, window) for i in range(s)) if causal
-             else s * t)
-    keys = min(t, s - 1 + window) if causal else t
-    return (4 * (b * live * s * d + b * h * s * d + 2 * b * hkv * keys * d),
-            4 * d * pairs * b * live)
 
 
 def k3_error(torch, ops, plain, acc, lp, up):
@@ -1617,6 +1543,7 @@ def level_operands(torch, plan, factor, rng, *, widest=False):
     K).  Returns (flat copy, u, lmap, tiles, work) with ``work`` the
     level's numbers and the bound's counts: the L entries the map hits, U,
     acc read and written, 2 flops per hit per column."""
+    from repro_torch.kernels import work as W
     from repro_torch.kernels.ops import resolve_device
 
     dev = resolve_device(plan.device)
@@ -1643,8 +1570,8 @@ def level_operands(torch, plan, factor, rng, *, widest=False):
             "max_n": int(recs[:, 4].max()), "max_k": int(recs[:, 5].max()),
             "slices_per_level": [len(r) if r is not None else 0
                                  for r in recs_by_level],
-            "bytes": 8 * (sum(hits) + u_len + 2 * outs),
-            "flops": sum(2 * h * int(n) for h, n in zip(hits, recs[:, 4]))}
+            **dict(zip(("bytes", "flops"), W.panel_update_mapped_work(
+                hits, recs[:, 4], outs, u_len)))}
     return factor.store.flat.clone(), u, upd.lmap, tiles, work
 
 
@@ -2658,6 +2585,125 @@ SSM_CHECK_LAYERS, SSM_CHECK_BATCH, SSM_CHECK_SEQ = 2, 2, 64
 SSM_DESCENT_STEPS, SSM_DESCENT_LR = 2, 2e-6
 
 
+# the dry run (``repro_torch.launch.dryrun.run_cell``) of every serve and
+# train row, on the row's cut config and shape: its predicted peak (the
+# live bytes of a ``meta`` trace of the step over the state it holds) must
+# lie within DRYRUN_PEAK_TOL of the measured ``max_memory_allocated`` less
+# what was held before the row, its launches must equal the row's.  The
+# plans run in DRYRUN_WORKERS processes of their own (spawned, CPU only,
+# ``meta`` tensors, ``nice`` 10), started before the kernels build and
+# waited for before the first timed phase, so that no timed row shares
+# the host with them: a ``meta`` trace runs every op through torch's
+# Python meta functions, about 90 s of host for the fourteen plans on the
+# card machine's host (the serve rows of smollm and internvl's 48 layers
+# about 18 s each)
+DRYRUN_PEAK_TOL, DRYRUN_WORKERS = 0.2, 6
+
+
+def dryrun_cells():
+    """{row: (config, ShapeConfig, run_cell keywords)} of every serve and
+    train phase, cut as the phase cuts it: a serve row is a prefill of
+    SERVE_REQUESTS prompts (its ``seq_len`` counting the patches) and
+    SERVE_GEN - 1 decode steps, a train row one step of micro_steps 1."""
+    from repro_torch.configs.base import ShapeConfig, dense_period, get_config
+
+    jamba = dense_period(get_config("jamba-1.5-large-398b"))
+    cut = dataclasses.replace
+    serve = {"serve": (get_config(SERVE_ARCH), SERVE_PROMPT),
+             "serve_rwkv6": (get_config("rwkv6-7b"), SERVE_PROMPT),
+             "serve_jamba": (jamba, SERVE_PROMPT),
+             "serve_gemma3": (get_config("gemma3-4b"), GEMMA3_PROMPT),
+             "serve_whisper": (get_config("whisper-tiny"), WHISPER_PROMPT),
+             "serve_internvl": (cut(get_config("internvl2-26b"),
+                                    n_layers=INTERNVL_LAYERS), SERVE_PROMPT),
+             "serve_deepseek": (cut(get_config("deepseek-v3-671b"),
+                                    n_layers=1), SERVE_PROMPT)}
+    cells = {tag: (cfg, ShapeConfig(tag, cfg.n_patches + prompt,
+                                    SERVE_REQUESTS, "prefill"),
+                   {"gen_len": SERVE_GEN})
+             for tag, (cfg, prompt) in serve.items()}
+    for tag, cfg, seq, batch in (
+            ("train_smollm", get_config("smollm-135m"), TRAIN_SEQ,
+             TRAIN_BATCH),
+            ("train_whisper", get_config("whisper-tiny"),
+             WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_BATCH),
+            ("train_rwkv6", cut(get_config("rwkv6-7b"),
+                                n_layers=RWKV6_TRAIN_LAYERS), SSM_TRAIN_SEQ,
+             SSM_TRAIN_BATCH),
+            ("train_jamba", cut(jamba, n_layers=2, pattern=jamba.pattern[:2]),
+             SSM_TRAIN_SEQ, SSM_TRAIN_BATCH)):
+        cells[tag] = (cfg, ShapeConfig(tag, seq, batch, "train"),
+                      {"micro_steps": 1})
+    # the cuts' whole models (planned, not run): internvl2-26b's 48
+    # layers served, rwkv6-7b's 32 and the jamba period's first 3 trained
+    for tag, row, changes in (
+            ("serve_internvl_uncut", "serve_internvl", {"n_layers": 48}),
+            ("train_rwkv6_uncut", "train_rwkv6", {"n_layers": 32}),
+            ("train_jamba_uncut", "train_jamba",
+             {"n_layers": 3, "pattern": jamba.pattern[:3]})):
+        cfg, shape, kw = cells[row]
+        cells[tag] = (cut(cfg, **changes), shape, kw)
+    return cells
+
+
+def uncut_plan(tag: str, plan) -> dict:
+    """The plan of a cut row's whole model (``dryrun_cells``)."""
+    rec = plan.get()
+    return {"tag": tag, "peak_bytes": rec["peak_bytes"], "fits": rec["fits"],
+            "state_bytes": rec["state_bytes"], "launches": rec["launches"],
+            "plan_s": rec["plan_s"]}
+
+
+def dryrun_plan(tag: str, capacity: int) -> dict:
+    """The dry run of row ``tag`` (``dryrun_cells``), in a worker process:
+    its peak, launches, state and whether it fits ``capacity``."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""       # meta tensors only
+    os.nice(10)                 # the rows on the card come first
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    cfg, shape, kw = dryrun_cells()[tag]
+    rec = dryrun.run_cell(cfg, shape, capacity_bytes=capacity,
+                          with_costs=False, **kw)
+    return {"peak_bytes": rec["memory"]["peak_bytes"],
+            "fits": rec["memory"]["fits"], "launches": rec["launches"],
+            "state_bytes": rec["state_bytes"], "plan_s": rec["plan_s"]}
+
+
+def dryrun_check(tag: str, plan, measured_peak: int, measured_launches,
+                 *, steps: int = 1, resident: int = 0) -> dict:
+    """The dry run of row ``tag`` (an ``AsyncResult`` of ``dryrun_plan``)
+    against the row: launches (``steps`` times the plan's, for a train
+    row's steps) equal to the row's nonzero counts, and the peak plus
+    ``resident`` (what the row holds beyond the plan's state: its other
+    batches) within DRYRUN_PEAK_TOL of the measured peak."""
+    rec = plan.get()
+    predicted = rec["peak_bytes"] + resident
+    ratio = predicted / measured_peak
+    measured = {k: n for k, n in measured_launches.items() if n}
+    want = {k: steps * n for k, n in rec["launches"].items()}
+    check(measured == want, f"{tag}: launches {measured}, the dry run's "
+          f"{want}")
+    check(abs(ratio - 1) <= DRYRUN_PEAK_TOL, f"{tag}: the dry run's peak "
+          f"{predicted} is {ratio} of the measured {measured_peak}")
+    return {"predicted_peak_bytes": predicted,
+            "measured_peak_bytes": measured_peak,
+            "predicted_over_measured": ratio, "resident_extra": resident,
+            "predicted_launches": rec["launches"],
+            "measured_launches": {k: n // steps for k, n in measured.items()},
+            "fits": rec["fits"], "state_bytes": rec["state_bytes"],
+            "plan_s": rec["plan_s"]}
+
+
+def _batch_bytes(batches) -> int:
+    return sum(t.numel() * t.element_size() for b in batches
+               for t in b.values())
+
+
 def train_steps(torch, ops, step, params, opt, batches, tokens, *,
                 counts=K5_COUNTS, key="k5"):
     """Run ``step`` over ``batches``; per step its metrics, host-clock ms
@@ -2718,12 +2764,14 @@ def card_vs_cpu(torch, cfg, card, host, batch):
     return out
 
 
-def train_smollm_phase(torch, ops):
+def train_smollm_phase(torch, ops, plan=None):
     """Phase 21: ``make_train_step`` on smollm-135m whole; see the
     constants above.  K5's launches a step are checked: with
     ``cfg.remat`` each of the 30 groups runs its forward twice (the
     forward, then its recompute in the backward pass), so 60 forward and
-    30 backward launches, and no other kernel."""
+    30 backward launches, and no other kernel.  ``train_peak_bytes`` is
+    the steps' ``max_memory_allocated`` less what was held before the
+    phase; ``plan`` (``dryrun_plan``'s result, or None) is held to it."""
     import dataclasses as dc
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import make_batch_for
@@ -2736,14 +2784,14 @@ def train_smollm_phase(torch, ops):
 
     cfg = get_config("smollm-135m")
     dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()     # the earlier phases' tensors
     params = tf.init_params(cfg, seed=0, device=dev)
-    # copies of the seed-0 draw cut to its first layers (the steps below
-    # update ``params`` in place)
+    # a host copy of the seed-0 draw cut to its first layers (the steps
+    # below update ``params`` in place; its card copy is made after them)
     cut_host = tf.to_device({"embed": params["embed"],
                              "final_norm": params["final_norm"],
                              "groups": params["groups"][:TRAIN_CHECK_LAYERS]},
                             "cpu")
-    cut_card = tf.to_device(cut_host, dev)
     shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     batches = [device_batch(make_batch_for(cfg, shape, step=i),
                             torch.float32, dev) for i in range(TRAIN_STEPS)]
@@ -2765,9 +2813,13 @@ def train_smollm_phase(torch, ops):
               f"train_smollm step {r['step']}: loss {r['loss']}")
     check(sum(launches.values()) == TRAIN_STEPS * sum(want.values()),
           f"train_smollm launched other kernels: {launches}")
+    dry = plan and dryrun_check("train_smollm", plan, peak - held, launches,
+                                steps=TRAIN_STEPS,
+                                resident=_batch_bytes(batches[1:]))
     _, prof = profiled(torch, lambda: step(params, opt, batches[0]))
     del params, opt
 
+    cut_card = tf.to_device(cut_host, dev)
     cfg_cut = dc.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
     check_batch = make_batch_for(cfg_cut, ShapeConfig(
         "check", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, "train"))
@@ -2802,20 +2854,22 @@ def train_smollm_phase(torch, ops):
             "whole model", "batch": [TRAIN_BATCH, TRAIN_SEQ],
             "micro_steps": 1, "dtype": "float32", "steps": rows,
             "launches": launches, "k5_per_step": want,
-            "train_peak_bytes": peak, "profiled_step": prof,
+            "max_memory_allocated": peak, "train_peak_bytes": peak - held,
+            "dryrun": dry, "profiled_step": prof,
             "card_vs_cpu": {"layers": TRAIN_CHECK_LAYERS,
                             "batch": [TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ],
                             **vs_cpu},
             "descent": {"lr": TRAIN_DESCENT_LR, "losses": losses}}
 
 
-def train_whisper_phase(torch, ops):
+def train_whisper_phase(torch, ops, plan=None):
     """Phase 22: ``make_train_step`` on whisper-tiny whole, 3 steps.  K5
     a step: the 4 encoder layers once each (the encoder is not
     checkpointed), the 4 decoder groups' self- and cross-attention twice
     each (forward and recompute): 4 + 16 = 20 forward launches, and 4 + 8
     = 12 backward.  Card vs CPU: the whole model's loss, grad_norm and
-    gradients on the first step's batch, before the steps."""
+    gradients on the first step's batch, before the steps.
+    ``train_peak_bytes`` and ``plan`` as ``train_smollm_phase``'s."""
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import make_batch_for
     from repro_torch.launch.train import device_batch
@@ -2827,6 +2881,7 @@ def train_whisper_phase(torch, ops):
 
     cfg = get_config("whisper-tiny")
     dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()     # the earlier phases' tensors
     params = tf.init_params(cfg, seed=0, device=dev)
     host = tf.to_device(params, "cpu")
     shape = ShapeConfig("train", WHISPER_TRAIN_TOKENS, WHISPER_TRAIN_BATCH,
@@ -2837,11 +2892,15 @@ def train_whisper_phase(torch, ops):
     del host
     batches = [device_batch(b, torch.float32, dev) for b in raw]
     step = make_train_step(cfg, micro_steps=1)
+    opt = init_adamw(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     params, opt, rows = train_steps(
-        torch, ops, step, params, init_adamw(params), batches,
+        torch, ops, step, params, opt, batches,
         WHISPER_TRAIN_BATCH * (WHISPER_TRAIN_TOKENS + cfg.encdec.enc_len))
     launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
     want = {"flash_attention": n_enc + 2 * 2 * n_dec,
             "flash_attention_backward": n_enc + 2 * n_dec}
@@ -2852,16 +2911,20 @@ def train_whisper_phase(torch, ops):
     check(abs(rows[0]["loss"] - vs_cpu["loss_card"])
           <= TRAIN_LOSS_TOL * abs(vs_cpu["loss_card"]), "train_whisper: the "
           "first step's loss differs from the checked forward's")
+    dry = plan and dryrun_check("train_whisper", plan, peak - held,
+                                launches, steps=WHISPER_TRAIN_STEPS,
+                                resident=_batch_bytes(batches[1:]))
     del params, opt, batches
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "cut": "none: the whole model",
             "batch": [WHISPER_TRAIN_BATCH, cfg.encdec.enc_len,
                       WHISPER_TRAIN_TOKENS], "micro_steps": 1,
             "steps": rows, "launches": launches, "k5_per_step": want,
-            "card_vs_cpu": vs_cpu}
+            "max_memory_allocated": peak, "train_peak_bytes": peak - held,
+            "dryrun": dry, "card_vs_cpu": vs_cpu}
 
 
-def ssm_train_phase(torch, ops, cfg, *, tag, cut):
+def ssm_train_phase(torch, ops, cfg, *, tag, cut, plan=None):
     """Phases 23 and 24: ``make_train_step`` on an SSM model at full
     width (``cfg``, cut in depth as ``cut`` says); see the constants
     above.  First, card vs CPU on its first SSM_CHECK_LAYERS layers (a
@@ -2871,7 +2934,8 @@ def ssm_train_phase(torch, ops, cfg, *, tag, cut):
     its group's or its own checkpoint's recompute (``cfg.remat`` with more
     than one group, or ``cfg.layer_remat``), its backward once, and no
     other kernel.  Then a profiled step, and the descent on a repeated
-    batch with a fresh optimizer."""
+    batch with a fresh optimizer.  ``train_peak_bytes`` and ``plan`` as
+    ``train_smollm_phase``'s."""
     import dataclasses as dc
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import make_batch_for
@@ -2883,6 +2947,7 @@ def ssm_train_phase(torch, ops, cfg, *, tag, cut):
     import numpy as np
 
     dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()     # the earlier phases' tensors
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -2923,6 +2988,9 @@ def ssm_train_phase(torch, ops, cfg, *, tag, cut):
               f"launches {r['launches']}, expected {want}")
         check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
               f"train_{tag} step {r['step']}: loss {r['loss']}")
+    dry = plan and dryrun_check(f"train_{tag}", plan, peak - held, launches,
+                                steps=SSM_TRAIN_STEPS,
+                                resident=_batch_bytes(batches[1:]))
     prof = profiled(torch, lambda: step(params, opt, batches[0]))[1]
     del opt              # before a fresh optimizer state of 3 x 10-11 GB
     descent = make_train_step(cfg, micro_steps=1, acfg=AdamWConfig(
@@ -2939,7 +3007,8 @@ def ssm_train_phase(torch, ops, cfg, *, tag, cut):
             "batch": [SSM_TRAIN_BATCH, SSM_TRAIN_SEQ], "micro_steps": 1,
             "dtype": "float32", "init_params_s": init_s, "steps": rows,
             "launches": launches, "launches_per_step": want,
-            "train_peak_bytes": peak, "profiled_step": prof,
+            "max_memory_allocated": peak, "train_peak_bytes": peak - held,
+            "dryrun": dry, "profiled_step": prof,
             "card_vs_cpu": {"layers": cfg_cut.n_layers,
                             "batch": [SSM_CHECK_BATCH, SSM_CHECK_SEQ],
                             "host_adamw_step": "not run: AdamW is "
@@ -2978,6 +3047,8 @@ def k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line):
     with the log-sum-exp at smollm's train shape and its backward at each
     of K5_BWD_SHAPES (float32), timed through ``row`` (``main``'s); the
     backward's CUDA-core bound goes into ``shapes_line``."""
+    from repro_torch.kernels import work as W
+
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # K5's forward with the log-sum-exp at smollm's train shape and its
@@ -3006,8 +3077,8 @@ def k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line):
                 f"{f', window {window}' if window else ''}, S = {s_}, "
                 f"T = {t_}, D = {d_}, {live} of {h_} q / {hkv} KV heads")
         if tag == "smollm_train":
-            nbytes, flops = attn_work(b_, h_, s_, t_, d_, live, hkv, window,
-                                      causal)
+            nbytes, flops = W.attn_work(b_, h_, s_, t_, d_, live, hkv,
+                                        window, causal)
             nbytes += 4 * b_ * h_ * s_
             row(f"flash_attention (forward with log-sum-exp, {desc})",
                 train_res["smollm"]["launches"]["flash_attention"],
@@ -3024,7 +3095,7 @@ def k5_train_rows(torch, ops, plain, checks, train_res, row, shapes_line):
                       for x in (q[:, :live], k, v))
         out_l = sdpa(qs, ks, vs, enable_gqa=True, **sdpa_kw)
         do_l = do[:, :live].contiguous()
-        nbytes, flops = k5_bwd_work(*shape, causal=causal, window=window)
+        nbytes, flops = W.k5_bwd_work(*shape, causal=causal, window=window)
         row(f"flash_attention_backward ({desc})",
             train_res[model]["launches"]["flash_attention_backward"]
             if model in train_res else 0,
@@ -3065,12 +3136,26 @@ def main() -> int:
     from repro_torch import sparse
     from repro_torch.core.gsofa import prepare_graph
     from repro_torch.kernels import _build, ops, plain
+    from repro_torch.kernels import work as W
     from repro_torch.sparse.numeric import generic_values_csr
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    # the dry run of every serve and train row, planned for this card's
+    # memory while the kernels build and are checked, and waited for
+    # before the first timed phase; the workers are stopped however the
+    # run ends
+    import atexit
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    atexit.register(pool.terminate)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    plans = {tag: pool.apply_async(dryrun_plan, (tag, capacity))
+             for tag in dryrun_cells()}
+    pool.close()
     t0 = time.perf_counter()
     built = _build.build()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -3081,7 +3166,10 @@ def main() -> int:
                                        seed=SEED)
     adj = prepare_graph(a, dense_block=128, device="cuda").adj_dense
     checks = kernel_checks(torch, ops, plain, adj)
-    emit({"phase": "kernels", **checks})
+    t0 = time.perf_counter()
+    pool.join()
+    emit({"phase": "kernels", "dryrun_wait_s": time.perf_counter() - t0,
+          **checks})
 
     values = generic_values_csr(a)
     ops.reset_launches()
@@ -3188,6 +3276,9 @@ def main() -> int:
     from repro_torch.configs.base import dense_period, get_config
 
     params, serve_res = serve_phase(torch, ops)
+    serve_res["dryrun"] = dryrun_check(
+        "serve", plans["serve"], serve_res["serve_peak_bytes"],
+        serve_res["launches"])
     emit({"phase": "serve", **serve_res})
     emit({"phase": "breakdown_serve",
           **breakdown_serve(torch, get_config(SERVE_ARCH), params)})
@@ -3214,6 +3305,11 @@ def main() -> int:
              INTERNVL_CUT, 2, {})):
         params, res = checked_serve_phase(torch, ops, cfg, cut=cut,
                                           check_layers=layers, **kw)
+        res["dryrun"] = dryrun_check(f"serve_{tag}", plans[f"serve_{tag}"],
+                                     res["serve_peak_bytes"], res["launches"])
+        if f"serve_{tag}_uncut" in plans:
+            res["dryrun_uncut"] = uncut_plan(f"serve_{tag}_uncut",
+                                             plans[f"serve_{tag}_uncut"])
         serve_launches[tag] = res["launches"]
         emit({"phase": f"serve_{tag}", **res})
         emit({"phase": f"breakdown_serve_{tag}",
@@ -3227,6 +3323,8 @@ def main() -> int:
     # holds 53.4 GB
     cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=1)
     params, res = deepseek_phase(torch, ops, cfg)
+    res["dryrun"] = dryrun_check("serve_deepseek", plans["serve_deepseek"],
+                                 res["serve_peak_bytes"], res["launches"])
     serve_launches["deepseek"] = res["launches"]
     emit({"phase": "serve_deepseek", **res})
     emit({"phase": "breakdown_serve_deepseek",
@@ -3234,20 +3332,26 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    train_res = {"smollm": train_smollm_phase(torch, ops)}
+    train_res = {"smollm": train_smollm_phase(torch, ops,
+                                              plans["train_smollm"])}
     emit({"phase": "train_smollm", **train_res["smollm"]})
-    train_res["whisper"] = train_whisper_phase(torch, ops)
+    train_res["whisper"] = train_whisper_phase(torch, ops,
+                                               plans["train_whisper"])
     emit({"phase": "train_whisper", **train_res["whisper"]})
     train_res["rwkv6"] = ssm_train_phase(
         torch, ops, dataclasses.replace(get_config("rwkv6-7b"),
                                         n_layers=RWKV6_TRAIN_LAYERS),
-        tag="rwkv6", cut=RWKV6_TRAIN_CUT)
+        tag="rwkv6", cut=RWKV6_TRAIN_CUT, plan=plans["train_rwkv6"])
+    train_res["rwkv6"]["dryrun_uncut"] = uncut_plan(
+        "train_rwkv6_uncut", plans["train_rwkv6_uncut"])
     emit({"phase": "train_rwkv6", **train_res["rwkv6"]})
     jamba = dense_period(get_config("jamba-1.5-large-398b"))
     train_res["jamba"] = ssm_train_phase(
         torch, ops, dataclasses.replace(jamba, n_layers=2,
                                         pattern=jamba.pattern[:2]),
-        tag="jamba", cut=JAMBA_TRAIN_CUT)
+        tag="jamba", cut=JAMBA_TRAIN_CUT, plan=plans["train_jamba"])
+    train_res["jamba"]["dryrun_uncut"] = uncut_plan(
+        "train_jamba_uncut", plans["train_jamba_uncut"])
     emit({"phase": "train_jamba", **train_res["jamba"]})
 
     # per-kernel times at the main paths' shapes: the kernel and the
@@ -3282,7 +3386,7 @@ def main() -> int:
     row("minmax_relax", launches["minmax_relax"], err,
         lambda: ops.minmax_relax(prop, adj),
         lambda: plain.minmax_relax_plain(prop, adj),
-        s * u * 4 + adj.numel() + s * u * 4, s * nnz_adj,
+        *W.minmax_relax_work(s, u, adj.shape[1], nnz_adj),
         plain_kw={"reps": 1, "warmup": 0})
     kern[-1]["launches_on_new_paths"] = {
         path: new_paths[path]["minmax_relax"]
@@ -3301,7 +3405,7 @@ def main() -> int:
     row("column_fingerprints", launches["column_fingerprints"], err,
         lambda: ops.column_fingerprints(rel, *lanes),
         lambda: plain.column_fingerprints_plain(rel, *lanes),
-        s * v * 4 + 4 * s * 4 + 3 * v * 4, 2 * s * v)
+        *W.column_fingerprints_work(s, v))
     kern[-1]["launches_on_new_paths"] = {
         path: new_paths[path]["column_fingerprints"]
         for path in ("robust", "serve_lu", "sharded_default",
@@ -3330,7 +3434,7 @@ def main() -> int:
         row("panel_update" + suffix, counts["panel_update"], err,
             lambda: ops.panel_update(acc, lp, up),
             lambda: plain.panel_update_plain(acc, lp, up),
-            esize * (2 * m * n + m * k + k * n), 2 * m * n * k,
+            *W.panel_update_work(m, k, n, esize),
             lambda: torch.addmm(acc, lp, up, alpha=-1),
             kernel="panel_update", peak_ops=peak, plain_kw={"inner": 100})
 
@@ -3346,7 +3450,7 @@ def main() -> int:
         row("panel_update_batched" + suffix, counts["panel_update_batched"],
             err, lambda: ops.panel_update_batched(accb, lpb, upb),
             lambda: plain.panel_update_batched_plain(accb, lpb, upb),
-            esize * bsz * (2 * m * n + m * k + k * n), 2 * bsz * m * n * k,
+            *W.panel_update_work(m, k, n, esize, bsz),
             lambda: torch.baddbmm(accb, lpb, upb, alpha=-1),
             kernel="panel_update_batched", peak_ops=peak,
             plain_kw={"inner": 100})
@@ -3450,7 +3554,7 @@ def main() -> int:
         err = float((ops.flash_attention(*qkv)
                      - plain.flash_attention_plain(*qkv)).abs().max())
         causal = shape[2] > 1       # S = 1 sees every key
-        nbytes, flops = attn_work(*shape)
+        nbytes, flops = W.attn_work(*shape)
         fns = (lambda: ops.flash_attention(*qkv),
                lambda: plain.flash_attention_plain(*qkv))
         lib = lambda: sdpa(*qkv, is_causal=causal)
@@ -3471,7 +3575,7 @@ def main() -> int:
         b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
         qg, kg, vg, kw = gqa_inputs(torch, rng, *shape)
         err = checks[f"K5_{tag}_err"]
-        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv)
+        nbytes, flops = W.attn_work(b_, h_, s_, kv_len, d_, live, hkv)
         ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
         t = timing(lambda: ops.flash_attention(qg, kg, vg, **kw),
                    lambda: plain.flash_attention_plain(qg, kg, vg, **kw),
@@ -3496,7 +3600,7 @@ def main() -> int:
         b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
         qg, kg, vg, kw = gqa_inputs(torch, rng, *shape, window=window)
         err = checks[f"K5_gemma3_{tag}_float32_err"]
-        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv, window)
+        nbytes, flops = W.attn_work(b_, h_, s_, kv_len, d_, live, hkv, window)
         ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
         band = None
         if s_ > 1:
@@ -3533,8 +3637,8 @@ def main() -> int:
         b_, h_, live, hkv, s_, t_alloc, kv_len, d_ = shape
         qg, kg, vg, kw = gqa_inputs(torch, rng, *shape, causal=causal)
         err = checks[f"K5_{tag}_err"]
-        nbytes, flops = attn_work(b_, h_, s_, kv_len, d_, live, hkv,
-                                  causal=causal)
+        nbytes, flops = W.attn_work(b_, h_, s_, kv_len, d_, live, hkv,
+                                    causal=causal)
         ks, vs = kg[:, :, :kv_len], vg[:, :, :kv_len]
         args = (lambda: ops.flash_attention(qg, kg, vg, **kw),
                 lambda: plain.flash_attention_plain(qg, kg, vg, **kw),
@@ -3566,9 +3670,9 @@ def main() -> int:
     # PyTorch call computes either scan (library_ms null)
     for name, key, path, shapes, inputs, work, fn, ref in (
             ("mamba_scan", "K6", "jamba", K6_SHAPES, mamba_inputs,
-             mamba_work, ops.mamba_scan, plain.mamba_scan_plain),
+             W.mamba_work, ops.mamba_scan, plain.mamba_scan_plain),
             ("rwkv6_scan", "K7", "rwkv6", K7_SHAPES, rwkv6_inputs,
-             rwkv6_work, ops.rwkv6_scan, plain.rwkv6_scan_plain)):
+             W.rwkv6_work, ops.rwkv6_scan, plain.rwkv6_scan_plain)):
         for tag, state in (("prefill", "zero"), ("decode", "state")):
             shape = shapes[tag]
             args = inputs(torch, rng, *shape, zero_state=state == "zero")
@@ -3589,10 +3693,10 @@ def main() -> int:
     # phases'; no one PyTorch call computes a scan's gradient
     for name, key, path, kind, work, fn, ref in (
             ("mamba_scan_backward", "K6_bwd", "jamba", "mamba",
-             mamba_bwd_work, ops.mamba_scan_backward,
+             W.mamba_bwd_work, ops.mamba_scan_backward,
              plain.mamba_scan_backward_plain),
             ("rwkv6_scan_backward", "K7_bwd", "rwkv6", "rwkv6",
-             rwkv6_bwd_work, ops.rwkv6_scan_backward,
+             W.rwkv6_bwd_work, ops.rwkv6_scan_backward,
              plain.rwkv6_scan_backward_plain)):
         shape = (K6_SHAPES if kind == "mamba" else K7_SHAPES)["prefill"]
         args = scan_bwd_inputs(torch, kind, shape, zero_state=True, seed=3)
@@ -3607,7 +3711,7 @@ def main() -> int:
                 "shape": list(shape),
                 "bound_step_by_step_cuda_cores": dict(zip(
                     ("bound_ms", "bound_by"),
-                    bound(*rwkv6_bwd_step_work(*shape))))}
+                    bound(*W.rwkv6_bwd_step_work(*shape))))}
         row(name, train_res[path]["launches"][name],
             checks[f"{key}_max_abs_err"], lambda: fn(*args),
             lambda: ref(*args), nbytes, nops, plain_kw={"reps": 1},

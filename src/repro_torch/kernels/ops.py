@@ -6,10 +6,16 @@ The rule is the tensor's device and nothing else.  For tensors on the CPU a
 wrapper runs the kernel's plain version (``kernels/plain.py``); for CUDA
 tensors it launches the hand-written kernel (``kernels/csrc/``) on the
 current stream, or raises — a failed build or launch never falls back.
+For ``meta`` tensors (a shape-only trace: ``launch/costs.py``,
+``launch/dryrun.py``) it checks and allocates exactly as on the card —
+outputs and scratch, empty — and launches nothing: it records one launch
+of the kernel and its bytes and operations (``kernels/work.py``) in the
+work tally, which a dry run reads.  ``meta`` is only ever asked for
+explicitly.
 Each wrapper validates device, dtype, shape and contiguity, allocates its
 output, and counts its launches in ``<wrapper>.launches`` (incremented only
-where the kernel is launched), so a run can show which kernels its path went
-through.
+where the kernel is launched), so a run can show which kernels its path
+went through.
 
 ========================  ============================================  ==
 wrapper                   replaces (src/repro/kernels/)
@@ -40,17 +46,23 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plain
+from repro_torch.kernels import work
 
 INF = plain.INF
 _COUNT_LOCK = threading.Lock()
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, *, meta: bool = False) -> torch.device:
     """``None`` -> the card.  Raises when CUDA is asked for and absent: the
-    port never moves to the CPU on its own."""
+    port never moves to the CPU on its own.  ``"meta"`` (shapes without
+    memory, a dry run) only where the caller says it runs on shapes
+    (``meta=True``: the model's parameters and caches); it is never a
+    default."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    if dev.type not in ("cuda", "cpu") and not (meta and dev.type == "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}"
+                         + (" (meta: only for a dry run's parameters and "
+                            "caches)" if dev.type == "meta" else ""))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
@@ -58,20 +70,40 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU inputs, False for CUDA inputs on one device; raises for
-    mixed or other devices."""
+def _route(*tensors: torch.Tensor) -> str:
+    """``"cpu"`` (the plain version), ``"cuda"`` (the kernel) or ``"meta"``
+    (shapes only) for inputs on one device; raises for mixed or other
+    devices."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs must share one device, got "
                          f"{sorted(str(d) for d in devices)}")
     dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"kernels run on 'cpu' (plain version) or 'cuda', "
-                         f"got {dev}")
-    return False
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"kernels run on 'cpu' (plain version), 'cuda' or "
+                         f"'meta' (shapes only), got {dev}")
+    return dev.type
+
+
+def _plain(wrapper, counts, fn, *args, **kwargs):
+    """The CPU branch: ``fn(*args, **kwargs)``, a plain version, recorded
+    in the work tally as one call of ``wrapper``'s kernel with ``counts``
+    = (bytes, float ops, ...); a cost trace counts those and skips the
+    plain version's own operations (``work.kernel``)."""
+    with work.kernel(wrapper.__name__, *counts[:2]):
+        return fn(*args, **kwargs)
+
+
+def _stand_in(wrapper, like: torch.Tensor, counts) -> bool:
+    """On ``meta`` (``like`` a meta tensor), record one launch of
+    ``wrapper``'s kernel in the work tally with ``counts()`` = (bytes,
+    float ops, ...), and return True; else False.  Nothing is launched,
+    so ``wrapper.launches`` stays as it was; ``counts`` is called only
+    here, so the card's path computes nothing for a dry run."""
+    if not like.is_meta:
+        return False
+    work.record(wrapper.__name__, *counts()[:2])
+    return True
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):
@@ -104,8 +136,11 @@ def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     int32 ``prop`` (S, U) and uint8 ``adj`` (U, V).  On the card the output
     is filled with INF and the kernel lowers it with ``atomicMin``: two
     device ops, one launch counted."""
-    if _on_cpu(prop, adj):
-        return plain.minmax_relax_plain(prop, adj)
+    if _route(prop, adj) == "cpu":
+        s, u, v = prop.shape[0], adj.shape[0], adj.shape[-1]
+        return _plain(minmax_relax, (work.minmax_relax_work(s, u, v, 0)[0],
+                                     None), plain.minmax_relax_plain, prop,
+                      adj)
     _check("prop", prop, torch.int32, 2)
     _check("adj", adj, torch.uint8, 2)
     s, u = prop.shape
@@ -115,7 +150,10 @@ def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     v = adj.shape[1]
     # the kernel lowers the entries its edges reach with atomicMin
     out = torch.full((s, v), INF, dtype=torch.int32, device=prop.device)
-    if s and u and v:
+    # on meta the edges are unknown: the work tally takes none for the ops
+    if s and u and v and not _stand_in(
+            minmax_relax, prop,
+            lambda: (work.minmax_relax_work(s, u, v, 0)[0], None)):
         _launch("minmax_relax", prop.data_ptr(), adj.data_ptr(),
                 out.data_ptr(), s, u, v, _stream(prop))
         _count(minmax_relax)
@@ -128,8 +166,11 @@ def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
     """K2: (3, V) int32 per-column fingerprints (count, wrapping sum of
     ``m1``, xor of ``m2``) over rows with ``rel < v``, ``src > v`` and
     ``valid != 0``; ``rel`` (S, V), the others (S,), all int32."""
-    if _on_cpu(rel, src, m1, m2, valid):
-        return plain.column_fingerprints_plain(rel, src, m1, m2, valid)
+    if _route(rel, src, m1, m2, valid) == "cpu":
+        return _plain(column_fingerprints,
+                      work.column_fingerprints_work(*rel.shape),
+                      plain.column_fingerprints_plain, rel, src, m1, m2,
+                      valid)
     _check("rel", rel, torch.int32, 2)
     s, v = rel.shape
     for name, t in (("src", src), ("m1", m1), ("m2", m2), ("valid", valid)):
@@ -137,7 +178,9 @@ def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
         if t.shape[0] != s:
             raise ValueError(f"{name} has {t.shape[0]} rows, rel has {s}")
     out = torch.zeros((3, v), dtype=torch.int32, device=rel.device)
-    if s and v:
+    if s and v and not _stand_in(
+            column_fingerprints, rel,
+            lambda: work.column_fingerprints_work(s, v)):
         _launch("column_fingerprints", rel.data_ptr(), src.data_ptr(),
                 m1.data_ptr(), m2.data_ptr(), valid.data_ptr(),
                 out.data_ptr(), s, v, _stream(rel))
@@ -227,17 +270,23 @@ def mapped_tiles(slices) -> np.ndarray:
         t % rep(tiles_n) * rep(tc), rep(tc), rep(bk)]).astype(np.int32)
 
 
-def _dense_panel_launch(acc, l_panel, u_panel, b: int, m: int, n: int,
-                        k: int, batched: bool) -> torch.Tensor:
+def _dense_panel_launch(wrapper, acc, l_panel, u_panel, b: int, m: int,
+                        n: int, k: int, batched: bool) -> torch.Tensor:
+    """K3 (``batched`` False) or K4 over b slices into a new tensor,
+    counted as one launch of ``wrapper``."""
     out = torch.empty_like(acc)
     tc, bk = panel_tile(n, k)
     tiles = -(-m // (PANEL_THREADS // tc)) * -(-n // tc)
     if tiles * b > 2 ** 31 - 1:
         raise ValueError(f"panel update of {b} x ({m}, {n}) takes {tiles * b}"
                          f" blocks, more than a grid holds")
+    if _stand_in(wrapper, acc, lambda: work.panel_update_work(
+            m, k, n, acc.element_size(), b)):
+        return out
     _launch("panel_update", acc.data_ptr(), l_panel.data_ptr(),
             u_panel.data_ptr(), out.data_ptr(), b, m, n, k, tc, bk,
             int(batched), int(acc.dtype == torch.float64), _stream(acc))
+    _count(wrapper)
     return out
 
 
@@ -246,16 +295,18 @@ def panel_update(acc: torch.Tensor, l_panel: torch.Tensor,
     """K3: (M, N) ``acc - l_panel @ u_panel`` in true float32, or in
     float64 when all three are float64; an empty M, N or K returns
     ``acc``."""
-    if _on_cpu(acc, l_panel, u_panel):
+    if _route(acc, l_panel, u_panel) == "cpu":
         if 0 in acc.shape or l_panel.shape[-1] == 0:
             return acc
-        return plain.panel_update_plain(acc, l_panel, u_panel)
+        (m, n), k = acc.shape, l_panel.shape[-1]
+        return _plain(panel_update, work.panel_update_work(
+            m, k, n, acc.element_size()), plain.panel_update_plain, acc,
+            l_panel, u_panel)
     m, n, k = _panel_args(acc, l_panel, u_panel, 2)
     if m == 0 or n == 0 or k == 0:
         return acc
-    out = _dense_panel_launch(acc, l_panel, u_panel, 1, m, n, k, False)
-    _count(panel_update)
-    return out
+    return _dense_panel_launch(panel_update, acc, l_panel, u_panel, 1, m, n,
+                               k, False)
 
 
 def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
@@ -263,17 +314,19 @@ def panel_update_batched(acc: torch.Tensor, l_panel: torch.Tensor,
     """K4: (B, M, N) stacked K3 updates in one launch (float32 or
     float64); each slice is bitwise equal to K3 on that slice (same kernel
     body, same K order)."""
-    if _on_cpu(acc, l_panel, u_panel):
+    if _route(acc, l_panel, u_panel) == "cpu":
         if 0 in acc.shape or l_panel.shape[-1] == 0:
             return acc
-        return plain.panel_update_batched_plain(acc, l_panel, u_panel)
+        (b, m, n), k = acc.shape, l_panel.shape[-1]
+        return _plain(panel_update_batched, work.panel_update_work(
+            m, k, n, acc.element_size(), b), plain.panel_update_batched_plain,
+            acc, l_panel, u_panel)
     m, n, k = _panel_args(acc, l_panel, u_panel, 3)
     b = acc.shape[0]
     if b == 0 or m == 0 or n == 0 or k == 0:
         return acc
-    out = _dense_panel_launch(acc, l_panel, u_panel, b, m, n, k, True)
-    _count(panel_update_batched)
-    return out
+    return _dense_panel_launch(panel_update_batched, acc, l_panel, u_panel,
+                               b, m, n, k, True)
 
 
 PANEL_MAX_SYSTEMS = 65535      # the mapped update's system axis (gridDim.y)
@@ -325,11 +378,11 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
     are int32 within a system, so only ``flat_stride`` must stay below
     2^31, not the batch."""
     fs, us = _system_strides(flat, u, systems, flat_stride, u_stride)
-    if _on_cpu(flat, u, lmap, tiles):
-        plain.panel_update_mapped_plain(flat, u, lmap, tiles,
-                                        u_shift=u_shift, f32=f32,
-                                        systems=systems, flat_stride=fs,
-                                        u_stride=us)
+    if _route(flat, u, lmap, tiles) == "cpu":
+        _plain(panel_update_mapped, (None, None),
+               plain.panel_update_mapped_plain, flat, u, lmap, tiles,
+               u_shift=u_shift, f32=f32, systems=systems, flat_stride=fs,
+               u_stride=us)
         return
     for name, t, dtype, ndim in (("flat", flat, torch.float64, 1),
                                  ("u", u, torch.float64, 1),
@@ -344,6 +397,9 @@ def panel_update_mapped(flat: torch.Tensor, u: torch.Tensor,
         return
     if n_tiles > 2 ** 31 - 1:
         raise ValueError(f"{n_tiles} tiles are more than a grid holds")
+    # the slices' shapes are data (the tile records): no work on meta
+    if _stand_in(panel_update_mapped, flat, lambda: (None, None)):
+        return
     _launch("panel_update_mapped", flat.data_ptr(), u.data_ptr(),
             lmap.data_ptr(), tiles.data_ptr(), n_tiles, int(u_shift),
             int(f32), int(systems), fs, us, _stream(flat))
@@ -450,12 +506,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at S = 1), and ``out`` is bitwise the same as without it."""
     kv_len, live, window = _attention_shapes(q, k, v, causal, kv_len,
                                              live_heads, window)
-    if _on_cpu(q, k, v):
-        return plain.flash_attention_plain(q, k, v, causal=causal,
-                                           scale=scale, kv_len=kv_len,
-                                           live_heads=live,
-                                           window=window or None,
-                                           return_lse=return_lse)
+    if _route(q, k, v) == "cpu":
+        b, h, s, d = q.shape
+        return _plain(flash_attention, work.attn_work(
+            b, h, s, kv_len, d, live, k.shape[1], window or None, causal),
+            plain.flash_attention_plain, q, k, v, causal=causal, scale=scale,
+            kv_len=kv_len, live_heads=live, window=window or None,
+            return_lse=return_lse)
     _card_attention(q, k, v, live, "flash_attention")
     b, h, s, d = q.shape
     hkv = k.shape[1]
@@ -472,6 +529,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         chunks = -(-read // FLASH_DECODE_CHUNK)
         part = torch.empty((b, live, chunks, d + 2), dtype=torch.float32,
                            device=q.device)
+    if _stand_in(flash_attention, q, lambda: work.attn_work(
+            b, h, s, kv_len, d, live, hkv, window or None, causal)):
+        return (out, lse) if return_lse else out
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), 0 if part is None else part.data_ptr(),
             0 if lse is None else lse.data_ptr(), b, h, hkv, s, kv_len, live,
@@ -514,8 +574,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 {(b, h, s)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    if _on_cpu(q, k, v, o, do, lse):
-        return plain.flash_attention_backward_plain(
+    if _route(q, k, v, o, do, lse) == "cpu":
+        return _plain(flash_attention_backward, work.k5_bwd_work(
+            b, h, live, hkv, s, t_len, d, causal=causal,
+            window=window or None), plain.flash_attention_backward_plain,
             q, k, v, o, do, lse, causal=causal, scale=scale, live_heads=live,
             window=window or None)
     _card_attention(q, k, v, live, "flash_attention_backward")
@@ -535,9 +597,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, live, s), dtype=torch.float32, device=q.device)
     bf16 = int(q.dtype == torch.bfloat16)
-    chunks = _build.launcher("flash_attention_bwd_chunks")
-    q_chunks, kv_chunks = (chunks(b, hkv, live, s, t_len, d, bf16, kv)
-                           for kv in (0, 1))
+    if q.is_meta:      # the split walks follow the card's occupancy: none
+        q_chunks = kv_chunks = 1
+    else:
+        chunks = _build.launcher("flash_attention_bwd_chunks")
+        q_chunks, kv_chunks = (chunks(b, hkv, live, s, t_len, d, bf16, kv)
+                               for kv in (0, 1))
     if min(q_chunks, kv_chunks) < 1:
         raise RuntimeError(f"flash_attention_bwd_chunks failed: cudaError_t "
                            f"{-min(q_chunks, kv_chunks)}")
@@ -546,6 +611,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
               else None)
     part_kv = (torch.empty((2, kv_chunks, b, hkv, t_len, d), **f32)
                if kv_chunks > 1 else None)
+    if _stand_in(flash_attention_backward, q, lambda: work.k5_bwd_work(
+            b, h, live, hkv, s, t_len, d, causal=causal,
+            window=window or None)):
+        return dq, dk, dv
     _launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(0 if x is None else x.data_ptr() for x in (part_q, part_kv)),
@@ -646,13 +715,15 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors: ``state`` is not written.  K is one of ``RWKV6_HEAD_SIZES``
     on the card."""
     b, l, h, kk = _rwkv6_shapes("rwkv6_scan", r, k, v, w, u, state)
-    if _on_cpu(r, k, v, w, u, state):
-        return plain.rwkv6_scan_plain(r, k, v, w, u, state)
+    if _route(r, k, v, w, u, state) == "cpu":
+        return _plain(rwkv6_scan, work.rwkv6_work(b, l, h, kk),
+                      plain.rwkv6_scan_plain, r, k, v, w, u, state)
     _card_scan("rwkv6_scan", RWKV6_HEAD_SIZES, kk, r=r, k=k, v=v, w=w, u=u,
                state=state)
     o = torch.empty_like(r)
     s_out = torch.empty_like(state)
-    if b * h == 0:
+    if b * h == 0 or _stand_in(rwkv6_scan, r,
+                               lambda: work.rwkv6_work(b, l, h, kk)):
         return o, s_out
     _launch("rwkv6_scan", r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w.data_ptr(), u.data_ptr(), state.data_ptr(), o.data_ptr(),
@@ -695,13 +766,15 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
     card."""
     b, l, di, n = _mamba_shapes("mamba_scan", x, dt, b_t, c_t, a, d_skip,
                                 h0)
-    if _on_cpu(x, dt, b_t, c_t, a, d_skip, h0):
-        return plain.mamba_scan_plain(x, dt, b_t, c_t, a, d_skip, h0)
+    if _route(x, dt, b_t, c_t, a, d_skip, h0) == "cpu":
+        return _plain(mamba_scan, work.mamba_work(b, l, di, n),
+                      plain.mamba_scan_plain, x, dt, b_t, c_t, a, d_skip, h0)
     _card_scan("mamba_scan", MAMBA_STATE_SIZES, n, x=x, dt=dt, b_t=b_t,
                c_t=c_t, a=a, d_skip=d_skip, h0=h0)
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    if b * di == 0:
+    if b * di == 0 or _stand_in(mamba_scan, x,
+                                lambda: work.mamba_work(b, l, di, n)):
         return y, h_out
     _launch("mamba_scan", x.data_ptr(), dt.data_ptr(), b_t.data_ptr(),
             c_t.data_ptr(), a.data_ptr(), d_skip.data_ptr(), h0.data_ptr(),
@@ -730,19 +803,28 @@ def rwkv6_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, l, h, kk = _rwkv6_shapes("rwkv6_scan_backward", r, k, v, w, u, state)
     _upstream("do", do, r)
     _upstream("ds_final", ds_final, state)
-    if _on_cpu(r, k, v, w, u, state, do, ds_final):
-        return plain.rwkv6_scan_backward_plain(r, k, v, w, u, state, do,
-                                               ds_final)
+
+    def counts():
+        nbytes, tc_ops, alu_ops = work.rwkv6_bwd_work(b, l, h, kk)
+        return nbytes, tc_ops // 3 + alu_ops    # 3xTF32 products once
+
+    if _route(r, k, v, w, u, state, do, ds_final) == "cpu":
+        return _plain(rwkv6_scan_backward, counts(),
+                      plain.rwkv6_scan_backward_plain, r, k, v, w, u, state,
+                      do, ds_final)
     _card_scan("rwkv6_scan_backward", RWKV6_HEAD_SIZES, kk, r=r, k=k, v=v,
                w=w, u=u, state=state, do=do, ds_final=ds_final)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, dstate = torch.zeros_like(u), torch.empty_like(state)
     if b * h == 0:
         return dr, dk, dv, dw, du, dstate
-    saved = _build.launcher("rwkv6_scan_bwd_saved")(l)
+    saved = (-(-l // work.K7_BWD_CHUNK) if r.is_meta
+             else _build.launcher("rwkv6_scan_bwd_saved")(l))
     f32 = {"dtype": torch.float32, "device": r.device}
     chk = torch.empty(b * h * saved * kk * kk, **f32)
     du_part = torch.empty((b, h, kk), **f32)
+    if _stand_in(rwkv6_scan_backward, r, counts):
+        return dr, dk, dv, dw, du, dstate
     _launch("rwkv6_scan_bwd", *(t.data_ptr() for t in (
         r, k, v, w, u, state, do, ds_final, dr, dk, dv, dw, du, dstate, chk,
         du_part)), b, l, h, kk, _stream(r))
@@ -767,9 +849,10 @@ def mamba_scan_backward(x: torch.Tensor, dt: torch.Tensor,
                                 d_skip, h0)
     _upstream("dy", dy, x)
     _upstream("dh_final", dh_final, h0)
-    if _on_cpu(x, dt, b_t, c_t, a, d_skip, h0, dy, dh_final):
-        return plain.mamba_scan_backward_plain(x, dt, b_t, c_t, a, d_skip,
-                                               h0, dy, dh_final)
+    if _route(x, dt, b_t, c_t, a, d_skip, h0, dy, dh_final) == "cpu":
+        return _plain(mamba_scan_backward, work.mamba_bwd_work(b, l, di, n),
+                      plain.mamba_scan_backward_plain, x, dt, b_t, c_t, a,
+                      d_skip, h0, dy, dh_final)
     _card_scan("mamba_scan_backward", MAMBA_STATE_SIZES, n, x=x, dt=dt,
                b_t=b_t, c_t=c_t, a=a, d_skip=d_skip, h0=h0, dy=dy,
                dh_final=dh_final)
@@ -779,14 +862,20 @@ def mamba_scan_backward(x: torch.Tensor, dt: torch.Tensor,
                    torch.empty_like(h0))
     if b * di == 0:
         return dx, ddt, db, dc, da, dd, dh0
-    layout = _build.launcher("mamba_scan_bwd_layout")
-    tile, width = layout(0), layout(1)
+    if x.is_meta:
+        tile, width = work.MAMBA_BWD_TILE, work.MAMBA_BWD_WIDTH
+    else:
+        layout = _build.launcher("mamba_scan_bwd_layout")
+        tile, width = layout(0), layout(1)
     blocks = -(-di // width)
     f32 = {"dtype": torch.float32, "device": x.device}
     chk = torch.empty(b * blocks * width * n * (-(-l // tile)), **f32)
     part_bc = torch.empty(blocks * b * l * 2 * n, **f32)
     part_a = torch.empty((b, di, n), **f32)
     part_d = torch.empty((b, di), **f32)
+    if _stand_in(mamba_scan_backward, x,
+                 lambda: work.mamba_bwd_work(b, l, di, n)):
+        return dx, ddt, db, dc, da, dd, dh0
     _launch("mamba_scan_bwd", *(t.data_ptr() for t in (
         x, dt, b_t, c_t, a, d_skip, h0, dy, dh_final, dx, ddt, db, dc, da,
         dd, dh0, chk, part_bc, part_a, part_d)), b, l, di, n, _stream(x))

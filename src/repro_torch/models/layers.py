@@ -15,13 +15,32 @@ import torch
 import torch.nn.functional as F
 
 
+class MetaGenerator:
+    """Takes a ``torch.Generator``'s place in the ``init_*`` functions when
+    the target is ``meta`` (shapes without memory: a dry run), where no
+    generator can be made: ``device`` is meta, and ``_normal`` draws
+    through a CPU generator, which a draw on meta leaves as it was."""
+
+    def __init__(self, seed: int = 0):
+        self.device = torch.device("meta")
+        self.cpu = torch.Generator().manual_seed(seed)
+
+
+def generator(device: torch.device, seed: int):
+    """A generator seeded with ``seed`` on ``device`` (a ``MetaGenerator``
+    for ``meta``)."""
+    if device.type == "meta":
+        return MetaGenerator(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _normal(gen: torch.Generator, shape, scale: float,
             dtype=torch.float32) -> torch.Tensor:
     """float32 N(0, scale^2) on the generator's device, cast to ``dtype``.
     Scaled in place: an expert stack of deepseek-v3 is 15 GB in float32,
     and a second buffer of its size would be drawn beside it."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    x = torch.randn(shape, generator=getattr(gen, "cpu", gen),
+                    dtype=torch.float32, device=gen.device)
     return x.mul_(scale).to(dtype)
 
 

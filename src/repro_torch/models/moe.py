@@ -150,8 +150,12 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig
         y = y + mlp(params["shared"], x.reshape(b * s, d)).view(b, s, d)
 
     probs = torch.softmax(logits, dim=-1)
-    frac_tokens = F.one_hot(r.expert, m.n_experts).sum(2).float().mean(
-        dim=(0, 1)) / m.top_k
+    # the reference's one_hot(expert).sum(-2): the k experts of a token are
+    # distinct, so a scatter of ones gives the same 0/1 table (and no host
+    # read of the ids, which one_hot makes on the CPU)
+    chosen = torch.zeros((b, s, m.n_experts), dtype=torch.float32,
+                         device=x.device).scatter_(-1, r.expert, 1.0)
+    frac_tokens = chosen.mean(dim=(0, 1)) / m.top_k
     frac_probs = probs.mean(dim=(0, 1))
     metrics = {
         "moe_aux_loss": m.n_experts * torch.sum(frac_tokens * frac_probs),

@@ -109,10 +109,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=torch.float32,
     (``None``: the card) from a ``torch.Generator`` there seeded with
     ``seed``.  The card's generator gives other numbers than the CPU's:
     to run the same parameters on both, draw once and copy with
-    ``to_device``."""
+    ``to_device``.  On ``"meta"`` the tensors have shapes only (a dry
+    run, ``launch/dryrun.py``)."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = resolve_device(device, meta=True)
+    gen = L.generator(dev, seed)
     params: Dict = {
         "embed": L.init_embedding(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
@@ -194,7 +195,7 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     an rwkv6 or mamba layer; an attention layer of an encoder-decoder model
     also gets a cross cache of the encoder's ``enc_len`` positions."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     return [{f"l{i}": _layer_cache(cfg, mixer, batch, cache_len, dtype, dev)
              for i, (mixer, _) in enumerate(cfg.pattern)}
             for _ in range(cfg.n_groups)]

@@ -1556,3 +1556,65 @@ def test_ssm_train_step_on_card_matches_cpu(cuda, name):
             float(m_host[key]))
     for a, b in zip(tf._leaves(card), tf._leaves(host)):
         assert float((a.cpu() - b).abs().max()) <= 2 * acfg.lr
+
+
+@pytest.mark.cuda
+def test_meta_scratch_sizes_are_the_kernel_librarys(cuda):
+    """The ``meta`` branch sizes K7's and K6's backward scratch from
+    ``kernels/work.py``'s constants; the built libraries say the same."""
+    from repro_torch.kernels import _build, work
+
+    saved = _build.launcher("rwkv6_scan_bwd_saved")
+    for length in (1, 15, 16, 17, 512, 4097):
+        assert saved(length) == -(-length // work.K7_BWD_CHUNK)
+    layout = _build.launcher("mamba_scan_bwd_layout")
+    assert (layout(0), layout(1)) == (work.MAMBA_BWD_TILE,
+                                      work.MAMBA_BWD_WIDTH)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,reduced", [("smollm-135m", True),
+                                         ("smollm-135m", False),
+                                         ("whisper-tiny", True),
+                                         ("whisper-tiny", False),
+                                         ("rwkv6-7b", True),
+                                         ("jamba-1.5-large-398b", True)])
+def test_dry_run_plans_a_train_step_on_card(cuda, name, reduced):
+    """``launch/dryrun.py::run_cell`` of a train step (2 x 128 tokens;
+    every model reduced, smollm and whisper also at full width) against
+    the step on the card: the same launches, and what the planned peak
+    adds to the held state within 20 % of what ``max_memory_allocated``
+    adds to the memory held before a step (after a first step, which
+    makes the libraries' workspaces).  A reduced step's transient is a
+    megabyte or two: an op the plan ran through its decomposition where
+    the card runs its own kernel (``silu_backward``) once made reduced
+    smollm-135m's plan 2.12 MB against 1.75 MB on an H100 80GB HBM3."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(name)
+    cfg = cfg.reduced() if reduced else cfg
+    shape = ShapeConfig("s", 128, 2, "train")
+    plan = dryrun.run_cell(cfg, shape, capacity_bytes=1e12, micro_steps=1,
+                           with_costs=False)
+    params = tf.init_params(cfg, device=cuda)
+    opt = init_adamw(params)
+    batch = device_batch(make_batch_for(cfg, shape), torch.float32, cuda)
+    step = make_train_step(cfg, micro_steps=1)
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - held
+    assert {k: n for k, n in ops.launch_counts().items() if n} == \
+        plan["launches"]
+    planned = plan["memory"]["peak_bytes"] - plan["memory"]["held_bytes"]
+    assert abs(planned / grew - 1) <= 0.2, (planned, grew)

@@ -11,7 +11,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, plain
+from repro_torch.kernels import ops, plain, work
 from test_torch_cuda import (
     I32MAX, MAPPED_SHAPES, _fp_inputs, _mapped_inputs, _mapped_operands,
     _pu_inputs, _pu_tol, _relax_adjacency, _relax_inputs,
@@ -180,20 +180,33 @@ def test_mapped_tiles_cover_each_output_once(m, n, k):
 
 
 def test_dispatch_rules_on_the_cpu():
-    """CPU tensors take the plain version and count no launch; other devices
-    raise instead of falling back."""
+    """CPU tensors take the plain version and count no launch; ``meta``
+    tensors (a shape-only trace) compute nothing, launch nothing and count
+    no launch, and record one launch in the dry run's work tally; inputs
+    on mixed devices raise instead of falling back."""
     ops.reset_launches()
     prop, adj = _relax_inputs(4, 32, 32, seed=2)
     ops.minmax_relax(torch.as_tensor(prop), torch.as_tensor(adj))
     assert set(ops.launch_counts().values()) == {0}
-    with pytest.raises(ValueError, match="cuda"):
+    work.reset()
+    out = ops.minmax_relax(torch.as_tensor(prop, device="meta"),
+                           torch.as_tensor(adj, device="meta"))
+    assert out.is_meta and tuple(out.shape) == (4, 32)
+    assert set(ops.launch_counts().values()) == {0}
+    assert work.totals()["minmax_relax"]["launches"] == 1
+    with pytest.raises(ValueError, match="one device"):
         ops.minmax_relax(torch.as_tensor(prop, device="meta"),
-                         torch.as_tensor(adj, device="meta"))
+                         torch.as_tensor(adj))
     flat, u, lmap, tiles = (torch.as_tensor(x) for x in _mapped_inputs(
         [(4, 2, 3)], seed=1))
-    with pytest.raises(ValueError, match="cuda"):
-        ops.panel_update_mapped(flat.to("meta"), u.to("meta"),
-                                lmap.to("meta"), tiles.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        ops.panel_update_mapped(flat.to("meta"), u, lmap.to("meta"),
+                                tiles.to("meta"))
+    ops.panel_update_mapped(flat.to("meta"), u.to("meta"), lmap.to("meta"),
+                            tiles.to("meta"))
+    assert set(ops.launch_counts().values()) == {0}
+    assert work.totals()["panel_update_mapped"] == {
+        "launches": 1, "bytes": None, "flops": None}
 
 
 def test_launch_signatures_match_the_sources():

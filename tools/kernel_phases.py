@@ -113,7 +113,7 @@ def instrument(kern):
 
 
 def run_k7(torch, cs, fn):
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, work
 
     b, l, h, k = cs.K7_SHAPES["prefill"]
     args = cs.scan_bwd_inputs(torch, "rwkv6", (b, l, h, k), zero_state=True,
@@ -130,7 +130,7 @@ def run_k7(torch, cs, fn):
         torch.cuda.synchronize()
         if err:
             raise SystemExit(f"k7bwd: launch error {err}")
-    return du_part.reshape(b * h, k), -(-l // cs.K7_BWD_CHUNK)
+    return du_part.reshape(b * h, k), -(-l // work.K7_BWD_CHUNK)
 
 
 def run_k6(torch, cs, fn):
