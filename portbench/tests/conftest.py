@@ -1,0 +1,10 @@
+"""The harness's CPU tests: ``python -m pytest -q portbench/tests`` from the
+root of the repository.  They run the port on the CPU (``device="cpu"``) at
+small sizes; nothing here needs a card."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
