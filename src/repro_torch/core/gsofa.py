@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import plain as kplain
+from repro_torch.obs import trace as _ot
 from repro_torch.sparse.csr import (
     CSRMatrix, csr_to_ell, dense_block_adjacency, transpose_csr,
 )
@@ -67,6 +68,14 @@ class SymbolicGraph:
 def prepare_graph(a: CSRMatrix, *, dense_block: Optional[int] = None,
                   device=None) -> SymbolicGraph:
     """The fixpoint's graph tables on ``device`` (default: the card)."""
+    if not _ot.ENABLED:
+        return _prepare_graph(a, dense_block, device)
+    with _ot.span("prepare_graph"):
+        return _prepare_graph(a, dense_block, device)
+
+
+def _prepare_graph(a: CSRMatrix, dense_block: Optional[int],
+                   device) -> SymbolicGraph:
     device = kops.resolve_device(device)
     at = transpose_csr(a)
     in_ell, _ = csr_to_ell(at, pad_value=a.n, drop_diagonal=True)
@@ -75,8 +84,9 @@ def prepare_graph(a: CSRMatrix, *, dense_block: Optional[int] = None,
                    dtype=np.int32)
     adj = None
     if dense_block is not None:
-        adj = torch.as_tensor(dense_block_adjacency(a, dense_block),
-                              device=device)
+        with _ot.span("dense_adjacency"):
+            adj = torch.as_tensor(dense_block_adjacency(a, dense_block),
+                                  device=device)
     return SymbolicGraph(
         n=a.n,
         in_ell=torch.as_tensor(in_ell, device=device),
@@ -219,7 +229,12 @@ def gsofa_batch(graph: SymbolicGraph, srcs, *, backend: str = "ell",
         labels = torch.minimum(labels, relax(cur_prop, graph))
         prev_prop = cur_prop
         it += 1
-        any_frontier = bool(row_active.any())
+        # the host's one read a superstep: it waits here for the card
+        if _ot.ENABLED:
+            with _ot.span("fixpoint_wait"):
+                any_frontier = bool(row_active.any())
+        else:
+            any_frontier = bool(row_active.any())
     # the final superstep only *verifies* the fixpoint; don't count it as work
     return FixpointResult(labels=labels, iters=max(it - 1, 0),
                           conv_iter=(conv - 1).clamp(min=0),

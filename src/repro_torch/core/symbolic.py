@@ -155,6 +155,12 @@ class PatternCollector:
 
     def to_csc(self):
         """CSR row lists -> ``storage.CSCPattern`` (sorted rows per column)."""
+        if not _ot.ENABLED:
+            return self._to_csc()
+        with _ot.span("pattern_to_csc"):
+            return self._to_csc()
+
+    def _to_csc(self):
         from repro_torch.numeric.storage import CSCPattern
 
         if not self.complete:

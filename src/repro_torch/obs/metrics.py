@@ -1,4 +1,4 @@
-"""Counters / gauges / histograms registry + roofline math (DESIGN.md §12).
+"""Counters / gauges / histograms registry (DESIGN.md §12).
 
 The registry is deliberately simple: a process-global named-metric store the
 pipeline writes *only when tracing is enabled* (call sites gate on
@@ -16,8 +16,6 @@ supernodes.count                gauge     number of detected panels
 supernodes.size                 hist      panel widths (columns per supernode)
 placement.imbalance_modeled     hist      per-level max/mean modeled bin weight
 factor.level_imbalance_measured hist      per-level max/mean measured segment s
-fingerprint.bytes               counter   bytes moved by fingerprint updates
-fingerprint.seconds             counter   wall seconds inside those updates
 gemm.flops                      counter   flops of the accumulated panel GEMMs
 gemm.bytes                      counter   analytic bytes gathered + scattered
 gemm.seconds                    counter   wall seconds of the panel sweep
@@ -33,20 +31,13 @@ tune.candidates                 counter   partitions scored by the autotune swee
 tune.modeled_s                  gauge     modeled sweep seconds of the chosen
 tune.baseline_s                 gauge     modeled seconds of the untuned knobs
 ==============================  ========  =====================================
-
-Roofline: ``fraction_of_peak`` / ``roofline_report`` are pure functions of
-(bytes, seconds, flops, machine peaks); the machine peaks themselves are
-probed and cached by ``benchmarks/roofline.py`` (the bench layer owns
-timing hardware, ``repro`` never imports from ``benchmarks``).  Achieved
-bandwidth over peak bandwidth is the repo's analogue of GSoFa's reported
-47%-of-V100-peak memory throughput.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 
 @dataclasses.dataclass
@@ -159,57 +150,6 @@ def registry() -> MetricsRegistry:
     return _REGISTRY
 
 
-# ---- roofline math -------------------------------------------------------
-#
-# ``peaks`` is the dict benchmarks/roofline.machine_peaks() produces:
-#   {"mem_bw_gbs": float, "flops_gflops": float, ...}
-
-def achieved_bandwidth_gbs(nbytes: float, seconds: float) -> float:
-    """Achieved memory bandwidth in GB/s (0 when no time was measured)."""
-    return (nbytes / seconds) / 1e9 if seconds > 0 else 0.0
-
-
-def achieved_gflops(flops: float, seconds: float) -> float:
-    return (flops / seconds) / 1e9 if seconds > 0 else 0.0
-
-
-def fraction_of_peak(nbytes: float, seconds: float,
-                     peaks: dict, *, flops: float = 0.0) -> dict:
-    """Achieved throughput as a fraction of the probed machine roofline.
-
-    Returns both the bandwidth fraction and (when ``flops`` given) the
-    compute fraction; which one binds is the roofline verdict — GSoFa's
-    fingerprint-style kernels are bandwidth-bound, so ``bw_fraction`` is
-    the analogue of the paper's 47%-of-peak figure.
-    """
-    bw = achieved_bandwidth_gbs(nbytes, seconds)
-    out = {
-        "achieved_gbs": bw,
-        "peak_gbs": float(peaks.get("mem_bw_gbs", 0.0)),
-        "bw_fraction": bw / peaks["mem_bw_gbs"]
-        if peaks.get("mem_bw_gbs") else 0.0,
-    }
-    if flops:
-        gf = achieved_gflops(flops, seconds)
-        out["achieved_gflops"] = gf
-        out["peak_gflops"] = float(peaks.get("flops_gflops", 0.0))
-        out["flop_fraction"] = (gf / peaks["flops_gflops"]
-                                if peaks.get("flops_gflops") else 0.0)
-        # arithmetic intensity decides which roof applies
-        out["intensity_flops_per_byte"] = flops / nbytes if nbytes else 0.0
-    return out
-
-
-def roofline_report(name: str, *, nbytes: float, seconds: float,
-                    peaks: dict, flops: float = 0.0) -> dict:
-    """``fraction_of_peak`` wrapped with identification fields — the shape
-    bench scripts embed under ``results[...]["roofline"]``."""
-    rep = {"kernel": name, "bytes": float(nbytes), "seconds": float(seconds),
-           "flops": float(flops)}
-    rep.update(fraction_of_peak(nbytes, seconds, peaks, flops=flops))
-    return rep
-
-
 # ---- progress reporting (satellite: on_progress / ETA) -------------------
 
 class ProgressMeter:
@@ -238,22 +178,3 @@ class ProgressMeter:
             if dd > 0 and dt > 0:
                 eta = (total - done) * dt / dd
         self._cb(done, total, eta)
-
-
-def stderr_progress(label: str, *, min_interval_s: float = 1.0):
-    """An ``on_progress`` callback printing rate-limited lines to stderr —
-    what ``benchmarks/run.py --trace`` installs for long analyzes."""
-    import sys
-    import time as _time
-
-    state = {"last": 0.0}
-
-    def cb(done: int, total: int, eta_s: Optional[float]) -> None:
-        now = _time.perf_counter()
-        if done < total and now - state["last"] < min_interval_s:
-            return
-        state["last"] = now
-        eta = f", eta {eta_s:.0f}s" if eta_s is not None else ""
-        print(f"[{label}] {done}/{total} chunks{eta}", file=sys.stderr,
-              flush=True)
-    return cb

@@ -24,8 +24,6 @@ Exports:
   spans aggregated by (depth, name) path with call counts and total
   seconds, rendered as an indented text tree — this is what
   ``LUPlan.stats`` / ``LUFactorization.stats`` carry.
-* Flat phase totals (``Tracer.phase_totals``) for the bench ``metrics``
-  blocks.
 """
 from __future__ import annotations
 
@@ -161,8 +159,8 @@ class Tracer:
             json.dump(self.export_chrome(), f)
 
     def mark(self) -> int:
-        """Current event count — pass to ``summary``/``phase_totals`` to
-        aggregate only spans recorded after this point."""
+        """Current event count — pass to ``summary`` to aggregate only
+        spans recorded after this point."""
         with self._lock:
             return len(self.events)
 
@@ -195,19 +193,6 @@ class Tracer:
                 stack.append((ev.start + ev.dur, node))
         root.total_s = sum(c.total_s for c in root.children)
         return root
-
-    def phase_totals(self, start: int = 0) -> Dict[str, dict]:
-        """Flat {name: {count, total_s}} roll-up (all depths merged)."""
-        with self._lock:
-            events = list(self.events[start:])
-        out: Dict[str, dict] = {}
-        for ev in events:
-            d = out.setdefault(ev.name, {"count": 0, "total_s": 0.0})
-            d["count"] += 1
-            d["total_s"] += ev.dur
-        for d in out.values():
-            d["total_s"] = float(d["total_s"])
-        return out
 
 
 @dataclasses.dataclass

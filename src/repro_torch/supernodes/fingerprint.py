@@ -22,13 +22,11 @@ they pickle with a plan.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.obs import metrics as _om
 from repro_torch.obs import trace as _ot
 
 _GOLDEN = np.uint64(2654435761)          # Knuth multiplicative hash
@@ -83,16 +81,8 @@ class ColumnFingerprints:
         """
         if not _ot.ENABLED:
             return self._update(labels, srcs, offset)
-        t0 = time.perf_counter()
         with _ot.span("fingerprint_update"):
-            consumed = self._update(labels, srcs, offset)
-        # analytic traffic of the column reduction: the (consumed, W) int32
-        # label block read once + the three W-wide int32 partials written
-        reg = _om.registry()
-        reg.count("fingerprint.seconds", time.perf_counter() - t0)
-        reg.count("fingerprint.bytes",
-                  4 * consumed * labels.shape[1] + 12 * labels.shape[1])
-        return consumed
+            return self._update(labels, srcs, offset)
 
     def _update(self, labels: torch.Tensor, srcs: np.ndarray,
                 offset: int = 0) -> int:
