@@ -7,8 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``env``      — card, torch/CUDA versions, and the build of every kernel
                   from ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a).
-2. ``kernels``  — K1..K7 against their plain versions on the card at the
-                  main paths' shapes (K1/K2 bitwise, K3 within tolerance, K4
+2. ``kernels``  — K1..K8 against their plain versions on the card at the
+                  main paths' shapes (K1/K2 bitwise; K8 bitwise at every
+                  superstep of 512 sources' fixpoint over the bbd-20k
+                  in-neighbour table; K3 within tolerance, K4
                   bitwise against K3 per slice, in float32 and float64; the
                   mapped K3/K4 in place on ragged slices with absent rows
                   within tolerance of its plain version and bitwise dense
@@ -274,13 +276,15 @@ The launch counters are reset just before each of phases 3, 4, 7, 9, 11,
 ``robust`` and ``blocking`` path, each ``serve_lu`` flush and each
 ``distributed`` path (in each rank's own process for the sharded
 analyze), and read
-just after it, so each path reports its own launches (phase 3: K2 and the
-float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped K3/K4;
-``bubble``: K2, and K1 on the kernel backend; ``batched``: the float64
-mapped K3/K4 over 2 systems; ``robust``: K2 and the float64 mapped K3/K4;
-``blocking``: the mapped K3/K4 (no fixpoint runs); ``serve_lu``: K2 on
-each miss and the mapped K3/K4 over 4 systems; ``distributed``: K2 (and
-K1 on the kernel options) on each rank and each dynamic run, the mapped
+just after it, so each path reports its own launches (phase 3: K8, K2
+and the float64 mapped K3/K4; phase 4: K1, K2 and the float32 mapped
+K3/K4, no K8; ``bubble``: K2 and K8, and K1 on the kernel backend;
+``batched``: the float64 mapped K3/K4 over 2 systems; ``robust``: K8, K2
+and the float64 mapped K3/K4; ``blocking``: the mapped K3/K4 (no
+fixpoint runs); ``serve_lu``: K8 and K2 on each miss and the mapped
+K3/K4 over 4 systems; ``distributed``: K2 (and K8 on the default
+options, K1 on the kernel options) on each rank and each dynamic run,
+the mapped
 K3/K4 on each placed sweep; phase 7: K5; phase 9: K7;
 phase 11: K6 and K5; phases 13, 15 and 17: K5; phase 19: none;
 phases 21 and 22: K5 and its backward; phase 23: K7 and its backward;
@@ -289,7 +293,7 @@ dense K3/K4
 entry points are off the paths since the sweep runs the mapped form),
 split by stage in ``launches_by_stage``
 for the LU paths; the ``kernels`` line takes each row's launches from the
-path that runs it, K1's, K2's and the mapped K3/K4's rows add
+path that runs it, K1's, K8's, K2's and the mapped K3/K4's rows add
 ``launches_on_new_paths``, and two rows time the mapped K3/K4 at the
 blocked plans' widest level.  The comparison and timing launches of phase 2, the
 breakdown and reference phases, the card-vs-CPU checks and the per-kernel
@@ -391,6 +395,8 @@ DEEPSEEK_EXPERT_STRIDE, DEEPSEEK_GAP_TOL = 16, 1e-5
 SOURCES = {
     "minmax_relax": ("src/repro_torch/kernels/csrc/minmax_relax.cu",
                      "src/repro/kernels/gsofa_relax.py:60"),
+    "ell_superstep": ("src/repro_torch/kernels/csrc/ell_superstep.cu",
+                      "none"),
     "column_fingerprints": (
         "src/repro_torch/kernels/csrc/column_fingerprints.cu",
         "src/repro/kernels/supernode_fp.py:87"),
@@ -515,11 +521,45 @@ def host_residual(a, values, x, b) -> float:
                         / np.linalg.norm(b, axis=0)))
 
 
-def kernel_checks(torch, ops, plain, adj_real):
+def ell_superstep_check(torch, ops, plain, graph, srcs) -> int:
+    """K8 against its plain version on the card from fresh labels of
+    ``srcs`` over ``graph``'s in-neighbour table: next labels, edges, conv
+    and flag bitwise at every superstep, the first and each later one,
+    until the plain version finds no frontier.  Returns the supersteps."""
+    from repro_torch.core.gsofa import init_labels
+
+    s, dev = srcs.shape[0], srcs.device
+    labels = init_labels(graph, srcs)
+    kern = [labels.clone(), torch.full_like(labels, -7)]
+    ref = [labels, torch.full_like(labels, 5)]
+    counts = {side: [torch.zeros(k, dtype=torch.int32, device=dev)
+                     for k in (s, s, 1)] for side in ("kernel", "plain")}
+    it = 0
+    while it < graph.n + 2:
+        ops.ell_superstep(*kern, graph.in_ell, graph.out_deg, srcs,
+                          *counts["kernel"], offset=0, it=it)
+        plain.ell_superstep_plain(*ref, graph.in_ell, graph.out_deg, srcs,
+                                  *counts["plain"], offset=0, it=it)
+        check(torch.equal(kern[1], ref[1]),
+              f"K8 labels differ from plain at superstep {it}")
+        check(all(torch.equal(got, want) for got, want in zip(
+            counts["kernel"], counts["plain"])),
+            f"K8 edges, conv or flag differ from plain at superstep {it}")
+        kern.reverse()
+        ref.reverse()
+        it += 1
+        if int(counts["plain"][2]) != it:
+            break
+    check(it > 2, f"K8 check converged after {it} supersteps")
+    return it
+
+
+def kernel_checks(torch, ops, plain, graph):
     """Phase 2: every kernel against its plain version on the card."""
     import numpy as np
 
     dev = torch.device("cuda")
+    adj_real = graph.adj_dense
     rng = np.random.default_rng(0)
     inf = plain.INF
     out = {}
@@ -538,6 +578,13 @@ def kernel_checks(torch, ops, plain, adj_real):
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K1 ({tag}) differs from plain")
         out[f"K1_{tag}_bitwise"] = True
+
+    # K8 at the default path's shape: S = 512 sources spread over the
+    # bbd-20k in-neighbour table, every superstep of their fixpoint
+    srcs = torch.as_tensor(np.sort(rng.choice(
+        graph.n, CONCURRENCY, replace=False)).astype(np.int32), device=dev)
+    out["K8_supersteps_bitwise"] = ell_superstep_check(torch, ops, plain,
+                                                       graph, srcs)
 
     # K2 at S=512, V=20000, hashes spanning the whole int32 range
     s, v = 512, N_LARGE
@@ -1256,8 +1303,9 @@ def bubble_phase(torch, repro_torch, ops, a, opts, plan):
     on the default backends and with ``backend="kernel"``, each with the
     launch counters reset just before and read just after; its structure
     must equal ``plan``'s bitwise; K1 must not run on the default
-    backends (every chunk relaxes by ELL) and must run with the kernel
-    backend (on the full-width chunk)."""
+    backends (every chunk relaxes by ELL, through K8) and must run with
+    the kernel backend (on the full-width chunk), where K8 runs the
+    narrowed chunks."""
     from repro_torch.core.multisource import plan_chunks
 
     chunks = plan_chunks(a.n, opts.concurrency, bubble=True)
@@ -1278,12 +1326,15 @@ def bubble_phase(torch, repro_torch, ops, a, opts, plan):
         check(structure_sha256(p) == want,
               f"bubble ({tag}): structure differs from the default plan's")
         k1, k2 = counts["minmax_relax"], counts["column_fingerprints"]
+        k8 = counts["ell_superstep"]
         check(k2 > 0, f"bubble ({tag}): K2 was not launched")
         check(k1 == 0 if tag == "default" else k1 > 0,
               f"bubble ({tag}): K1 launched {k1} times")
+        check(k8 > 0 if tag == "default" or out["narrow_chunks"] else k8 == 0,
+              f"bubble ({tag}): K8 launched {k8} times")
         out[tag] = {"analyze_s": t_an, "supersteps": p.sym.supersteps,
                     "reinits": p.sym.reinits,
-                    "launches": {"minmax_relax": k1,
+                    "launches": {"minmax_relax": k1, "ell_superstep": k8,
                                  "column_fingerprints": k2}}
     return out
 
@@ -1781,8 +1832,8 @@ def distributed_rank(rank, world, want):
         dist = plan.sym.dist
         out[tag] = {
             "analyze_s": t_an,
-            "launches": {k: counts[k] for k in ("minmax_relax",
-                                                "column_fingerprints")},
+            "launches": {k: counts[k] for k in (
+                "minmax_relax", "ell_superstep", "column_fingerprints")},
             "per_device_edge_checks": dist["per_device_edge_checks"].tolist(),
             "balance_ratio": dist["balance_ratio"],
             "supersteps": plan.sym.supersteps,
@@ -1866,6 +1917,10 @@ def distributed_phase(torch, repro_torch, ops, a, values, opts, plan,
                   f"distributed ({tag}): K1 launched "
                   f"{rec['launches']['minmax_relax']} times on rank "
                   f"{r['rank']}")
+            check((rec["launches"]["ell_superstep"] > 0) == (tag == "default"),
+                  f"distributed ({tag}): K8 launched "
+                  f"{rec['launches']['ell_superstep']} times on rank "
+                  f"{r['rank']}")
 
     dev = torch.device("cuda", 0)
     dyn = {"static_analyze_s": {"default": res["analyze_s"],
@@ -1879,6 +1934,8 @@ def distributed_phase(torch, repro_torch, ops, a, values, opts, plan,
                              "launches": ops.launch_counts()}
     check(structure_sha256(p) == want,
           "dynamic (1 slot): structure differs from the static plan's")
+    check(dyn["analyze_1_slot"]["launches"]["ell_superstep"] > 0,
+          "dynamic (1 slot): K8 was not launched")
     # the symbolic pass alone: the static loop against a DynamicScheduler
     # on 1 and 4 stream slots on cuda:0, in turns (default backend), the
     # static loop and 4 slots (kernel backend); each scheduler run's counts,
@@ -1925,13 +1982,17 @@ def distributed_phase(torch, repro_torch, ops, a, values, opts, plan,
                   and np.array_equal(pattern.rowind, p_static.pattern.rowind),
                   f"dynamic ({slots} slots, {tag}): counts, fingerprints or "
                   f"pattern differ from the static plan's")
+            check((counts["ell_superstep"] > 0) == (tag == "default"),
+                  f"dynamic ({slots} slots, {tag}): K8 launched "
+                  f"{counts['ell_superstep']} times")
             if slots == 4:
                 dyn[f"symbolic_4_slots_{tag}"] = {
                     "n_devices": slots, **{k: run[k] for k in (
                         "chunks", "completed", "steals", "reissues",
                         "retired")},
                     "launches": {k: counts[k] for k in (
-                        "minmax_relax", "column_fingerprints")}}
+                        "minmax_relax", "ell_superstep",
+                        "column_fingerprints")}}
         dyn[f"symbolic_s_{tag}"] = times
     out["dynamic"] = dyn
 
@@ -3164,8 +3225,9 @@ def main() -> int:
 
     a = sparse.bordered_block_diagonal(N_LARGE, block=BLOCK, border=BORDER,
                                        seed=SEED)
-    adj = prepare_graph(a, dense_block=128, device="cuda").adj_dense
-    checks = kernel_checks(torch, ops, plain, adj)
+    graph = prepare_graph(a, dense_block=128, device="cuda")
+    adj = graph.adj_dense
+    checks = kernel_checks(torch, ops, plain, graph)
     t0 = time.perf_counter()
     pool.join()
     emit({"phase": "kernels", "dryrun_wait_s": time.perf_counter() - t0,
@@ -3176,7 +3238,8 @@ def main() -> int:
     opts = repro_torch.LUOptions(concurrency=CONCURRENCY)
     plan, factor, res = run_path(torch, repro_torch, a, values, opts)
     counts_default = ops.launch_counts()
-    for name in ("column_fingerprints", "panel_update_mapped"):
+    for name in ("ell_superstep", "column_fingerprints",
+                 "panel_update_mapped"):
         check(counts_default[name] > 0,
               f"{name} was not launched on the default path")
     emit({"phase": "default", "n": a.n, "nnz": a.nnz,
@@ -3201,6 +3264,8 @@ def main() -> int:
     for name in PROFILED_PATH:
         check(launches[name] > 0,
               f"{name} was not launched on the kernel path")
+    check(launches["ell_superstep"] == 0,
+          f"K8 launched {launches['ell_superstep']} times on the kernel path")
     for name in PROFILED:
         check(name in seen, f"torch.profiler did not see {name}: {seen}")
     # segment batching within the port: one mapped launch per level vs one
@@ -3220,8 +3285,9 @@ def main() -> int:
           "segment_batch_bitwise_kernel": True,
           "segment_batch_bitwise_float64": seg_equal, **res_k})
 
+    bubble_res = bubble_phase(torch, repro_torch, ops, a, opts, plan)
     emit({"phase": "bubble", "default_analyze_s": res["analyze_s"],
-          **bubble_phase(torch, repro_torch, ops, a, opts, plan)})
+          **bubble_res})
     batched_res, counts_batched = batched_phase(
         torch, repro_torch, ops, a, plan, plan_k, generic_values_csr)
     emit({"phase": "batched", **batched_res,
@@ -3257,13 +3323,14 @@ def main() -> int:
     for tag in ("default", "kernel"):
         new_paths[f"sharded_{tag}"] = {
             k: [r[tag]["launches"][k] for r in dist_res["sharded"]["ranks"]]
-            for k in ("minmax_relax", "column_fingerprints")}
+            for k in ("minmax_relax", "ell_superstep", "column_fingerprints")}
         new_paths[f"dynamic_4_slots_{tag}"] = dyn[
             f"symbolic_4_slots_{tag}"]["launches"]
         new_paths[f"placed_{tag}"] = {"panel_update_mapped": sum(
             dist_res["placed"][tag][str(d)]["mapped_launches"]
             for d in (1, 2, 4))}         # the first placed sweep at each d
     new_paths["dynamic_1_slot"] = dyn["analyze_1_slot"]["launches"]
+    new_paths["bubble"] = bubble_res["default"]["launches"]
 
     emit({"phase": "breakdown_default",
           **breakdown(torch, repro_torch, a, values, opts, sweep=True)})
@@ -3392,7 +3459,35 @@ def main() -> int:
         path: new_paths[path]["minmax_relax"]
         for path in ("sharded_kernel", "dynamic_4_slots_kernel")}
 
-    v = N_LARGE
+    # K8 on the default path: its first superstep at S = 512 (no row
+    # skipped, the most work a superstep does) over the bbd-20k table
+    from repro_torch.core.gsofa import init_labels
+
+    v, k8 = N_LARGE, graph.in_ell.shape[1]
+    srcs8 = torch.arange(v - s, v, dtype=torch.int32, device=dev)
+    lab8 = init_labels(graph, srcs8)
+    nxt8, ref8 = torch.empty_like(lab8), torch.empty_like(lab8)
+    c_k, c_p = ([torch.zeros(n, dtype=torch.int32, device=dev)
+                 for n in (s, s, 1)] for _ in range(2))
+
+    def k8_call():
+        ops.ell_superstep(lab8, nxt8, graph.in_ell, graph.out_deg, srcs8,
+                          *c_k, offset=0, it=0)
+
+    def k8_plain():
+        plain.ell_superstep_plain(lab8, ref8, graph.in_ell, graph.out_deg,
+                                  srcs8, *c_p, offset=0, it=0)
+
+    k8_call()
+    k8_plain()
+    err = float((nxt8 - ref8).abs().max())
+    row("ell_superstep", counts_default["ell_superstep"], err, k8_call,
+        k8_plain, *W.ell_superstep_work(s, v, k8))
+    kern[-1]["launches_on_new_paths"] = {
+        path: new_paths[path]["ell_superstep"]
+        for path in ("bubble", "robust", "serve_lu", "sharded_default",
+                     "dynamic_1_slot", "dynamic_4_slots_default")}
+
     rel = torch.as_tensor(rng.integers(-1, v + 2, size=(s, v)).astype(
         np.int32), device=dev)
     lanes = [torch.as_tensor(x, device=dev) for x in (
@@ -3544,6 +3639,7 @@ def main() -> int:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes_line = {
         "phase": "kernel_shapes", "minmax_relax": [s, u, u],
+        "ell_superstep": [s, v, k8],
         "column_fingerprints": [s, v], "panel_update": list(k3_shape),
         "panel_update_batched": [bsz, bm, bk, bn], **panel_line,
         "adj_nnz": nnz_adj,

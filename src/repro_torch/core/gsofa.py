@@ -22,7 +22,10 @@ Key algebraic facts used:
   ``prop(u) = max(u, maxId[u])``, which the Jacobi step applies inherently.
 
 Three relaxation backends share this module's driver:
-  * ``ell``    — padded-ELL gather (the default),
+  * ``ell``    — padded-ELL gather (the default), the whole superstep
+    (props, gather-min, frontier, counts, label update) fused in K8
+    (``kernels/ops.ell_superstep``: one launch on the card, its plain
+    version on the CPU) over a Jacobi pair of label buffers,
   * ``dense``  — masked min against the dense adjacency in plain torch,
   * ``kernel`` — the same product through K1 (``kernels/ops.minmax_relax``:
     the CUDA kernel on the card, its plain version on the CPU).
@@ -41,6 +44,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import plain as kplain
+from repro_torch.obs import metrics as _om
 from repro_torch.obs import trace as _ot
 from repro_torch.sparse.csr import (
     CSRMatrix, csr_to_ell, dense_block_adjacency, transpose_csr,
@@ -108,45 +112,40 @@ def init_labels(graph: SymbolicGraph, srcs: torch.Tensor, *,
     get ``offset - 1`` (direct edge, no intermediates); everything else is left
     "uninitialized" — either explicit INF, or, when ``stale_buf`` is given, the
     stale contents of an earlier label window (spaceopt.LabelArena), which by
-    construction are > offset + n and therefore read as uninitialized."""
+    construction are > offset + n and therefore read as uninitialized.
+    The result is a fresh contiguous (S, V) buffer."""
     v = graph.n
     s = srcs.shape[0]
     if nbrs is None:
         nbrs = graph.out_ell[srcs]                      # (S, K_out), pad >= V
-    lab = torch.full((s, v + 1), INF, dtype=torch.int32, device=srcs.device)
-    if stale_buf is not None:
-        lab[:, :v] = stale_buf
-    # pad ids land in the extra column, which is dropped
-    lab.scatter_(1, nbrs.clamp(max=v).long(),
-                 torch.full(nbrs.shape, offset - 1, dtype=torch.int32,
-                            device=srcs.device))
-    return lab[:, :v]
+    if stale_buf is None:
+        lab = torch.full((s, v), INF, dtype=torch.int32, device=srcs.device)
+    else:
+        lab = torch.empty((s, v), dtype=torch.int32, device=srcs.device)
+        lab.copy_(stale_buf)
+    if v:
+        # every label here is > offset - 1, so a min writes offset - 1 at
+        # each out-neighbour; pad ids fold onto column V - 1 as INF, which
+        # the min leaves as it is
+        vals = torch.full(nbrs.shape, offset - 1, dtype=torch.int32,
+                          device=srcs.device).masked_fill_(nbrs >= v, INF)
+        lab.scatter_reduce_(1, nbrs.clamp(max=v - 1).long(), vals, "amin")
+    return lab
 
 
-def compute_prop(labels: torch.Tensor, srcs: torch.Tensor, n: int,
+def compute_prop(labels: torch.Tensor, srcs: torch.Tensor,
                  offset: int = 0) -> torch.Tensor:
     """Clamped propagation values, (S, V), in the offset encoding:
     ``max(offset + u, labels[u])`` for expandable u (u < src, label valid in the
-    current window), else INF."""
-    u_ids = torch.arange(n, dtype=torch.int32, device=labels.device)
-    valid = labels <= offset + n
-    prop = torch.maximum(u_ids[None, :] + offset, labels)
-    ok = valid & (u_ids[None, :] < srcs[:, None])
-    return torch.where(ok, prop, INF)
+    current window), else INF (``kernels/plain.ell_prop_plain``, the body K8's
+    plain version shares)."""
+    return kplain.ell_prop_plain(labels, srcs, offset)
 
 
 def relax_ell(prop: torch.Tensor, graph: SymbolicGraph) -> torch.Tensor:
     """Candidate labels via ELL gather: cand[s, v] = min_{u in in-nbr(v)}
-    prop[s, u].  Walks the K_in neighbor slots one at a time (min is exact in
-    any order), so the scratch is one (S, V) gather, not (S, V, K_in)."""
-    prop_pad = torch.cat(
-        [prop, torch.full((prop.shape[0], 1), INF, dtype=torch.int32,
-                          device=prop.device)], dim=1)
-    in_ell = graph.in_ell.long()
-    cand = torch.full_like(prop, INF)
-    for k in range(in_ell.shape[1]):
-        cand = torch.minimum(cand, prop_pad.index_select(1, in_ell[:, k]))
-    return cand
+    prop[s, u] (``kernels/plain.ell_relax_plain``)."""
+    return kplain.ell_relax_plain(prop, graph.in_ell)
 
 
 def _pad_prop(prop: torch.Tensor, graph: SymbolicGraph) -> torch.Tensor:
@@ -173,7 +172,7 @@ def relax_kernel(prop: torch.Tensor, graph: SymbolicGraph) -> torch.Tensor:
                              graph.adj_dense)[:, :graph.n]
 
 
-_BACKENDS = {"ell": relax_ell, "dense": relax_dense, "kernel": relax_kernel}
+_BACKENDS = {"dense": relax_dense, "kernel": relax_kernel}
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +196,6 @@ def gsofa_batch(graph: SymbolicGraph, srcs, *, backend: str = "ell",
     The superstep loop runs on the graph's device; the host reads one flag
     per superstep (whether any frontier is left), so ``iters``,
     ``conv_iter`` and ``edge_checks`` are exactly the reference's."""
-    relax = _BACKENDS[backend]
     dev = graph.device
     if isinstance(srcs, torch.Tensor):
         srcs = srcs.to(device=dev, dtype=torch.int32)
@@ -206,8 +204,11 @@ def gsofa_batch(graph: SymbolicGraph, srcs, *, backend: str = "ell",
     n = graph.n
     if max_iters is None:
         max_iters = n + 2
+    if backend == "ell":
+        return _fused_ell(graph, srcs, labels0, offset, max_iters)
     labels = (init_labels(graph, srcs, offset=offset) if labels0 is None
               else labels0)
+    relax = _BACKENDS[backend]
     s = srcs.shape[0]
     prev_prop = torch.full((s, n), INF, dtype=torch.int32, device=dev)
     conv = torch.zeros(s, dtype=torch.int32, device=dev)
@@ -216,7 +217,7 @@ def gsofa_batch(graph: SymbolicGraph, srcs, *, backend: str = "ell",
     it = 0
     any_frontier = True
     while any_frontier and it < max_iters:
-        cur_prop = compute_prop(labels, srcs, n, offset)
+        cur_prop = compute_prop(labels, srcs, offset)
         # frontier = vertices whose propagation value changed since the last
         # superstep (includes the initial source-adjacency frontier at it=0,
         # because prev_prop starts all-INF).  Paper's edge-check workload
@@ -229,13 +230,47 @@ def gsofa_batch(graph: SymbolicGraph, srcs, *, backend: str = "ell",
         labels = torch.minimum(labels, relax(cur_prop, graph))
         prev_prop = cur_prop
         it += 1
-        # the host's one read a superstep: it waits here for the card
-        if _ot.ENABLED:
-            with _ot.span("fixpoint_wait"):
-                any_frontier = bool(row_active.any())
-        else:
-            any_frontier = bool(row_active.any())
+        any_frontier = bool(_host_read(row_active.any()))
     # the final superstep only *verifies* the fixpoint; don't count it as work
+    return FixpointResult(labels=labels, iters=max(it - 1, 0),
+                          conv_iter=(conv - 1).clamp(min=0),
+                          edge_checks=edges)
+
+
+def _host_read(flag: torch.Tensor) -> int:
+    """The host's one read a superstep: it waits here for the card."""
+    if not _ot.ENABLED:
+        return int(flag.item())
+    with _ot.span("fixpoint_wait"):
+        return int(flag.item())
+
+
+def _fused_ell(graph: SymbolicGraph, srcs: torch.Tensor,
+               labels0: Optional[torch.Tensor], offset: int,
+               max_iters: int) -> FixpointResult:
+    """The ``ell`` fixpoint: one K8 call a superstep (one launch on the
+    card) over two label buffers that swap roles, and one read of the
+    4-byte flag, which K8 sets to ``it + 1`` on a superstep with a
+    frontier.  Without ``labels0`` the initial labels are built straight
+    into the first buffer; a given ``labels0`` is copied, never written."""
+    dev = graph.device
+    s = srcs.shape[0]
+    labels = (init_labels(graph, srcs, offset=offset) if labels0 is None
+              else labels0.clone(memory_format=torch.contiguous_format))
+    other = torch.empty_like(labels)
+    conv = torch.zeros(s, dtype=torch.int32, device=dev)
+    edges = torch.zeros(s, dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    it = 0
+    any_frontier = True
+    while any_frontier and it < max_iters:
+        kops.ell_superstep(labels, other, graph.in_ell, graph.out_deg, srcs,
+                           edges, conv, flag, offset=offset, it=it)
+        labels, other = other, labels
+        it += 1
+        any_frontier = _host_read(flag) == it
+    if _ot.ENABLED:
+        _om.registry().count("fixpoint.fused_supersteps", it)
     return FixpointResult(labels=labels, iters=max(it - 1, 0),
                           conv_iter=(conv - 1).clamp(min=0),
                           edge_checks=edges)

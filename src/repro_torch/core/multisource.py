@@ -73,7 +73,7 @@ def _chunk_view(graph: SymbolicGraph, width: int) -> SymbolicGraph:
     return SymbolicGraph(
         n=width,
         in_ell=graph.in_ell[:width].clamp(max=width),
-        out_ell=graph.out_ell,  # unused by the fixpoint (init passes nbrs)
+        out_ell=graph.out_ell,  # init's out-neighbours; ids >= width drop
         out_deg=graph.out_deg[:width],
         adj_dense=None,
     )
@@ -88,7 +88,7 @@ def _finalize_bubble(graph: SymbolicGraph, labels_w: torch.Tensor,
     (> src): reachability — one full-width ELL relaxation of the converged
     props, plus the direct edges of each source."""
     n = graph.n
-    prop = compute_prop(labels_w, srcs, width, offset)
+    prop = compute_prop(labels_w, srcs, offset)
     prop_full = torch.cat([prop, torch.full((prop.shape[0], n - width), INF,
                                             dtype=torch.int32,
                                             device=prop.device)], dim=1)
@@ -181,9 +181,7 @@ def run_multisource(graph: SymbolicGraph, *, concurrency: int = 64,
                 offset = 0
                 if bubble and chunk.width < n:
                     view = _chunk_view(graph, chunk.width)
-                    labels0 = init_labels(view, gs, nbrs=graph.out_ell[gs])
                     res = gsofa.gsofa_batch(view, gs, backend="ell",
-                                            labels0=labels0,
                                             max_iters=chunk.width + 2)
                     mask = _finalize_bubble(graph, res.labels, gs, 0,
                                             chunk.width)

@@ -35,6 +35,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "minmax_relax": ("minmax_relax", "minmax_relax_launch",
                      (_P, _P, _P, _I, _I, _I, _P)),
+    "ell_superstep": ("ell_superstep", "ell_superstep_launch",
+                      (_P,) * 8 + (_I,) * 5 + (_P,)),
     "column_fingerprints": ("column_fingerprints",
                             "column_fingerprints_launch",
                             (_P, _P, _P, _P, _P, _P, _I, _I, _P)),

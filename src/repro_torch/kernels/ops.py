@@ -31,6 +31,7 @@ wrapper                   replaces (src/repro/kernels/)
 ``mamba_scan_backward``   none: K6's gradient (the train path)          K6
 ``rwkv6_scan``            ssm_scan.py::rwkv6_scan_pallas                K7
 ``rwkv6_scan_backward``   none: K7's gradient (the train path)          K7
+``ell_superstep``         none: the ELL fixpoint's superstep (jnp)      K8
 ========================  ============================================  ==
 
 ``panel_update_mapped`` is K3/K4 in the form the panel sweep launches: in
@@ -158,6 +159,56 @@ def minmax_relax(prop: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
                 out.data_ptr(), s, u, v, _stream(prop))
         _count(minmax_relax)
     return out
+
+
+def ell_superstep(labels: torch.Tensor, out: torch.Tensor,
+                  in_ell: torch.Tensor, out_deg: torch.Tensor,
+                  srcs: torch.Tensor, edges: torch.Tensor,
+                  conv: torch.Tensor, flag: torch.Tensor, *,
+                  offset: int, it: int) -> None:
+    """K8: superstep ``it`` of the ELL fixpoint in one launch.  From the
+    int32 ``labels`` (S, n) it writes the next labels into ``out`` (S, n),
+    adds the frontier's out-degrees (``out_deg`` (n,)) to ``edges`` (S,),
+    sets ``conv`` (S,) to ``it + 1`` on rows with a frontier and ``flag``
+    (1,) to ``it + 1`` if any row has one; ``in_ell`` (n, K) is padded with
+    n.  All int32, in place: ``labels`` and ``out`` are the two buffers of
+    the Jacobi pair, and for ``it`` >= 1 ``out``, ``edges`` and ``conv``
+    hold what superstep ``it - 1`` left (the kernel skips rows whose
+    frontier was empty then)."""
+    if _route(labels, out, in_ell, out_deg, srcs, edges, conv, flag) == "cpu":
+        _plain(ell_superstep, work.ell_superstep_work(*labels.shape,
+                                                       in_ell.shape[1]),
+               plain.ell_superstep_plain, labels, out, in_ell, out_deg,
+               srcs, edges, conv, flag, offset=offset, it=it)
+        return
+    for name, t, ndim in (("labels", labels, 2), ("out", out, 2),
+                          ("in_ell", in_ell, 2), ("out_deg", out_deg, 1),
+                          ("srcs", srcs, 1), ("edges", edges, 1),
+                          ("conv", conv, 1), ("flag", flag, 1)):
+        _check(name, t, torch.int32, ndim)
+    s, n = labels.shape
+    k = in_ell.shape[1]
+    if (out.shape != labels.shape or in_ell.shape[0] != n
+            or out_deg.shape[0] != n or flag.shape[0] != 1
+            or any(t.shape[0] != s for t in (srcs, edges, conv))):
+        raise ValueError(
+            f"ell_superstep: labels {tuple(labels.shape)}, out "
+            f"{tuple(out.shape)}, in_ell {tuple(in_ell.shape)}, out_deg "
+            f"{tuple(out_deg.shape)}, srcs/edges/conv {tuple(srcs.shape)}/"
+            f"{tuple(edges.shape)}/{tuple(conv.shape)}, flag "
+            f"{tuple(flag.shape)} do not fit (S, n), (n, K), (S,), (1,)")
+    if not labels.is_meta and labels.data_ptr() == out.data_ptr():
+        raise ValueError("ell_superstep: labels and out must be two buffers")
+    if not (-INF <= offset and offset + n <= INF and 0 <= it < INF):
+        raise ValueError(f"ell_superstep: offset {offset} + n {n} leaves "
+                         f"int32, or superstep {it} is out of range")
+    if s and n and k and not _stand_in(
+            ell_superstep, labels, lambda: work.ell_superstep_work(s, n, k)):
+        _launch("ell_superstep", labels.data_ptr(), out.data_ptr(),
+                in_ell.data_ptr(), out_deg.data_ptr(), srcs.data_ptr(),
+                edges.data_ptr(), conv.data_ptr(), flag.data_ptr(), s, n, k,
+                offset, it, _stream(labels))
+        _count(ell_superstep)
 
 
 def column_fingerprints(rel: torch.Tensor, src: torch.Tensor,
@@ -935,7 +986,7 @@ def mamba_scan_train(x: torch.Tensor, dt: torch.Tensor, b_t: torch.Tensor,
     return MambaScan.apply(x, dt, b_t, c_t, a, d_skip, h0)
 
 
-KERNELS = (minmax_relax, column_fingerprints, panel_update,
+KERNELS = (minmax_relax, ell_superstep, column_fingerprints, panel_update,
            panel_update_batched, panel_update_mapped, flash_attention,
            flash_attention_backward, mamba_scan, rwkv6_scan,
            mamba_scan_backward, rwkv6_scan_backward)

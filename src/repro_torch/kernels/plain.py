@@ -34,6 +34,57 @@ def minmax_relax_plain(prop: torch.Tensor, adj: torch.Tensor, *,
     return out
 
 
+def ell_prop_plain(labels: torch.Tensor, srcs: torch.Tensor,
+                   offset: int = 0) -> torch.Tensor:
+    """Clamped propagation values of ``labels`` (S, n), in the offset
+    encoding: ``max(offset + u, labels[s, u])`` where u is expandable
+    (``u < srcs[s]``, label valid in the window: ``<= offset + n``), else
+    INF."""
+    n = labels.shape[1]
+    u_ids = torch.arange(n, dtype=torch.int32, device=labels.device)
+    ok = (labels <= offset + n) & (u_ids[None, :] < srcs[:, None])
+    return torch.where(ok, torch.maximum(u_ids[None, :] + offset, labels),
+                       INF)
+
+
+def ell_relax_plain(prop: torch.Tensor, in_ell: torch.Tensor) -> torch.Tensor:
+    """Candidate labels by ELL gather: ``cand[s, v] = min_k prop[s,
+    in_ell[v, k]]`` over the (n, K) in-neighbour table, pad id n reading
+    INF.  Walks the K slots one at a time (min is exact in any order), so
+    the scratch is one (S, n) gather, not (S, n, K)."""
+    pad = torch.cat([prop, torch.full((prop.shape[0], 1), INF,
+                                      dtype=torch.int32,
+                                      device=prop.device)], dim=1)
+    cand = torch.full_like(prop, INF)
+    for k in range(in_ell.shape[1]):
+        cand = torch.minimum(cand, pad.index_select(1, in_ell[:, k].long()))
+    return cand
+
+
+def ell_superstep_plain(labels: torch.Tensor, out: torch.Tensor,
+                        in_ell: torch.Tensor, out_deg: torch.Tensor,
+                        srcs: torch.Tensor, edges: torch.Tensor,
+                        conv: torch.Tensor, flag: torch.Tensor, *,
+                        offset: int, it: int) -> None:
+    """One superstep of the ELL fixpoint, as ``core/gsofa.py`` ran it op by
+    op: the clamped props of ``labels`` (S, n) and, for ``it`` >= 1, of the
+    previous labels in ``out``; the frontier where they differ; its
+    out-degree sums into ``edges`` and ``it + 1`` into ``conv`` for rows
+    with a frontier and into ``flag`` (1,) when any row has one; then the
+    min over the ``in_ell`` (n, K) slots, pad id n reading INF, and
+    ``min(labels, cand)`` into ``out``.  Everything int32, in place."""
+    cur = ell_prop_plain(labels, srcs, offset)
+    prev = (ell_prop_plain(out, srcs, offset) if it > 0
+            else torch.full_like(cur, INF))
+    frontier = cur != prev
+    row_active = frontier.any(dim=1)
+    edges.copy_(edges + torch.where(frontier, out_deg[None, :], 0).sum(
+        dim=1).to(torch.int32))
+    conv.copy_(torch.where(row_active, it + 1, conv))
+    flag.copy_(torch.where(row_active.any(), it + 1, flag))
+    out.copy_(torch.minimum(labels, ell_relax_plain(cur, in_ell)))
+
+
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 modulo 2^32 (two's complement), as an int32 sum
     wraps.  ``torch.sum`` of int32 returns int64, so the wrap is explicit."""

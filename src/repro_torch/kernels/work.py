@@ -1,4 +1,4 @@
-"""What each kernel moves and computes: the roofline counts of K1–K7.
+"""What each kernel moves and computes: the roofline counts of K1–K8.
 
 Each ``*_work`` function gives ``(bytes, float ops[, ...])`` of one launch
 at one shape: the bytes the kernel must move (each input read once, each
@@ -37,6 +37,14 @@ def minmax_relax_work(s, u, v, edges):
     (U, V) read, the (S, V) int32 output written once; one min per
     (source, edge)."""
     return 4 * s * u + u * v + 4 * s * v, s * edges
+
+
+def ell_superstep_work(s, n, k):
+    """(bytes, int ops) of K8: the labels (S, n) int32 read, the other
+    buffer read (the previous labels) and written, the (n, K) in-neighbour
+    table and the out-degrees read once, the (S,) counters read and
+    written; one max and one min per (source, neighbour slot)."""
+    return 12 * s * n + 4 * n * k + 4 * n + 5 * 4 * s, 2 * s * n * k
 
 
 def column_fingerprints_work(s, v):

@@ -19,7 +19,7 @@ that have shapes and no memory, and multiplied as the reference does:
   ``transcendentals`` instead (XLA's cost convention, which the
   reference's numbers follow);
 - ``kernel_flops`` / ``kernel_bytes`` and launches: the port's kernels
-  (K1–K7 and the backwards) from ``kernels/work.py``'s tally, which their
+  (K1–K8 and the backwards) from ``kernels/work.py``'s tally, which their
   wrappers fill on ``meta`` and on the CPU (a CPU run's plain versions are
   not counted as aten ops);
 - ``hbm_bytes``: every non-view op's tensor inputs and outputs plus the

@@ -10,6 +10,7 @@ metric                          kind      meaning
 ==============================  ========  =====================================
 fixpoint.iterations             hist      converged supersteps per chunk
 fixpoint.chunks                 counter   chunks processed
+fixpoint.fused_supersteps       counter   ELL supersteps run through K8
 fill.lu_nnz                     gauge     structural nnz(L+U) incl. diagonal
 fill.input_nnz                  gauge     nnz(A)
 supernodes.count                gauge     number of detected panels

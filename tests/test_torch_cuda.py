@@ -121,6 +121,119 @@ def test_minmax_relax_kernel_bitwise_adjacencies(cuda, kind, s, u, v):
     assert torch.equal(got, plain.minmax_relax_plain(prop, adj))
 
 
+def _stencil27(nx, hubs=0):
+    """The 27-point stencil on an nx^3 grid in natural order (n = nx^3, 26
+    in-neighbours a vertex inside), with ``hubs`` vertices joined both ways
+    to every vertex (in-degree n - 1: K8 then reads its table from device
+    memory, not from shared memory)."""
+    from repro_torch.sparse import csr_from_coo
+
+    g = np.arange(nx ** 3).reshape(nx, nx, nx)
+    rows, cols = [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                src = g[max(0, -dx):nx - max(0, dx),
+                        max(0, -dy):nx - max(0, dy),
+                        max(0, -dz):nx - max(0, dz)]
+                dst = g[max(0, dx):nx - max(0, -dx),
+                        max(0, dy):nx - max(0, -dy),
+                        max(0, dz):nx - max(0, -dz)]
+                rows.append(src.ravel())
+                cols.append(dst.ravel())
+    n = nx ** 3
+    for h in range(hubs):
+        hub = (h * 331) % n
+        rows += [np.full(n, hub), np.arange(n)]
+        cols += [np.arange(n), np.full(n, hub)]
+    return csr_from_coo(n, np.concatenate(rows), np.concatenate(cols))
+
+
+def _ell_state(graph, srcs, window):
+    """Labels of a fresh chunk: offset 0, or an arena window just under the
+    int32 top over a stale buffer whose entries all read as uninitialized."""
+    from repro_torch.core import gsofa
+    from repro_torch.core.spaceopt import LabelArena
+
+    s, n = srcs.shape[0], graph.n
+    if not window:
+        return gsofa.init_labels(graph, srcs), 0
+    offset = LabelArena(capacity=s, n=n, device=graph.device).next_window()
+    stale = torch.randint(offset + n + 1, I32MAX, (s, n), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(s))
+    return gsofa.init_labels(graph, srcs, offset=offset,
+                             stale_buf=stale.to(graph.device)), offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,hubs,s,window", [
+    (9, 0, 1, False), (9, 0, 1, True), (9, 0, 48, False), (9, 0, 48, True),
+    (9, 0, 512, False), (9, 0, 512, True), (7, 2, 48, False),
+    (7, 2, 300, True)])
+def test_ell_superstep_kernel_bitwise(cuda, nx, hubs, s, window):
+    """K8 against its plain version on the card, superstep by superstep
+    (next labels, edges, conv, flag) through a whole fixpoint, then a
+    whole ``gsofa_batch`` on the card against the CPU's; n = 729 or 343 is
+    no multiple of K8's 128-vertex tile, and hubs push K past its shared
+    table."""
+    from repro_torch.core import gsofa
+
+    a = _stencil27(nx, hubs)
+    graph = gsofa.prepare_graph(a, device=cuda)
+    srcs = torch.as_tensor((a.n - 1 - 7 * np.arange(s)) % a.n,
+                           dtype=torch.int32, device=cuda)
+    labels0, offset = _ell_state(graph, srcs, window)
+    kern = [labels0.clone(), torch.full_like(labels0, -7)]
+    ref = [labels0.clone(), torch.full_like(labels0, 5)]
+    counts = {side: [torch.zeros(s, dtype=torch.int32, device=cuda),
+                     torch.zeros(s, dtype=torch.int32, device=cuda),
+                     torch.zeros(1, dtype=torch.int32, device=cuda)]
+              for side in ("kernel", "plain")}
+    before = ops.ell_superstep.launches
+    it = 0
+    while True:
+        ops.ell_superstep(*kern, graph.in_ell, graph.out_deg, srcs,
+                          *counts["kernel"], offset=offset, it=it)
+        plain.ell_superstep_plain(*ref, graph.in_ell, graph.out_deg, srcs,
+                                  *counts["plain"], offset=offset, it=it)
+        assert torch.equal(kern[1], ref[1]), it
+        for got, want in zip(counts["kernel"], counts["plain"]):
+            assert torch.equal(got, want), it
+        kern.reverse()
+        ref.reverse()
+        it += 1
+        if int(counts["plain"][2]) != it:
+            break
+    assert it > 2 and ops.ell_superstep.launches == before + it
+    host = gsofa.prepare_graph(a, device="cpu")
+    want = gsofa.gsofa_batch(host, srcs.cpu(), labels0=labels0.cpu(),
+                             offset=offset)
+    got = gsofa.gsofa_batch(graph, srcs, labels0=labels0, offset=offset)
+    assert got.iters == want.iters == it - 1
+    for name in ("labels", "conv_iter", "edge_checks"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bubble", [False, True])
+def test_ell_analyze_on_card_matches_cpu(cuda, bubble):
+    """``analyze`` on the default ELL backend runs its fixpoint through K8
+    on the card (bubble chunks on their truncated views too) and gives the
+    CPU run's structure and supernodes bitwise."""
+    import repro_torch
+
+    a = _bbd_400()
+    opts = repro_torch.LUOptions(concurrency=64, bubble=bubble)
+    ops.reset_launches()
+    card = repro_torch.analyze(a, opts, device=cuda)
+    counts = ops.launch_counts()
+    host = repro_torch.analyze(a, opts, device="cpu")
+    for got, want in zip(_structure(card), _structure(host)):
+        assert np.array_equal(got, want)
+    assert card.sym.supersteps == host.sym.supersteps
+    assert counts["ell_superstep"] > 0 and counts["minmax_relax"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,v", [(1, 1), (65, 300), (130, 1000)])
 def test_column_fingerprints_kernel_bitwise(cuda, s, v):

@@ -209,6 +209,46 @@ def test_dispatch_rules_on_the_cpu():
         "launches": 1, "bytes": None, "flops": None}
 
 
+def test_ell_superstep_dispatch_and_checks():
+    """K8 on the CPU runs its plain version in place and counts no launch;
+    on ``meta`` it launches nothing and records one launch with
+    ``work.ell_superstep_work``; on a device that checks (``meta``) wrong
+    shapes, dtypes and one buffer for both labels raise."""
+    s, n, k = 3, 10, 4
+
+    def args(device, **over):
+        t = dict(labels=torch.full((s, n), plain.INF, dtype=torch.int32),
+                 out=torch.zeros((s, n), dtype=torch.int32),
+                 in_ell=torch.full((n, k), n, dtype=torch.int32),
+                 out_deg=torch.ones(n, dtype=torch.int32),
+                 srcs=torch.arange(s, dtype=torch.int32),
+                 edges=torch.zeros(s, dtype=torch.int32),
+                 conv=torch.zeros(s, dtype=torch.int32),
+                 flag=torch.zeros(1, dtype=torch.int32))
+        t.update(over)
+        return {name: x.to(device) for name, x in t.items()}
+
+    ops.reset_launches()
+    cpu = args("cpu")
+    ops.ell_superstep(**cpu, offset=0, it=0)
+    assert torch.equal(cpu["out"], cpu["labels"])   # nothing to expand
+    assert int(cpu["flag"]) == 0 and ops.launch_counts()["ell_superstep"] == 0
+    work.reset()
+    ops.ell_superstep(**args("meta"), offset=0, it=0)
+    assert ops.launch_counts()["ell_superstep"] == 0
+    assert work.totals()["ell_superstep"] == {
+        "launches": 1, "bytes": work.ell_superstep_work(s, n, k)[0],
+        "flops": work.ell_superstep_work(s, n, k)[1]}
+    for bad in (dict(out=torch.zeros((s, n + 1), dtype=torch.int32)),
+                dict(conv=torch.zeros(s, dtype=torch.int64)),
+                dict(in_ell=torch.zeros((n, k), dtype=torch.int32).t())):
+        with pytest.raises(ValueError):
+            ops.ell_superstep(**args("meta", **bad), offset=0, it=0)
+    with pytest.raises(ValueError, match="one device"):
+        ops.ell_superstep(**{**args("meta"), "flag": torch.zeros(
+            1, dtype=torch.int32)}, offset=0, it=0)
+
+
 def test_launch_signatures_match_the_sources():
     """Every ctypes signature in ``_build.SIGNATURES`` names a function its
     source exports with as many parameters, pointers (or a stream) where

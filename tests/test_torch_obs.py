@@ -57,3 +57,17 @@ def test_traced_analyze_records_no_fingerprint_counters():
         plan.a.n / plan.sym.concurrency)
     recorded = [k for kind in snap.values() for k in kind]
     assert not [k for k in recorded if k.startswith("fingerprint.")]
+
+
+@pytest.mark.parametrize("backend", ["ell", "kernel"])
+def test_traced_analyze_counts_fused_supersteps(backend):
+    """``fixpoint.fused_supersteps`` counts every superstep the ELL
+    fixpoint ran through K8 (each chunk's verifying one too), and nothing
+    on the kernel backend, whose loop is unfused."""
+    om.registry().reset()
+    plan = _analyze(backend=backend, trace=True)
+    fused = om.registry().snapshot()["counters"].get(
+        "fixpoint.fused_supersteps")
+    chunks = math.ceil(plan.a.n / plan.sym.concurrency)
+    assert fused == (plan.sym.supersteps + chunks if backend == "ell"
+                     else None)

@@ -76,6 +76,85 @@ def test_gsofa_batch_bitwise(gen, backend):
                                                         off)))
 
 
+def _unfused_superstep(graph, srcs, labels, prev_labels, offset, it, edges,
+                       conv):
+    """Superstep ``it`` as the ELL loop ran it op by op before K8 fused it:
+    props, frontier, counts, ``relax_ell``, ``minimum``.  Returns the next
+    labels, edges, conv and whether any row had a frontier."""
+    cur = tgsofa.compute_prop(labels, srcs, offset)
+    prev = (tgsofa.compute_prop(prev_labels, srcs, offset) if it
+            else torch.full_like(cur, tgsofa.INF))
+    frontier = cur != prev
+    row_active = frontier.any(dim=1)
+    edges = edges + torch.where(frontier, graph.out_deg[None, :], 0).sum(
+        dim=1).to(torch.int32)
+    conv = torch.where(row_active, it + 1, conv)
+    nxt = torch.minimum(labels, tgsofa.relax_ell(cur, graph))
+    return nxt, edges, conv, bool(row_active.any())
+
+
+@pytest.mark.parametrize("case,sources,window,step,width", [
+    ("first", C, False, 0, None),
+    ("later", C, False, 2, None),
+    ("window_first", C, True, 0, None),
+    ("window_later", C, True, 3, None),
+    ("one_source", 1, True, 1, None),
+    ("bubble_view", C, False, 1, 96),
+])
+def test_ell_superstep_plain_is_the_unfused_sequence(case, sources, window,
+                                                     step, width):
+    """K8's plain version against the op-by-op superstep it replaced:
+    labels, edges, conv and the flag, bitwise, at superstep ``step`` after
+    ``step`` unfused ones (offset 0, or an arena window just under the
+    int32 top over a stale buffer; one source; a truncated bubble view)."""
+    from repro_torch.core.multisource import _chunk_view
+    from repro_torch.kernels import plain
+
+    a = to_port(GENERATORS["bbd"]())
+    graph = tgsofa.prepare_graph(a, device="cpu")
+    srcs = torch.as_tensor((a.n - 1 - 7 * np.arange(sources, dtype=np.int32))
+                           % a.n)
+    if width is not None:                       # a bubble chunk's view
+        srcs = srcs % width
+        view = _chunk_view(graph, width)
+        labels = tgsofa.init_labels(view, srcs, nbrs=graph.out_ell[srcs])
+        graph = view
+    offset, stale = 0, None
+    if window:
+        arena = tspace.LabelArena(capacity=sources, n=a.n, device="cpu")
+        offset = arena.next_window()
+        rng = np.random.default_rng(sources)
+        stale = torch.as_tensor(rng.integers(
+            offset + a.n + 1, tgsofa.INF, size=(sources, a.n),
+            endpoint=True).astype(np.int32))
+    if width is None:
+        labels = tgsofa.init_labels(graph, srcs, offset=offset,
+                                    stale_buf=stale)
+    assert graph.n < a.n if width else graph.n == a.n
+    prev = labels
+    edges = torch.zeros(sources, dtype=torch.int32)
+    conv = torch.zeros(sources, dtype=torch.int32)
+    flag = torch.zeros(1, dtype=torch.int32)
+    for t in range(step):
+        nxt, edges, conv, active = _unfused_superstep(
+            graph, srcs, labels, prev, offset, t, edges, conv)
+        prev, labels = labels, nxt
+        flag[0] = t + 1 if active else flag[0]
+    want, want_edges, want_conv, active = _unfused_superstep(
+        graph, srcs, labels, prev, offset, step, edges, conv)
+    # superstep 0 must not read the other buffer: it holds garbage
+    out = (prev.clone() if step else torch.randint(
+        -5, graph.n, labels.shape, dtype=torch.int32))
+    got_edges, got_conv, got_flag = edges.clone(), conv.clone(), flag.clone()
+    plain.ell_superstep_plain(labels, out, graph.in_ell, graph.out_deg, srcs,
+                              got_edges, got_conv, got_flag, offset=offset,
+                              it=step)
+    assert torch.equal(out, want)
+    assert torch.equal(got_edges, want_edges)
+    assert torch.equal(got_conv, want_conv)
+    assert active and int(got_flag) == step + 1
+
+
 def _assert_symbolic_equal(got, ref):
     np.testing.assert_array_equal(got.l_counts, ref.l_counts)
     np.testing.assert_array_equal(got.u_counts, ref.u_counts)

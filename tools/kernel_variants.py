@@ -4,8 +4,8 @@ in one process on one card.
 
     python3 tools/kernel_variants.py            # every experiment
     python3 tools/kernel_variants.py k5         # K5's only (or k1, k34, k5bwd,
-                                                # k6, k7, k6bwd, k7bwd, or
-                                                # several)
+                                                # k6, k7, k6bwd, k7bwd, k8,
+                                                # or several)
     python3 tools/kernel_variants.py k5bwd --train   # and the train steps
 
 Each variant is the committed source in ``src/repro_torch/kernels/csrc/``
@@ -28,7 +28,12 @@ state, K5's backward (k5bwd) at ``chip_smoke.py``'s ``K5_BWD_SHAPES`` in
 float32, held to its ``K5_BWD_TOL`` of each gradient's largest against
 the plain backward and to a bitwise repeat, K6's and K7's backwards
 (k6bwd, k7bwd) at the prefill shapes from a zero and a non-zero state,
-held to ``SCAN_TOL`` of each gradient's largest and to a bitwise repeat.
+held to ``SCAN_TOL`` of each gradient's largest and to a bitwise repeat,
+K8 (k8) at one superstep of four chunks of a 24,576-row HPCG pattern in
+nested-dissection order (S = 512; the committed variant's line adds the
+plain version's ms and the byte bound), held bitwise to the plain version
+(the timed launches repeat the superstep over their own output, so later
+ones see another frontier).
 With ``--train`` (k5bwd),
 the smollm-135m and whisper-tiny train steps of ``chip_smoke.py``'s train
 phases then run with the committed backward and its CUDA-core
@@ -413,10 +418,32 @@ EXPERIMENTS.update({
         "          if (live[c]) {\n            const size_t off",
         "          if (live[c] && L < 0) {\n            const size_t off")],
 })
+EXPERIMENTS.update({
+    ("k8", "committed"): [],
+    # every row relaxed on every superstep: what skipping the rows that
+    # had no frontier on the previous one saves
+    ("k8", "no_row_skip"): [(
+        "row_live[i] = it == 0 || conv[s0 + i] >= it;", "row_live[i] = 1;")],
+    # the in-neighbour table read from device memory (L1) for every source
+    ("k8", "table_not_staged"): [(
+        "  return K <= MAX_STAGED_K\n", "  return K <= 0\n")],
+    # tiles of 64 or 256 vertices: table reloads against warps per block
+    ("k8", "tile_64"): [("constexpr int TV = 128; ", "constexpr int TV = 64; ")],
+    ("k8", "tile_256"): [
+        ("constexpr int TV = 128; ", "constexpr int TV = 256; ")],
+    # fewer or more blocks over the grid (source groups of other sizes)
+    ("k8", "waves_8"): [("constexpr int WAVES = 32;", "constexpr int WAVES = 8;")],
+    ("k8", "waves_128"): [
+        ("constexpr int WAVES = 32;", "constexpr int WAVES = 128;")],
+    ("k8", "warps_8"): [("constexpr int WARPS = 16;", "constexpr int WARPS = 8;")],
+    ("k8", "warps_32"): [
+        ("constexpr int WARPS = 16;", "constexpr int WARPS = 32;")],
+})
 SOURCE = {"k1": "minmax_relax", "k5": "flash_attention",
           "k5bwd": "flash_attention_bwd",
           "k34": "panel_update", "k6": "mamba_scan", "k7": "rwkv6_scan",
-          "k6bwd": "mamba_scan_bwd", "k7bwd": "rwkv6_scan_bwd"}
+          "k6bwd": "mamba_scan_bwd", "k7bwd": "rwkv6_scan_bwd",
+          "k8": "ell_superstep"}
 VARIANT_SOURCES = ROOT / "tools" / "variant_sources"
 # K3/K4 variants' tile kinds, ((small TC range, BK), (large TC range, BK)),
 # where they differ from ops.panel_tile's
@@ -535,6 +562,71 @@ def k1_cases(torch, np, rng):
             np.int32), device="cuda")
         out[tag] = ((prop, adj), plain.minmax_relax_plain(prop, adj))
     return out
+
+
+# K8's chunks of the ell cell's pattern: (first source, superstep)
+K8_CHUNKS = (("first", 0, 1), ("middle", 12_288, 3), ("last", 24_064, 3),
+             ("last_late", 24_064, 12))
+
+
+def k8_cases(torch, np):
+    """K8 at the ell cell's shape: a 24,576-row HPCG 27-point pattern in
+    nested-dissection order (``portbench/generators/hpcg27.py``, seed 1),
+    512 sources a chunk, each case one superstep of one chunk, its state
+    reached by running the committed kernel up to it.  A case is (state,
+    the plain version's result of that superstep)."""
+    sys.path.insert(0, str(ROOT))
+    from portbench.generators import hpcg27
+    from repro_torch.core import gsofa
+    from repro_torch.kernels import ops, plain
+    from repro_torch.sparse.csr import CSRMatrix
+
+    n, indptr, indices = hpcg27.generate(1, nx=32, ny=32, nz=24)
+    graph = gsofa.prepare_graph(CSRMatrix(n=n, indptr=indptr,
+                                          indices=indices), device="cuda")
+    out = {}
+    for tag, first, step in K8_CHUNKS:
+        srcs = torch.arange(first, first + 512, dtype=torch.int32,
+                            device="cuda")
+        labels = gsofa.init_labels(graph, srcs)
+        state = [labels, torch.empty_like(labels),
+                 torch.zeros(512, dtype=torch.int32, device="cuda"),
+                 torch.zeros(512, dtype=torch.int32, device="cuda"),
+                 torch.zeros(1, dtype=torch.int32, device="cuda")]
+        for it in range(step):
+            ops.ell_superstep(*state[:2], graph.in_ell, graph.out_deg, srcs,
+                              *state[2:], offset=0, it=it)
+            state[:2] = state[1::-1]
+        want = [t.clone() for t in state]
+        plain.ell_superstep_plain(*want[:2], graph.in_ell, graph.out_deg,
+                                  srcs, *want[2:], offset=0, it=step)
+        out[tag] = ((graph, srcs, state, step), want)
+    return out
+
+
+def k8_run(torch, ops, plain, args, want):
+    """(launch, matches_plain, plain_launch, (bytes, ops)) of one K8
+    case: the launch works on a copy of the case's state."""
+    from repro_torch.kernels import work
+
+    graph, srcs, state, step = args
+    mine = [t.clone() for t in state]
+    theirs = [t.clone() for t in state]
+
+    def launch():
+        ops.ell_superstep(*mine[:2], graph.in_ell, graph.out_deg, srcs,
+                          *mine[2:], offset=0, it=step)
+
+    def plain_launch():
+        plain.ell_superstep_plain(*theirs[:2], graph.in_ell, graph.out_deg,
+                                  srcs, *theirs[2:], offset=0, it=step)
+
+    launch()
+    right = all(torch.equal(x, y) for x, y in zip(mine[1:], want[1:]))
+    for t, s in zip(mine, state):
+        t.copy_(s)
+    return launch, right, plain_launch, work.ell_superstep_work(
+        512, graph.n, graph.in_ell.shape[1])
 
 
 def k5_cases(torch, np, rng):
@@ -725,7 +817,7 @@ def main(argv) -> int:
     train = "--train" in argv
     argv = [a for a in argv if a != "--train"]
     kernels = argv or ["k1", "k5", "k34", "k5bwd", "k6", "k7", "k6bwd",
-                       "k7bwd"]
+                       "k7bwd", "k8"]
     libs = build([key for key in EXPERIMENTS if key[0] in kernels])
     todo = list(libs)
     rng = np.random.default_rng(0)
@@ -733,6 +825,7 @@ def main(argv) -> int:
              "k5": k5_cases(torch, np, rng) if "k5" in kernels else {},
              "k34": k34_cases(torch, np, rng) if "k34" in kernels else {},
              "k5bwd": k5bwd_cases(torch) if "k5bwd" in kernels else {},
+             "k8": k8_cases(torch, np) if "k8" in kernels else {},
              **{kern: scan_cases(torch, kern, rng) for kern in ("k6", "k7")
                 if kern in kernels},
              **{kern: scan_bwd_cases(torch, kern)
@@ -751,6 +844,17 @@ def main(argv) -> int:
             print(json.dumps(line), flush=True)
             continue
         for tag, (args, want) in cases[kern].items():
+            if kern == "k8":
+                from repro_torch.kernels import plain
+
+                fn, right, plain_fn, (nbytes, _) = k8_run(torch, ops, plain,
+                                                          args, want)
+                line[tag] = {"ms": device_ms(torch, fn, n=50),
+                             "matches_plain": right,
+                             "bound_ms": nbytes / 3.35e9}
+                if name == "committed":
+                    line[tag]["plain_ms"] = device_ms(torch, plain_fn, n=3)
+                continue
             if kern == "k1":
                 fn = lambda: ops.minmax_relax(*args)
                 got = fn()
